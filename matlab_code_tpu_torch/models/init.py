@@ -1,0 +1,124 @@
+"""Initialization of the solver state (init_coupled_AOADMM_CMTF.m),
+counterpart of the random-draw path of matlab_code_tpu/models/init.py for CP
+datasets and coupling types 0 and 4.
+
+Draws come from an explicit torch.Generator, in the JAX package's order
+(factors per dataset and mode, then constraint auxiliaries and duals, then
+couplings).  torch and jax.random give different numbers from the same
+seed, so a run that must match the JAX package moves its init state across
+with convert.state_from_numpy.  nvecs init comes with slice 3 and PARAFAC2
+init with slice 4.
+"""
+from __future__ import annotations
+
+import torch
+
+from matlab_code_tpu_torch.models.admm import _check_ctype
+from matlab_code_tpu_torch.options import InitOptions
+from matlab_code_tpu_torch.problem import ProblemSpec, ProblemData, CP
+from matlab_code_tpu_torch.state import SolverState
+
+
+def _sampler(distr):
+    if callable(distr):
+        return distr
+    if distr == "rand":
+        return lambda g, shape, dt, dev: torch.rand(shape, generator=g, dtype=dt,
+                                                    device=dev)
+    if distr == "randn":
+        return lambda g, shape, dt, dev: torch.randn(shape, generator=g, dtype=dt,
+                                                     device=dev)
+    if distr == "rand+0.1":
+        return lambda g, shape, dt, dev: torch.rand(
+            shape, generator=g, dtype=dt, device=dev) + 0.1
+    raise ValueError(f"Unknown distr {distr!r}")
+
+
+def _normalize_cols(A):
+    return A / torch.linalg.vector_norm(A, dim=0, keepdim=True)
+
+
+def init_coupled(spec: ProblemSpec, data: ProblemData,
+                 init_options: InitOptions, generator: torch.Generator | None = None,
+                 seed: int = 0) -> SolverState:
+    """Build a full initial SolverState (factors, constraint auxiliaries and
+    duals, coupling Delta and duals) — init_coupled_AOADMM_CMTF.m:37-169.
+
+    generator: the source of every draw; when None, one is seeded with
+    `seed`.  The state takes the dtype and device of the first data object."""
+    dt = data.objects[0].dtype
+    dev = data.objects[0].device
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
+    nb = spec.nb_modes
+    ncpl = spec.coupling.n_couplings
+    P = len(spec.datasets)
+    distr = init_options.distr or tuple("rand" for _ in range(nb))
+    if len(distr) != nb:
+        raise ValueError(
+            f"init_options.distr has {len(distr)} entries for {nb} modes")
+    if init_options.lambdas_init:
+        li = init_options.lambdas_init
+        if len(li) != P:
+            raise ValueError(
+                f"init_options.lambdas_init has {len(li)} entries for "
+                f"{P} datasets")
+        for p, lam in enumerate(li):
+            if len(lam) != spec.datasets[p].rank:
+                raise ValueError(
+                    f"init_options.lambdas_init[{p}] has length {len(lam)} "
+                    f"but dataset {p} has rank {spec.datasets[p].rank} "
+                    "(DatasetSpec.rank is authoritative and they must agree)")
+    if init_options.nvecs:
+        raise NotImplementedError(
+            "nvecs initialization comes with slice 3 (ROADMAP.md)")
+
+    def draw(m, shape):
+        return _sampler(distr[m])(generator, shape, dt, dev)
+
+    def rand(shape):
+        return torch.rand(shape, generator=generator, dtype=dt, device=dev)
+
+    fac = [None] * nb
+    for p, ds in enumerate(spec.datasets):
+        if ds.model != CP:
+            raise NotImplementedError(
+                "PARAFAC2 initialization comes with slice 4 (ROADMAP.md)")
+        for n in ds.modes:
+            A = draw(n, (spec.mode_sizes[n], ds.rank))
+            fac[n] = _normalize_cols(A) if init_options.normalize else A
+
+    from matlab_code_tpu_torch.models.solver import build_proxes
+    proxes, _ = build_proxes(spec)
+    constraint_fac = [None] * nb
+    constraint_dual = [None] * nb
+    for p, ds in enumerate(spec.datasets):
+        for n in ds.modes:
+            if spec.is_constrained(n):
+                constraint_fac[n] = proxes[n](draw(n, fac[n].shape), 1.0)
+                constraint_dual[n] = rand(fac[n].shape)
+
+    coupling_fac = [None] * ncpl
+    coupling_dual = [None] * nb
+    for cid in range(1, ncpl + 1):
+        cmodes = spec.coupled_modes_of(cid)
+        m1 = cmodes[0]
+        ctype = spec.coupling.coupling_type[cid - 1]
+        _check_ctype(ctype)
+        if ctype == 0:
+            coupling_fac[cid - 1] = rand(fac[m1].shape)
+            for m in cmodes:
+                coupling_dual[m] = rand(fac[m1].shape)
+        else:
+            H1 = data.coupl_trafo[m1]
+            coupling_fac[cid - 1] = rand((fac[m1].shape[0], H1.shape[0]))
+            for m in cmodes:
+                coupling_dual[m] = rand(fac[m].shape)
+
+    return SolverState(
+        fac=tuple(fac), constraint_fac=tuple(constraint_fac),
+        constraint_dual_fac=tuple(constraint_dual),
+        coupling_fac=tuple(coupling_fac),
+        coupling_dual_fac=tuple(coupling_dual),
+        P=(None,) * P, DeltaB=(None,) * P, mu_DeltaB=(None,) * P)

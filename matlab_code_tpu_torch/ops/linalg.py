@@ -1,0 +1,55 @@
+"""Small dense linear algebra of the ADMM updates (counterpart of the
+main-path part of matlab_code_tpu/ops/linalg.py).  All systems are R x R.
+
+chol_lower returns NaNs for a matrix that is not positive definite, as
+jnp.linalg.cholesky does, instead of raising like torch.linalg.cholesky:
+the solver turns a non-finite factor into the ill-conditioning flag
+(models/admm._chol_rcond_bad).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def chol_lower(B: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of symmetric positive-definite B (chol(B',
+    'lower'), cmtf_fun_AOADMM.m:142); all-NaN where B is not positive
+    definite.  Batched over leading dims."""
+    L, info = torch.linalg.cholesky_ex(B)
+    bad = (info != 0)[..., None, None]
+    return torch.where(bad, torch.full_like(L, float("nan")), L)
+
+
+def solve_with_chol(L: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """Solve X B = A for X given B = L L^T: the reference's (A/L')/L
+    (cmtf_fun_AOADMM.m:609).  A: (I, R)."""
+    y = torch.linalg.solve_triangular(L, A.transpose(-1, -2), upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+    return x.transpose(-1, -2)
+
+
+def spd_inverse_from_chol(L: torch.Tensor) -> torch.Tensor:
+    """B^{-1} = L^{-T} L^{-1} from the lower Cholesky factor of B."""
+    R = L.shape[-1]
+    eye = torch.eye(R, dtype=L.dtype, device=L.device).expand(L.shape)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return Linv.transpose(-1, -2) @ Linv
+
+
+def solve_spd_left(L: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """Solve B X = A given B = L L^T.  A: (n, k)."""
+    y = torch.linalg.solve_triangular(L, A, upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+
+
+def solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A^{-1} B for general square A, like jnp.linalg.solve: a singular A
+    gives non-finite values instead of an error, and on CUDA the solve does
+    not wait for the device to check for one."""
+    return torch.linalg.solve_ex(A, B)[0]
+
+
+def rsolve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """MATLAB A/B (solve X B = A) for general square B, solved with the
+    transpose as in the JAX package: solve(B^T, A^T)^T."""
+    return solve(B.transpose(-1, -2), A.transpose(-1, -2)).transpose(-1, -2)

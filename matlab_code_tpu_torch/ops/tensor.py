@@ -1,0 +1,89 @@
+"""Dense tensor operations: MTTKRP, Khatri-Rao, ktensor reconstruction,
+Grams (counterpart of matlab_code_tpu/ops/tensor.py).
+
+mttkrp dispatches a 3-way CUDA tensor to the hand-written kernel
+(ops/mttkrp_cuda.mttkrp3); a CPU tensor, and any other order, takes the
+plain einsum.  The sparse COO MTTKRP comes with slice 2.
+"""
+from __future__ import annotations
+
+import string
+
+import torch
+
+from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
+
+_LETTERS = string.ascii_lowercase
+
+
+def mttkrp(X: torch.Tensor, factors, mode: int) -> torch.Tensor:
+    """Matricized-tensor times Khatri-Rao product for dense X:
+    unfold(X, mode) @ khatri_rao(factors except mode), shape
+    (X.shape[mode], R) (Tensor Toolbox `mttkrp`, cmtf_fun_AOADMM.m:97)."""
+    n = X.dim()
+    if len(factors) != n:
+        raise ValueError(f"mttkrp: {len(factors)} factors for a {n}-way tensor")
+    if n == 3 and X.device.type == "cuda":
+        return mttkrp3(X, factors, mode)
+    tensor_sub = _LETTERS[:n]
+    factor_subs = [f"{_LETTERS[i]}z" for i in range(n) if i != mode]
+    operands = [X] + [factors[i] for i in range(n) if i != mode]
+    eq = tensor_sub + "," + ",".join(factor_subs) + "->" + _LETTERS[mode] + "z"
+    return torch.einsum(eq, *operands)
+
+
+def khatri_rao(factors) -> torch.Tensor:
+    """Column-wise Khatri-Rao product, rows ordered with the FIRST factor's
+    index varying slowest (C order)."""
+    R = factors[0].shape[1]
+    out = factors[0]
+    for f in factors[1:]:
+        out = (out[:, None, :] * f[None, :, :]).reshape(-1, R)
+    return out
+
+
+def ktensor_full(factors, weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Dense reconstruction sum_r w_r a_r o b_r o c_r ... (full(ktensor),
+    cmtf_fun_AOADMM.m:416)."""
+    n = len(factors)
+    first = factors[0] if weights is None else factors[0] * weights[None, :]
+    subs = [f"{_LETTERS[i]}z" for i in range(n)]
+    eq = ",".join(subs) + "->" + _LETTERS[:n]
+    return torch.einsum(eq, first, *factors[1:])
+
+
+def gram(U: torch.Tensor) -> torch.Tensor:
+    """U^T U (R x R).  cmtf_fun_AOADMM.m:66."""
+    return U.T @ U
+
+
+def hadamard_grams(grams) -> torch.Tensor:
+    """Elementwise product of R x R Grams (cmtf_fun_AOADMM.m:98-103)."""
+    out = grams[0]
+    for g in grams[1:]:
+        out = out * g
+    return out
+
+
+def unfold(X: torch.Tensor, mode: int) -> torch.Tensor:
+    """Mode-`mode` unfolding (X.shape[mode], prod(rest)), C-order columns."""
+    return torch.movedim(X, mode, 0).reshape(X.shape[mode], -1)
+
+
+def cp_frob_objective(X: torch.Tensor, factors, znorm_const, weight: float
+                      ) -> torch.Tensor:
+    """w * (||X||^2 - 2<X, M> + ||M||^2) via the MTTKRP trick
+    (cp_func.m:37-56 / pca_func.m:29-39)."""
+    mk = mttkrp(X, factors, 0)
+    f2 = torch.sum(mk * factors[0])
+    f3 = torch.sum(hadamard_grams([gram(U) for U in factors]))
+    return weight * (znorm_const - 2.0 * f2 + f3)
+
+
+def masked_frob_norm_sq(X: torch.Tensor, mask: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """||mask .* X||_F^2 (mask optional)."""
+    if mask is None:
+        return torch.sum(X * X)
+    Xm = torch.where(mask, X, torch.zeros((), dtype=X.dtype, device=X.device))
+    return torch.sum(Xm * Xm)

@@ -1,0 +1,76 @@
+"""The port never loads jax, and chip_smoke.py refuses to report without a
+CUDA card or without the package beside it.  Each check runs in a fresh
+interpreter, because this test process has jax loaded already."""
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_MODULES = [
+    "matlab_code_tpu_torch", "matlab_code_tpu_torch.problem",
+    "matlab_code_tpu_torch.options", "matlab_code_tpu_torch.state",
+    "matlab_code_tpu_torch.convert", "matlab_code_tpu_torch.ops.tensor",
+    "matlab_code_tpu_torch.ops.mttkrp_cuda", "matlab_code_tpu_torch.ops._build",
+    "matlab_code_tpu_torch.ops.linalg", "matlab_code_tpu_torch.ops.prox",
+    "matlab_code_tpu_torch.ops.losses", "matlab_code_tpu_torch.models.updates",
+    "matlab_code_tpu_torch.models.admm", "matlab_code_tpu_torch.models.objective",
+    "matlab_code_tpu_torch.models.init", "matlab_code_tpu_torch.models.solver",
+    "matlab_code_tpu_torch.utils.flagship",
+]
+
+
+def _python(code, cwd=REPO):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO if cwd == REPO else ""
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_torch_port_never_imports_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {PORT_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith(('jax.', 'jaxlib', 'matlab_code_tpu.')) or "
+            "k == 'matlab_code_tpu')\n"
+            "print('LOADED', bad)\n")
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def test_torch_port_builds_nothing_at_import():
+    code = ("import matlab_code_tpu_torch.ops.mttkrp_cuda as k, "
+            "matlab_code_tpu_torch.ops._build as b\n"
+            "print('STATE', k._LIB is None, b.BUILD_LOGS == {})\n")
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "STATE True True" in proc.stdout
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=300,
+                          env={k: v for k, v in os.environ.items()
+                               if k != "PYTHONPATH"})
+
+
+def _no_result(proc):
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert '"kernels"' not in proc.stdout
+
+
+def test_torch_chip_smoke_fails_without_a_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: chip_smoke.py runs for real there")
+    _no_result(_run_smoke(REPO))
+
+
+def test_torch_chip_smoke_fails_without_the_package(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    _no_result(_run_smoke(tmp_path))

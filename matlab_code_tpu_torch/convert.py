@@ -4,8 +4,10 @@ whole port) never imports jax.
 
   spec_from_reference(obj)  a JAX-package ProblemSpec -> the port's ProblemSpec
   options_from_reference(obj)  a JAX-package AlgOptions -> the port's AlgOptions
-  data_from_numpy(...)      numpy arrays -> the port's ProblemData
-  state_from_numpy(fields)  a SolverState's arrays -> the port's SolverState
+  data_from_numpy(...)      numpy arrays (and COO tensors) -> the port's
+                            ProblemData, on the card unless `device` says
+  state_from_numpy(fields)  a SolverState's arrays -> the port's SolverState,
+                            on the card unless `device` says
   state_to_numpy(state)     the port's SolverState -> {field: tuple of arrays}
 """
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 
 from matlab_code_tpu_torch.options import AlgOptions, LbfgsbOptions
 from matlab_code_tpu_torch.problem import (
-    ConstraintSpec, CouplingSpec, DatasetSpec, ProblemData, ProblemSpec)
+    ConstraintSpec, CouplingSpec, DatasetSpec, ProblemData, ProblemSpec,
+    SparseTensor)
 from matlab_code_tpu_torch.state import FIELDS, SolverState
 
 
@@ -58,17 +61,30 @@ def _tensor(a, device, dtype):
     return torch.tensor(a, dtype=dtype, device=device)
 
 
+def _object(a, device, dtype):
+    """A dense array, or a COO tensor read by its attributes `indices` and
+    `values` (the JAX package's SparseTensor: its plans are the TPU layout
+    and are not carried across)."""
+    if hasattr(a, "indices") and hasattr(a, "values"):
+        return SparseTensor(
+            torch.tensor(np.asarray(a.indices), dtype=torch.int32,
+                         device=device),
+            _tensor(a.values, device, dtype))
+    return _tensor(a, device, dtype)
+
+
 def data_from_numpy(objects, coupl_trafo=(), coupl_trafo2=(), miss=(),
-                    device="cpu", dtype=torch.float64) -> ProblemData:
+                    device="cuda", dtype=torch.float64) -> ProblemData:
     """Build the port's ProblemData from arrays (anything np.asarray takes,
-    including the JAX package's ProblemData fields)."""
+    including the JAX package's ProblemData fields and SparseTensors)."""
     conv = lambda seq: tuple(_tensor(a, device, dtype) for a in seq)
-    return ProblemData(objects=conv(objects), miss=conv(miss),
-                       coupl_trafo=conv(coupl_trafo),
+    return ProblemData(objects=tuple(_object(a, device, dtype)
+                                     for a in objects),
+                       miss=conv(miss), coupl_trafo=conv(coupl_trafo),
                        coupl_trafo2=conv(coupl_trafo2))
 
 
-def state_from_numpy(fields, device="cpu", dtype=torch.float64) -> SolverState:
+def state_from_numpy(fields, device="cuda", dtype=torch.float64) -> SolverState:
     """The port's SolverState from a mapping {field: tuple of arrays or
     None}, or from any object with those attributes (a JAX-package
     SolverState, whose arrays np.asarray reads)."""

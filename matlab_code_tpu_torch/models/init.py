@@ -1,21 +1,25 @@
 """Initialization of the solver state (init_coupled_AOADMM_CMTF.m),
-counterpart of the random-draw path of matlab_code_tpu/models/init.py for CP
-datasets and coupling types 0 and 4.
+counterpart of the CP part of matlab_code_tpu/models/init.py: random draws
+or spectral ('nvecs') factors, coupling types 0 and 4.
 
 Draws come from an explicit torch.Generator, in the JAX package's order
 (factors per dataset and mode, then constraint auxiliaries and duals, then
 couplings).  torch and jax.random give different numbers from the same
 seed, so a run that must match the JAX package moves its init state across
-with convert.state_from_numpy.  nvecs init comes with slice 3 and PARAFAC2
-init with slice 4.
+with convert.state_from_numpy.  nvecs factors take no draw and match the
+JAX package's.  PARAFAC2 init comes with slice 4.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from matlab_code_tpu_torch.models.admm import _check_ctype
+from matlab_code_tpu_torch.ops.linalg import top_eigvecs
+from matlab_code_tpu_torch.ops.tensor import unfold
 from matlab_code_tpu_torch.options import InitOptions
-from matlab_code_tpu_torch.problem import ProblemSpec, ProblemData, CP
+from matlab_code_tpu_torch.problem import (
+    CP, ProblemData, ProblemSpec, SparseTensor)
 from matlab_code_tpu_torch.state import SolverState
 
 
@@ -38,6 +42,49 @@ def _normalize_cols(A):
     return A / torch.linalg.vector_norm(A, dim=0, keepdim=True)
 
 
+def _coo_unfolding_gram(X: SparseTensor, shape, mode: int) -> np.ndarray:
+    """Gram U_mode @ U_mode.T of the mode unfolding of a COO tensor without
+    densifying (the reference's sptenmat path, cmtf_nvecs.m:41-42): a scipy
+    CSR with rows = the mode's index and columns = the other modes'
+    linearized index, times its transpose.  Host set-up work, once per fit;
+    float64."""
+    from scipy.sparse import csr_matrix
+    idx = X.indices.cpu().numpy()
+    val = X.values.cpu().numpy().astype(np.float64)
+    rows = idx[:, mode].astype(np.int64)
+    rid = np.zeros(len(val), np.int64)
+    ncols = 1
+    for d in range(len(shape)):
+        if d != mode:
+            rid = rid * shape[d] + idx[:, d]
+            ncols *= int(shape[d])
+    S = csr_matrix((val, (rows, rid)), shape=(int(shape[mode]), ncols))
+    return np.asarray((S @ S.T).todense())
+
+
+def cmtf_nvecs(spec: ProblemSpec, data: ProblemData, n: int, r: int
+               ) -> torch.Tensor:
+    """Leading r eigenvectors of the Gram of the concatenated mode-n
+    unfoldings of every CP dataset holding mode n (cmtf_nvecs.m:34-56),
+    dense or COO, on the data's device."""
+    Y = None
+    for p, ds in enumerate(spec.datasets):
+        if n in ds.modes and ds.model == CP:
+            X = data.objects[p]
+            local = ds.modes.index(n)
+            if isinstance(X, SparseTensor):
+                sizes = tuple(spec.mode_sizes[m] for m in ds.modes)
+                G = torch.as_tensor(_coo_unfolding_gram(X, sizes, local),
+                                    dtype=X.dtype, device=X.device)
+            else:
+                U = unfold(X, local)
+                G = U @ U.T
+            Y = G if Y is None else Y + G
+    if Y is None:
+        raise ValueError(f"nvecs: mode {n} not found in any CP dataset")
+    return top_eigvecs(Y, r)
+
+
 def init_coupled(spec: ProblemSpec, data: ProblemData,
                  init_options: InitOptions, generator: torch.Generator | None = None,
                  seed: int = 0) -> SolverState:
@@ -45,7 +92,8 @@ def init_coupled(spec: ProblemSpec, data: ProblemData,
     duals, coupling Delta and duals) — init_coupled_AOADMM_CMTF.m:37-169.
 
     generator: the source of every draw; when None, one is seeded with
-    `seed`.  The state takes the dtype and device of the first data object."""
+    `seed`.  The state takes the dtype and device of the first data object
+    (of its values, for a SparseTensor)."""
     dt = data.objects[0].dtype
     dev = data.objects[0].device
     if generator is None:
@@ -70,10 +118,6 @@ def init_coupled(spec: ProblemSpec, data: ProblemData,
                     f"init_options.lambdas_init[{p}] has length {len(lam)} "
                     f"but dataset {p} has rank {spec.datasets[p].rank} "
                     "(DatasetSpec.rank is authoritative and they must agree)")
-    if init_options.nvecs:
-        raise NotImplementedError(
-            "nvecs initialization comes with slice 3 (ROADMAP.md)")
-
     def draw(m, shape):
         return _sampler(distr[m])(generator, shape, dt, dev)
 
@@ -86,6 +130,9 @@ def init_coupled(spec: ProblemSpec, data: ProblemData,
             raise NotImplementedError(
                 "PARAFAC2 initialization comes with slice 4 (ROADMAP.md)")
         for n in ds.modes:
+            if init_options.nvecs:
+                fac[n] = cmtf_nvecs(spec, data, n, ds.rank).to(dt)
+                continue
             A = draw(n, (spec.mode_sizes[n], ds.rank))
             fac[n] = _normalize_cols(A) if init_options.normalize else A
 

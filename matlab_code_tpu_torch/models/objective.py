@@ -5,15 +5,17 @@ matlab_code_tpu/models/objective.py.
 Returns the four streams (f_tensors, f_couplings, f_constraints,
 f_PAR2_couplings) as 0-d tensors.  The data term reads the cached MTTKRP
 of the last updated mode (no extra data pass); the fresh branch (iteration
-0) runs one MTTKRP per dataset.
+0) runs one MTTKRP per dataset, dense or sparse COO.
 """
 from __future__ import annotations
 
 import torch
 
 from matlab_code_tpu_torch.models.admm import _check_ctype
-from matlab_code_tpu_torch.ops.tensor import mttkrp, gram, hadamard_grams
-from matlab_code_tpu_torch.problem import ProblemSpec, ProblemData, CP
+from matlab_code_tpu_torch.ops.tensor import (
+    gram, hadamard_grams, mttkrp, mttkrp_sparse)
+from matlab_code_tpu_torch.problem import (
+    CP, ProblemData, ProblemSpec, SparseTensor)
 
 _fro = torch.linalg.norm
 
@@ -52,7 +54,12 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
             fp = ds.weight * (znorm_consts[p] - 2.0 * f2 + f3)
         else:
             facs = [state.fac[j] for j in ds.modes]
-            mk = mttkrp(X, facs, 0)
+            if isinstance(X, SparseTensor):
+                mk = mttkrp_sparse(X.indices, X.values, facs, 0,
+                                   facs[0].shape[0],
+                                   plan=None if X.plans is None else X.plans[0])
+            else:
+                mk = mttkrp(X, facs, 0)
             f2 = torch.sum(mk * facs[0])
             f3 = torch.sum(hadamard_grams([gram(U) for U in facs]))
             fp = ds.weight * (znorm_consts[p] - 2.0 * f2 + f3)

@@ -11,6 +11,7 @@ times are exact, as in the JAX package's fit_stepwise.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Any
@@ -29,7 +30,7 @@ from matlab_code_tpu_torch.ops.prox import make_prox
 from matlab_code_tpu_torch.ops.tensor import gram
 from matlab_code_tpu_torch.options import AlgOptions, apply_matmul_precision
 from matlab_code_tpu_torch.problem import (
-    CP, ProblemData, ProblemSpec, check_data_input, has_missing)
+    CP, ProblemData, ProblemSpec, SparseTensor, check_data_input, has_missing)
 from matlab_code_tpu_torch.state import SolverState, tuple_set
 
 STREAMS = ("f_tensors", "f_couplings", "f_constraints", "f_PAR2_couplings")
@@ -66,10 +67,46 @@ def init_cache(spec: ProblemSpec, state: SolverState) -> tuple:
 
 def compute_znorm_consts(spec: ProblemSpec, data: ProblemData,
                          options: AlgOptions):
-    """Per-dataset data constants (cmtf_AOADMM.m:124-189)."""
-    return tuple(losses.znorm_const(ds.loss, data.objects[p], options.eps_log,
-                                    ds.loss_param, data.miss[p])
-                 for p, ds in enumerate(spec.datasets))
+    """Per-dataset data constants (cmtf_AOADMM.m:124-189); sum of squared
+    values for a sparse COO dataset."""
+    out = []
+    for p, ds in enumerate(spec.datasets):
+        X = data.objects[p]
+        if isinstance(X, SparseTensor):
+            out.append(torch.sum(X.values * X.values))
+        else:
+            out.append(losses.znorm_const(ds.loss, X, options.eps_log,
+                                          ds.loss_param, data.miss[p]))
+    return tuple(out)
+
+
+def attach_sparse_plans(spec: ProblemSpec, data: ProblemData,
+                        options: AlgOptions) -> ProblemData:
+    """Attach the CUDA kernel's plans (ops/sparse_cuda.build_plan) to every
+    SparseTensor on a CUDA card that has none, whatever
+    options.sparse_mttkrp says: on the card every sparse MTTKRP runs the
+    kernel.  Set-up work with torch ops on the card, once per sparsity
+    pattern.  Data on the CPU is returned as it is."""
+    objs = list(data.objects)
+    for p, X in enumerate(objs):
+        if isinstance(X, SparseTensor) and X.plans is None \
+                and X.device.type == "cuda":
+            objs[p] = X.with_plans(
+                tuple(spec.mode_sizes[m] for m in spec.datasets[p].modes))
+    if all(a is b for a, b in zip(objs, data.objects)):
+        return data
+    return dataclasses.replace(data, objects=tuple(objs))
+
+
+def _check_devices(data: ProblemData, state: SolverState) -> None:
+    dev = state.fac[0].device
+    for p, X in enumerate(data.objects):
+        if isinstance(X, SparseTensor) and (X.indices.device != dev
+                                            or X.values.device != dev):
+            raise ValueError(
+                f"dataset {p}: the sparse tensor's indices and values lie on "
+                f"{X.indices.device} and {X.values.device}, the factors on "
+                f"{dev}")
 
 
 def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns):
@@ -184,10 +221,14 @@ class FitOutput:
 def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
         options: AlgOptions, validate: bool = True):
     """Run AO-ADMM until the stopping rule holds or MaxOuterIters.  Returns
-    (state, FitOutput).  Runs on the device and in the dtype of the data."""
+    (state, FitOutput).  Runs on the device and in the dtype of the data;
+    sparse COO data on a CUDA card gets its kernel plans first
+    (attach_sparse_plans)."""
     if validate:
         check_data_input(spec, data)
     _check_ported(spec)
+    _check_devices(data, state)
+    data = attach_sparse_plans(spec, data, options)
     if has_missing(data):
         raise NotImplementedError(
             "missing data (EM imputation) comes with slice 6 (ROADMAP.md)")

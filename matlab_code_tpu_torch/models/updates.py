@@ -8,8 +8,9 @@ from typing import NamedTuple
 
 import torch
 
-from matlab_code_tpu_torch.ops.tensor import mttkrp, gram, hadamard_grams
-from matlab_code_tpu_torch.problem import ProblemSpec, ProblemData
+from matlab_code_tpu_torch.ops.tensor import (
+    gram, hadamard_grams, mttkrp, mttkrp_sparse)
+from matlab_code_tpu_torch.problem import ProblemSpec, ProblemData, SparseTensor
 
 
 class ModePre(NamedTuple):
@@ -43,14 +44,17 @@ def cp_mode_precompute(spec: ProblemSpec, data: ProblemData, state, grams,
     the same tensor object (factors are never updated in place)."""
     ds = spec.datasets[p]
     X = data.objects[p]
-    if not isinstance(X, torch.Tensor):
-        raise NotImplementedError(
-            f"dataset {p} is a {type(X).__name__}: sparse COO tensors come "
-            "with slice 2 (ROADMAP.md)")
     w = ds.weight
     R = ds.rank
     local = ds.modes.index(m)
-    if X.dim() == 3 and local > 0 and partials is not None \
+    if isinstance(X, SparseTensor):
+        # before the dimension tree: a sparse dataset never touches partials
+        A = w * mttkrp_sparse(X.indices, X.values,
+                              [state.fac[j] for j in ds.modes], local,
+                              spec.mode_sizes[m],
+                              plan=None if X.plans is None else X.plans[local])
+        C = hadamard_grams([grams[j] for j in ds.modes if j != m])
+    elif X.dim() == 3 and local > 0 and partials is not None \
             and options.cp_dimension_tree and R <= X.shape[0]:
         A0 = state.fac[ds.modes[0]]
         hit = partials.get(p)

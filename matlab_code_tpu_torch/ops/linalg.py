@@ -1,5 +1,6 @@
-"""Small dense linear algebra of the ADMM updates (counterpart of the
-main-path part of matlab_code_tpu/ops/linalg.py).  All systems are R x R.
+"""Small dense linear algebra of the ADMM updates and of nvecs init
+(counterpart of the main-path part of matlab_code_tpu/ops/linalg.py).  All
+systems are R x R.
 
 chol_lower returns NaNs for a matrix that is not positive definite, as
 jnp.linalg.cholesky does, instead of raising like torch.linalg.cholesky:
@@ -53,3 +54,16 @@ def rsolve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """MATLAB A/B (solve X B = A) for general square B, solved with the
     transpose as in the JAX package: solve(B^T, A^T)^T."""
     return solve(B.transpose(-1, -2), A.transpose(-1, -2)).transpose(-1, -2)
+
+
+def top_eigvecs(Y: torch.Tensor, r: int) -> torch.Tensor:
+    """Leading-r eigenvectors (by eigenvalue) of symmetric PSD Y, like
+    eigs(Y, r, 'LM') (init_coupled_AOADMM_CMTF.m:60, cmtf_nvecs.m), with the
+    JAX package's sign convention: the largest-|.| entry of each vector is
+    made positive."""
+    _, V = torch.linalg.eigh(Y)          # ascending
+    V = V.flip(-1)[:, :r]
+    idx = torch.argmax(V.abs(), dim=0)
+    signs = torch.sign(V[idx, torch.arange(r, device=V.device)])
+    signs = torch.where(signs == 0, torch.ones_like(signs), signs)
+    return V * signs[None, :]

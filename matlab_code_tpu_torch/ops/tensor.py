@@ -1,9 +1,12 @@
-"""Dense tensor operations: MTTKRP, Khatri-Rao, ktensor reconstruction,
-Grams (counterpart of matlab_code_tpu/ops/tensor.py).
+"""Tensor operations: MTTKRP (dense and sparse COO), Khatri-Rao, ktensor
+reconstruction, Grams (counterpart of matlab_code_tpu/ops/tensor.py).
 
 mttkrp dispatches a 3-way CUDA tensor to the hand-written kernel
 (ops/mttkrp_cuda.mttkrp3); a CPU tensor, and any other order, takes the
-plain einsum.  The sparse COO MTTKRP comes with slice 2.
+plain einsum.  mttkrp_sparse sends COO data on a CUDA card to the
+hand-written sparse kernel (ops/sparse_cuda.mttkrp_sparse_cuda) and COO
+data on the CPU to its plain version; AlgOptions.sparse_mttkrp chooses
+nothing here.
 """
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ import string
 import torch
 
 from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
+from matlab_code_tpu_torch.ops.sparse_cuda import (
+    SparsePlan, mttkrp_sparse_cuda, mttkrp_sparse_reference)
 
 _LETTERS = string.ascii_lowercase
 
@@ -50,6 +55,29 @@ def ktensor_full(factors, weights: torch.Tensor | None = None) -> torch.Tensor:
     subs = [f"{_LETTERS[i]}z" for i in range(n)]
     eq = ",".join(subs) + "->" + _LETTERS[:n]
     return torch.einsum(eq, first, *factors[1:])
+
+
+def mttkrp_sparse(indices: torch.Tensor, values: torch.Tensor, factors,
+                  mode: int, out_dim: int, plan: SparsePlan | None = None
+                  ) -> torch.Tensor:
+    """MTTKRP of a COO sparse tensor, shape (out_dim, R) (Tensor Toolbox
+    sptensor mttkrp, cmtf_fun_AOADMM.m:97).  Duplicate coordinates are
+    summed.
+
+    COO data on a CUDA card runs the hand-written kernel through `plan`
+    (SparseTensor.with_plans; fit attaches plans) and raises without one;
+    COO data on the CPU takes the plain gather + index_add_ version."""
+    if values.device.type == "cpu":
+        return mttkrp_sparse_reference(indices, values, factors, mode, out_dim)
+    if plan is None:
+        raise ValueError("mttkrp_sparse: COO data on a CUDA card needs its "
+                         "kernel plan (SparseTensor.with_plans; fit attaches "
+                         "plans)")
+    if plan.out_mode != mode or plan.out_dim != out_dim:
+        raise ValueError(f"mttkrp_sparse: the plan is for mode {plan.out_mode} "
+                         f"({plan.out_dim} rows), asked for mode {mode} "
+                         f"({out_dim} rows)")
+    return mttkrp_sparse_cuda(plan, factors)
 
 
 def gram(U: torch.Tensor) -> torch.Tensor:

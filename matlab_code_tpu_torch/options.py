@@ -55,6 +55,10 @@ class AlgOptions:
     # 'auto' = 'chol' on the CPU (the JAX CPU path's arithmetic) and
     # 'inverse' on CUDA (see PERF.md)
     inner_solve: str = "auto"
+    # validated and kept for field parity; they choose nothing in the port:
+    # on a CUDA card every sparse MTTKRP runs the hand-written kernel
+    # (ops/sparse_cuda.py), which loads factor entries exactly (no bf16
+    # passes), and on the CPU the plain version
     sparse_mttkrp: str = "auto"
     sparse_pallas_passes: int = 3
     matmul_precision: str = "default"

@@ -11,6 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from matlab_code_tpu_torch.ops.prox import ConstraintSpec  # re-export
 
@@ -105,11 +106,63 @@ class ProblemSpec:
 
 
 @dataclass
+class SparseTensor:
+    """COO sparse tensor for CP datasets (the reference's Tensor Toolbox
+    `sptensor`), counterpart of matlab_code_tpu.problem.SparseTensor.
+    indices (nnz, ndim) int32, values (nnz,).  Restricted to Frobenius loss
+    and incompatible with missing-data masks (cmtf_AOADMM.m:77-79).
+
+    plans: None, or one ops.sparse_cuda.SparsePlan per mode (the layout the
+    CUDA MTTKRP kernel reads); attach with `with_plans()` (fit() does so for
+    a tensor on a CUDA card).  A plan depends on the sparsity pattern and
+    carries the values in its own order.
+    """
+    indices: torch.Tensor
+    values: torch.Tensor
+    plans: tuple | None = None
+
+    @property
+    def ndim(self) -> int:
+        return self.indices.shape[1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    def with_plans(self, shape) -> "SparseTensor":
+        """The same tensor with a kernel plan for every mode, built with torch
+        ops on the tensor's device.  shape: the dense mode sizes."""
+        from matlab_code_tpu_torch.ops.sparse_cuda import build_plan
+        plans = tuple(build_plan(self.indices, self.values, shape, m)
+                      for m in range(self.ndim))
+        return SparseTensor(self.indices, self.values, plans)
+
+    @staticmethod
+    def from_dense(X, threshold=0.0) -> "SparseTensor":
+        """The entries of X with |x| > threshold, in C order of their
+        coordinates; X is a torch tensor or anything np.asarray takes."""
+        X = X if isinstance(X, torch.Tensor) else torch.as_tensor(np.asarray(X))
+        idx = torch.nonzero(X.abs() > threshold)
+        return SparseTensor(idx.to(torch.int32), X[tuple(idx.T)])
+
+    def to_dense(self, shape) -> torch.Tensor:
+        """Dense tensor of `shape`; duplicate coordinates are summed."""
+        out = torch.zeros(tuple(shape), dtype=self.values.dtype,
+                          device=self.values.device)
+        return out.index_put_(tuple(self.indices.long().T), self.values,
+                              accumulate=True)
+
+
+@dataclass
 class ProblemData:
     """Tensor side of the problem.
 
-    objects[p]: dense torch tensor (CP datasets; the port has no PARAFAC2 or
-                sparse containers yet).
+    objects[p]: dense torch tensor or SparseTensor (CP datasets; the port
+                has no PARAFAC2 container yet).
     miss[p]:    None or a boolean mask, True = observed entry.
     coupl_trafo[m], coupl_trafo2[m]: None or the H / H2 matrices.
     """
@@ -147,6 +200,15 @@ def check_data_input(spec: ProblemSpec, data: ProblemData | None = None) -> None
                 raise ValueError(
                     "Missing data (miss) is only supported for Frobenius "
                     "loss functions")
+            if isinstance(data.objects[p], SparseTensor):
+                if ds.loss != "Frobenius":
+                    raise ValueError(
+                        "Sparse tensors are only supported with Frobenius "
+                        "loss")
+                if data.miss[p] is not None:
+                    raise ValueError(
+                        "Missing data (miss) not supported for sparse "
+                        "tensors")
     for p, ds in enumerate(spec.datasets):
         if ds.model == PAR2:
             szB = spec.mode_sizes[ds.modes[1]]

@@ -66,7 +66,7 @@ def flagship_spec() -> ProblemSpec:
         constraints=(NN,) * 8)
 
 
-def build_problem(device="cpu", dtype=torch.float32):
+def build_problem(device="cuda", dtype=torch.float32):
     """(spec, data) of the flagship, the data assembled on `device` in
     `dtype`: X_p = ktensor(Delta H_p, ...) / ||.||_F."""
     (H1, H2, H3), Delta, f = _flagship_truth(

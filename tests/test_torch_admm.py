@@ -61,9 +61,10 @@ def _problem():
     data, _ = normalize_data(spec, data)
     init = InitOptions(distr=("rand",) * 8, normalize=True)
     state = init_coupled(spec, data, init, key=5)
-    tdata = data_from_numpy(data.objects, data.coupl_trafo, data.coupl_trafo2)
+    tdata = data_from_numpy(data.objects, data.coupl_trafo, data.coupl_trafo2,
+                            device="cpu")
     return spec, data, state, spec_from_reference(spec), tdata, \
-        state_from_numpy(state)
+        state_from_numpy(state, device="cpu")
 
 
 def _close(a, b, rtol=RTOL, atol=1e-14):

@@ -1,6 +1,7 @@
-"""The port never loads jax, and chip_smoke.py refuses to report without a
-CUDA card or without the package beside it.  Each check runs in a fresh
-interpreter, because this test process has jax loaded already."""
+"""The port never loads jax, the JAX package or native/, and chip_smoke.py
+refuses to report without a CUDA card or without the package beside it.
+Each check runs in a fresh interpreter, because this test process has jax
+loaded already."""
 import os
 import shutil
 import subprocess
@@ -19,6 +20,8 @@ PORT_MODULES = [
     "matlab_code_tpu_torch.models.admm", "matlab_code_tpu_torch.models.objective",
     "matlab_code_tpu_torch.models.init", "matlab_code_tpu_torch.models.solver",
     "matlab_code_tpu_torch.utils.flagship",
+    "matlab_code_tpu_torch.ops.sparse_cuda",
+    "matlab_code_tpu_torch.utils.sparse_workload",
 ]
 
 
@@ -33,9 +36,9 @@ def test_torch_port_never_imports_jax():
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(k for k in sys.modules if k == 'jax' or "
-            "k.startswith(('jax.', 'jaxlib', 'matlab_code_tpu.')) or "
-            "k == 'matlab_code_tpu')\n"
+            "bad = sorted(k for k in sys.modules if k in "
+            "('jax', 'matlab_code_tpu', 'native') or "
+            "k.startswith(('jax.', 'jaxlib', 'matlab_code_tpu.', 'native.')))\n"
             "print('LOADED', bad)\n")
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
@@ -44,11 +47,13 @@ def test_torch_port_never_imports_jax():
 
 def test_torch_port_builds_nothing_at_import():
     code = ("import matlab_code_tpu_torch.ops.mttkrp_cuda as k, "
+            "matlab_code_tpu_torch.ops.sparse_cuda as s, "
             "matlab_code_tpu_torch.ops._build as b\n"
-            "print('STATE', k._LIB is None, b.BUILD_LOGS == {})\n")
+            "print('STATE', k._LIB is None, s._LIB is None, "
+            "b.BUILD_LOGS == {})\n")
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
-    assert "STATE True True" in proc.stdout
+    assert "STATE True True True" in proc.stdout
 
 
 def _run_smoke(cwd):

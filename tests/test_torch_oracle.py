@@ -19,9 +19,11 @@ from matlab_code_tpu_torch.models.solver import compute_znorm_consts
 
 def _fit_port(spec, data, state0, T):
     tspec = spec_from_reference(spec)
-    tdata = data_from_numpy(data.objects, data.coupl_trafo, data.coupl_trafo2)
+    tdata = data_from_numpy(data.objects, data.coupl_trafo, data.coupl_trafo2,
+                            device="cpu")
     opts = tp.AlgOptions(MaxOuterIters=T, AbsFuncTol=0.0, OuterRelTol=0.0)
-    state, out = tp.fit(tspec, tdata, state_from_numpy(state0), opts)
+    state, out = tp.fit(tspec, tdata, state_from_numpy(state0, device="cpu"),
+                        opts)
     znorms = [float(z) for z in compute_znorm_consts(tspec, tdata, opts)]
     return state_to_numpy(state)["fac"], out, znorms
 

@@ -75,8 +75,9 @@ def _jax_problem(name):
 
 def _to_port(spec, data, state):
     return (spec_from_reference(spec),
-            data_from_numpy(data.objects, data.coupl_trafo, data.coupl_trafo2),
-            state_from_numpy(state))
+            data_from_numpy(data.objects, data.coupl_trafo, data.coupl_trafo2,
+                            device="cpu"),
+            state_from_numpy(state, device="cpu"))
 
 
 @pytest.mark.parametrize("name", ["cp_nonneg_coupled", "coupled_type4"])
@@ -158,7 +159,8 @@ def test_torch_cmtf_aoadmm_from_its_own_init():
         coupling=tp.CouplingSpec((1, 0, 0, 1, 0, 0, 1, 0), (4,)),
         constraints=(tp.ConstraintSpec("non-negativity"),) * 8)
     _, jdata, _ = ge._type4_problem(1)
-    data = data_from_numpy(jdata.objects, jdata.coupl_trafo, jdata.coupl_trafo2)
+    data = data_from_numpy(jdata.objects, jdata.coupl_trafo, jdata.coupl_trafo2,
+                           device="cpu")
     init = tp.InitOptions(distr=("rand",) * 8, normalize=True)
     a = tp.init_coupled(spec, data, init, seed=4)
     b = tp.init_coupled(spec, data, init, seed=4)
@@ -198,8 +200,9 @@ def test_torch_reference_seeded_replays(mod, noise_fms, monkeypatch):
         return tp.cmtf_aoadmm(
             spec_from_reference(spec),
             data_from_numpy(data.objects, data.coupl_trafo,
-                            data.coupl_trafo2),
-            options_from_reference(options), init=state_from_numpy(init))
+                            data.coupl_trafo2, device="cpu"),
+            options_from_reference(options),
+            init=state_from_numpy(init, device="cpu"))
 
     monkeypatch.setattr(jsolver, "cmtf_aoadmm", port_cmtf_aoadmm)
     res = importlib.import_module(f"examples.{mod}").run_reference(

@@ -12,7 +12,8 @@ non-zero:
   1. device and precision: the card, its power limit, the TF32 switches;
   2. dense kernel vs plain: the MTTKRP kernel (modes 0, 1, 2) against its
      plain PyTorch version in float64 on the card, at the flagship's two
-     tensor shapes and at ragged shapes; times kernel vs torch.einsum;
+     tensor shapes and at ragged shapes (one at R 40: two column blocks);
+     times kernel vs torch.einsum;
   3. the full-size flagship fit (bench.py's workload: three CP datasets,
      type-4 selector coupling, all modes non-negative) through cmtf_aoadmm
      for 300 outer iterations in float32, counting the kernel's launches;
@@ -20,11 +21,14 @@ non-zero:
      card in float32 and on the CPU in float64 (plain path);
   5. fit to tolerance (AbsFuncTol 1e-4, OuterRelTol 1e-10, at most 2000
      iterations): a measurement that does not gate the result;
-  6. sparse kernel vs plain: the sparse COO MTTKRP kernel (modes 0, 1, 2,
-     float32 and float64) against its plain version on the card, at the
-     sparse workload's size (bench_large.py's: ~1e7 nonzeros of a 2048^3
-     tensor, R 16), at ragged shapes and at a case with duplicates, empty
-     rows, a row of many chunks and R 40; times kernel vs plain;
+  6. sparse kernels vs plain: the sparse COO MTTKRP kernels (the fiber
+     kernel the plans name for these shapes and the chunk kernel; modes 0,
+     1, 2, float32 and float64) against their plain version on the card,
+     at the sparse workload's size (bench_large.py's: ~1e7 nonzeros of a
+     2048^3 tensor, R 16), at ragged shapes, at a case with duplicates,
+     empty rows, a row of many chunks and R 40, and at a shape too large
+     for the fiber kernel's tile in mode 0; times both kernels vs plain,
+     and at R 8 and R 32;
   7. the full-size sparse CP fit through cmtf_aoadmm for 50 outer
      iterations in float32, counting the sparse kernel's launches;
   8. card vs CPU on the sparse path: the first 3 outer iterations from one
@@ -37,6 +41,7 @@ package beside it.
 """
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -51,13 +56,14 @@ REPLACES = "matlab_code_tpu/ops/mttkrp_pallas.py:60"
 SPARSE_SOURCE = "matlab_code_tpu_torch/csrc/mttkrp_sparse.cu"
 SPARSE_REPLACES = "matlab_code_tpu/ops/sparse_pallas.py:300"
 FLAGSHIP_SHAPES = (((128, 512, 256), 16), ((128, 1024, 64), 20))
-RAGGED_SHAPES = (((37, 50, 29), 7), ((5, 3, 130), 1))
+RAGGED_SHAPES = (((37, 50, 29), 7), ((5, 3, 130), 1), ((37, 50, 29), 40))
 FIT_ITERS = 300
 CPU_ITERS = 5
 TOL_ITERS = 2000
 # (shape, draws, R, duplicated draws, extra nonzeros in row 0)
 SPARSE_RAGGED = (((300, 257, 129), 20000, 7, 0, 0),
-                 ((40, 23, 17), 3000, 40, 500, 3072))
+                 ((40, 23, 17), 3000, 40, 500, 3072),
+                 ((64, 70000, 60000), 20000, 16, 0, 0))
 SPARSE_ITERS = 50
 SPARSE_CPU_ITERS = 3
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
@@ -126,6 +132,69 @@ def sparse_coo(shape, nnz, duplicates, long_row, seed=4):
     return idx, rng.standard_normal(len(idx)), rng
 
 
+def fiber_gathers(plan):
+    """Factor rows the fiber kernel gathers from L2 for a plan, a column
+    tile: one at every nonzero whose fiber coordinate differs from the
+    previous nonzero its group walked.  Group g walks nonzeros gQ .. gQ+Q-1
+    of each 32 of a chunk, so that one is Q - 33 back at a quad's start."""
+    import torch
+    from matlab_code_tpu_torch.ops.sparse_cuda import fiber_lanes
+    Q = fiber_lanes(plan.lanes, plan.vals.element_size())
+    cs = plan.chunk_start
+    chunk_of = torch.repeat_interleave(
+        torch.arange(plan.nchunks, device=cs.device), cs[1:] - cs[:-1])
+    e = torch.arange(plan.vals.shape[0], device=cs.device)
+    pos = e - cs[:-1][chunk_of]
+    first = (pos < 32) & (pos % Q == 0)   # a group's first in the chunk
+    prev = torch.where(pos % Q > 0, e - 1, e - (33 - Q)).clamp(min=0)
+    j = plan.coords[:, 0]
+    return int((first | (j != j[prev])).sum())
+
+
+def sparse_times(plan, chunk_plan, f32, idx, val32, shape, mode, R, flush,
+                 power):
+    """Times at full size: the fiber kernel and the chunk kernel, in turns
+    (fiber, chunk, chunk, fiber), the chunk kernel on the fiber plan's
+    order, and the plain version; prints rates beside the bound."""
+    from matlab_code_tpu_torch.ops.sparse_cuda import (
+        fiber_blocks, lanes_for, mttkrp_sparse_cuda, mttkrp_sparse_reference)
+    import torch
+    nnz = idx.shape[0]
+    on_fiber_order = plan._replace(variant="chunk", lanes=lanes_for(R))
+    runs = [time_ms(lambda: mttkrp_sparse_cuda(p, f32), flush)
+            for p in (plan, chunk_plan, chunk_plan, plan)]
+    t_f, t_c = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+    t_cf = time_ms(lambda: mttkrp_sparse_cuda(on_fiber_order, f32), flush)
+    t_p = time_ms(lambda: mttkrp_sparse_reference(
+        idx, val32, f32, mode, shape[mode]), flush, runs=10)
+    # the plan (coords, values, chunk tables), the gathered factors and
+    # the output, once each; 3R flops a nonzero
+    stream = nnz * (2 * 4 + 4)
+    nbytes = (stream + 8 * (plan.chunk_start.numel() + plan.chunk_ptr.numel())
+              + 4 * R * sum(shape))
+    t_b, bound_by = bound(nbytes, 3 * nnz * R)
+    passes = -(-R // plan.lanes)
+    gathers = fiber_gathers(plan)
+    res = plan.gather_modes[1]
+    fill = (fiber_blocks(plan.nchunks, torch.cuda.get_device_properties(
+        0).multi_processor_count) * shape[res] * 4 * R)
+    l2 = gathers * 4 * R + fill
+    print(f"  time, mode {mode}: fiber kernel {t_f * 1e3:.1f} us ({runs[0] * 1e3:.1f}"
+          f", {runs[3] * 1e3:.1f}; P {plan.lanes}, {passes} pass(es) over the "
+          f"stream at {passes * stream / 1e6 / t_f:.0f} GB/s; {gathers} fiber "
+          f"rows = {gathers / nnz:.3f} a nonzero, with the tile fill "
+          f"{l2 / 1e6:.1f} MB from L2 at {l2 / 1e6 / t_f:.0f} GB/s; "
+          f"{t_b / t_f:.1%} of the {t_b * 1e3:.1f} us bound, {bound_by})")
+    print(f"    chunk kernel {t_c * 1e3:.1f} us ({runs[1] * 1e3:.1f}, "
+          f"{runs[2] * 1e3:.1f}; stream {stream / 1e6 / t_c:.0f} GB/s, gathered"
+          f" rows {8 * R * nnz / 1e6 / t_c:.0f} GB/s); chunk kernel on the "
+          f"fiber-sorted plan {t_cf * 1e3:.1f} us; fiber kernel "
+          f"{t_c / t_f:.2f}x the chunk kernel | plain {t_p * 1e3:.1f} us  "
+          f"[{power}]")
+    return {"kernel": t_f, "chunk": t_c, "plain": t_p, "bound": t_b,
+            "bound_by": bound_by}
+
+
 def sparse_phases(dev, power):
     """Phases 6-8: the sparse COO path.  Returns the sparse kernel's entry
     of the kernels line."""
@@ -134,12 +203,11 @@ def sparse_phases(dev, power):
     from matlab_code_tpu_torch.models.admm import to_host
     from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit
     from matlab_code_tpu_torch.ops.sparse_cuda import (
-        CHUNK, build_plan, lanes_for, mttkrp_sparse_cuda,
-        mttkrp_sparse_reference)
+        CHUNK, build_plan, mttkrp_sparse_cuda, mttkrp_sparse_reference)
     from matlab_code_tpu_torch.utils import sparse_workload as sw
 
-    # ---- 6. sparse kernel vs plain ------------------------------------------
-    t0 = phase(6, "sparse MTTKRP kernel vs plain")
+    # ---- 6. sparse kernels vs plain -----------------------------------------
+    t0 = phase(6, "sparse MTTKRP kernels vs plain")
     tb = time.perf_counter()
     spec, data = sw.build_problem(device=dev, dtype=torch.float32)
     st = data.objects[0]
@@ -148,11 +216,13 @@ def sparse_phases(dev, power):
           f"{spec.mode_sizes}, R {sw.R}, built on the card in "
           f"{time.perf_counter() - tb:.2f} s")
     tb = time.perf_counter()
-    st = st.with_plans(spec.mode_sizes)
+    st = st.with_plans(spec.mode_sizes, sw.R)
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - tb
     print(f"plans of the three modes built on the card in {plan_s:.3f} s "
-          f"({[p.nchunks for p in st.plans]} chunks of <= {CHUNK} nonzeros)")
+          f"({[p.nchunks for p in st.plans]} chunks of <= {CHUNK} nonzeros; "
+          f"kernels {[(p.variant, p.lanes, p.gather_modes) for p in st.plans]}"
+          f" as (variant, P, gathered modes))")
     data.objects = (st,)
     rng = np.random.default_rng(1)
     full = (spec.mode_sizes, st.indices, st.values, sw.R)
@@ -162,7 +232,7 @@ def sparse_phases(dev, power):
         for shape, nnz, R, dup, long_row in SPARSE_RAGGED
         for idx, val, _ in [sparse_coo(shape, nnz, dup, long_row)]]
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
-    max_abs_err = ms = plain_ms = bound_ms = 0.0
+    max_abs_err = ms = plain_ms = bound_ms = chunk_ms = 0.0
     bound_by_ms = {"bytes": 0.0, "operations": 0.0}
     for n_case, (shape, idx, val32, R) in enumerate(cases):
         facs = [rng.standard_normal((d, R)) for d in shape]
@@ -171,64 +241,64 @@ def sparse_phases(dev, power):
         val64 = val32.double()
         nnz = idx.shape[0]
         for mode in range(3):
-            p32 = st.plans[mode] if n_case == 0 else build_plan(idx, val32, shape, mode)
-            p64 = build_plan(idx, val64, shape, mode)
             want = mttkrp_sparse_reference(idx, val64, f64, mode, shape[mode])
             scale = want.abs().max().item()
-            got = mttkrp_sparse_cuda(p32, f32)
-            got64 = mttkrp_sparse_cuda(p64, f64)
-            torch.cuda.synchronize()
-            err = (got.double() - want).abs().max().item()
-            err64 = (got64 - want).abs().max().item()
-            same = bool(torch.equal(mttkrp_sparse_cuda(p32, f32), got)
-                        and torch.equal(mttkrp_sparse_cuda(p64, f64), got64))
-            print(f"{shape} nnz={nnz} R={R} mode {mode}: max|kernel-plain_f64| "
-                  f"= {err:.3e} (bound {1e-4 * scale:.3e}); float64 kernel "
-                  f"{err64:.3e} (bound {1e-12 * scale:.3e}); same bits on "
-                  f"repeat: {same}")
-            if not err <= 1e-4 * scale:
-                raise RuntimeError(f"sparse kernel disagrees: {shape} mode {mode}")
-            if not err64 <= 1e-12 * scale:
-                raise RuntimeError(f"float64 sparse kernel disagrees: {shape} "
-                                   f"mode {mode}")
-            if not same:
-                raise RuntimeError(f"sparse kernel not deterministic: {shape} "
-                                   f"mode {mode}")
-            max_abs_err = max(max_abs_err, err)
-            del p64, want, got64
+            p32 = st.plans[mode] if n_case == 0 else build_plan(
+                idx, val32, shape, mode, R)
+            c32 = build_plan(idx, val32, shape, mode, R, variant="chunk")
+            held = [p32] + ([c32] if p32.variant != "chunk" else [])
+            for q32 in held:
+                q64 = build_plan(idx, val64, shape, mode, R, variant=q32.variant)
+                got = mttkrp_sparse_cuda(q32, f32)
+                got64 = mttkrp_sparse_cuda(q64, f64)
+                torch.cuda.synchronize()
+                err = (got.double() - want).abs().max().item()
+                err64 = (got64 - want).abs().max().item()
+                same = bool(torch.equal(mttkrp_sparse_cuda(q32, f32), got)
+                            and torch.equal(mttkrp_sparse_cuda(q64, f64), got64))
+                print(f"{shape} nnz={nnz} R={R} mode {mode}, {q32.variant} "
+                      f"kernel (P {q32.lanes} float32, {q64.lanes} float64): "
+                      f"max|kernel-plain_f64| = {err:.3e} (bound "
+                      f"{1e-4 * scale:.3e}); float64 kernel {err64:.3e} (bound "
+                      f"{1e-12 * scale:.3e}); same bits on repeat: {same}")
+                if not err <= 1e-4 * scale:
+                    raise RuntimeError(f"{q32.variant} sparse kernel disagrees: "
+                                       f"{shape} mode {mode}")
+                if not err64 <= 1e-12 * scale:
+                    raise RuntimeError(f"float64 {q32.variant} sparse kernel "
+                                       f"disagrees: {shape} mode {mode}")
+                if not same:
+                    raise RuntimeError(f"{q32.variant} sparse kernel not "
+                                       f"deterministic: {shape} mode {mode}")
+                max_abs_err = max(max_abs_err, err)
+                del q64, got64
+            del want
             if n_case == 0:
-                t_k = time_ms(lambda: mttkrp_sparse_cuda(p32, f32), flush)
-                t_p = time_ms(lambda: mttkrp_sparse_reference(
-                    idx, val32, f32, mode, shape[mode]), flush, runs=10)
-                # the plan (coords, values, chunk tables), the gathered
-                # factors and the output, once each; 3R flops a nonzero
-                stream = nnz * (2 * 4 + 4)
-                nbytes = (stream + 8 * (p32.chunk_start.numel()
-                                        + p32.chunk_ptr.numel())
-                          + 4 * R * sum(shape))
-                t_b, bound_by = bound(nbytes, 3 * nnz * R)
-                print(f"  time: kernel {t_k * 1e3:.1f} us ({stream / 1e6 / t_k:.0f}"
-                      f" GB/s of the 12 B/nnz stream, {t_b / t_k:.1%} of the "
-                      f"{t_b * 1e3:.1f} us bound, {bound_by}; gathered rows "
-                      f"{8 * R * nnz / 1e6 / t_k:.0f} GB/s) | plain "
-                      f"{t_p * 1e3:.1f} us; {lanes_for(R)} lanes per nonzero  "
-                      f"[{power}]")
-                ms += t_k
-                plain_ms += t_p
-                bound_ms += t_b
-                bound_by_ms[bound_by] += t_b
+                t = sparse_times(p32, c32, f32, idx, val32, shape, mode, R,
+                                 flush, power)
+                ms += t["kernel"]
+                chunk_ms += t["chunk"]
+                plain_ms += t["plain"]
+                bound_ms += t["bound"]
+                bound_by_ms[t["bound_by"]] += t["bound"]
+            del c32
         del f32, f64, val64
-    print(f"three sparse MTTKRPs (one sweep) at full size: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms")
+    print(f"three sparse MTTKRPs (one sweep) at full size: fiber kernel "
+          f"{ms:.3f} ms, chunk kernel {chunk_ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms, bound {bound_ms:.3f} ms")
     # which roof sets the pace: other ranks read the same 12 B/nnz stream
-    # but gather 4R bytes a factor row
+    # (once a column tile) but gather 4R bytes a factor row
     nnz = st.indices.shape[0]
     for R in (8, 32):
         fr = [torch.rand((d, R), device=dev) for d in spec.mode_sizes]
-        t_k = time_ms(lambda: mttkrp_sparse_cuda(st.plans[0], fr), flush)
-        print(f"  rank probe, full size, mode 0, R {R}: kernel {t_k * 1e3:.1f} us"
-              f" (stream {12 * nnz / 1e6 / t_k:.0f} GB/s, gathered rows "
-              f"{8 * R * nnz / 1e6 / t_k:.0f} GB/s)  [{power}]")
+        for variant in ("fiber", "chunk"):
+            pr = build_plan(st.indices, st.values, spec.mode_sizes, 0, R,
+                            variant=variant)
+            t_k = time_ms(lambda: mttkrp_sparse_cuda(pr, fr), flush)
+            print(f"  rank probe, full size, mode 0, R {R}: {variant} kernel "
+                  f"(P {pr.lanes}) {t_k * 1e3:.1f} us (stream {12 * nnz / 1e6 / t_k:.0f}"
+                  f" GB/s a pass)  [{power}]")
+            del pr
     del flush, cases, fr
     done(6, t0)
 
@@ -345,9 +415,12 @@ def main():
             fut.result()
     print(f"kernel libraries built and loaded in {time.perf_counter() - tb:.1f} s")
     for log in _build.BUILD_LOGS.values():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line:
-                print("ptxas:", line.strip())
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or re.search(r"\b[1-9]\d* bytes spill", line):
+                print(f"ptxas: {entry}: {line.strip()}")
     rng = np.random.default_rng(0)
     max_abs_err = 0.0
     ms = plain_ms = lib_ms = bound_ms = 0.0

@@ -92,7 +92,8 @@ def attach_sparse_plans(spec: ProblemSpec, data: ProblemData,
         if isinstance(X, SparseTensor) and X.plans is None \
                 and X.device.type == "cuda":
             objs[p] = X.with_plans(
-                tuple(spec.mode_sizes[m] for m in spec.datasets[p].modes))
+                tuple(spec.mode_sizes[m] for m in spec.datasets[p].modes),
+                spec.datasets[p].rank)
     if all(a is b for a, b in zip(objs, data.objects)):
         return data
     return dataclasses.replace(data, objects=tuple(objs))

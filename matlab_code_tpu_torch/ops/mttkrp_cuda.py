@@ -13,9 +13,9 @@ and reduces split partial sums in a fixed second pass instead of with
 atomics, so repeated calls give the same bits.  See the source for the
 layout of each mode.
 
-mttkrp3(X, factors, mode) launches the kernel for a CUDA tensor and raises
-on anything it does not take; for a CPU tensor it returns the plain
-version, mttkrp3_reference.
+mttkrp3(X, factors, mode) launches the kernel for a CUDA tensor (once per
+column block of at most R_MAX past R_MAX) and raises on anything it does
+not take; for a CPU tensor it returns the plain version, mttkrp3_reference.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-R_MAX = 32                  # largest rank the kernel takes (registers)
+R_MAX = 32                  # largest rank one launch takes (registers)
 _RM_BUCKETS = (8, 16, 24, 32)
 _ROWS_THREADS = 256         # block size of the mode-0/1 kernel
 _ROWS_TARGET_BLOCKS = 1024  # enough blocks of 8 warps to fill 132 SMs
@@ -60,6 +60,12 @@ def _splits(n: int, want: int) -> tuple[int, int]:
     want = max(1, min(n, want))
     per = math.ceil(n / want)
     return math.ceil(n / per), per
+
+
+def column_blocks(R: int) -> list[tuple[int, int]]:
+    """Column slices [a, b) of at most R_MAX that cover R in order: the
+    kernel runs once a slice, since MTTKRP is columnwise independent."""
+    return [(a, min(a + R_MAX, R)) for a in range(0, R, R_MAX)]
 
 
 def plan_mttkrp3(shape: tuple[int, int, int], R: int, mode: int,
@@ -127,7 +133,9 @@ def mttkrp3(X: torch.Tensor, factors, mode: int) -> torch.Tensor:
     (X.shape[mode], R) in promote(X.dtype, float32).
 
     A CUDA tensor launches the hand-written kernel (and counts the launch in
-    mttkrp3.launches) or raises; a CPU tensor takes mttkrp3_reference."""
+    mttkrp3.launches) or raises; R > R_MAX runs it once a column block of
+    column_blocks(R) and counts each launch.  A CPU tensor takes
+    mttkrp3_reference."""
     if X.device.type == "cpu":
         return mttkrp3_reference(X, factors, mode)
     if X.device.type != "cuda":
@@ -150,6 +158,11 @@ def mttkrp3(X: torch.Tensor, factors, mode: int) -> torch.Tensor:
         if f.dim() != 2 or f.shape != (X.shape[n], R) or not f.is_contiguous():
             raise ValueError(f"mttkrp3: factor {n} must be a contiguous "
                              f"({X.shape[n]}, {R}) matrix, got {tuple(f.shape)}")
+    if R > R_MAX:
+        return torch.cat([
+            mttkrp3(X, [f if n == mode else f[:, a:b].contiguous()
+                        for n, f in enumerate(factors)], mode)
+            for a, b in column_blocks(R)], dim=1)
     plan = plan_mttkrp3(tuple(X.shape), R, mode, X.element_size())
     I, J, K = X.shape
     out = torch.empty((X.shape[mode], R), dtype=X.dtype, device=X.device)

@@ -1,7 +1,7 @@
-"""Hand-written Hopper kernel for the sparse COO MTTKRP.
+"""Hand-written Hopper kernels for the sparse COO MTTKRP.
 
-Counterpart of matlab_code_tpu/ops/sparse_pallas.py.  The kernel
-(csrc/mttkrp_sparse.cu) replaces the Pallas kernel `mttkrp_sparse_pallas`
+Counterpart of matlab_code_tpu/ops/sparse_pallas.py.  The kernels
+(csrc/mttkrp_sparse.cu) replace the Pallas kernel `mttkrp_sparse_pallas`
 (sparse_pallas.py:257-311, pallas_call at :300):
 
     out[i, r] = sum over the nonzeros n with idx[n, mode] = i of
@@ -10,40 +10,103 @@ Counterpart of matlab_code_tpu/ops/sparse_pallas.py.  The kernel
 The TPU layout (128-row factor-tile buckets, 7-bit packed offsets, one-hot
 matmuls fed as `passes` bf16 splits) exists for the MXU; on Hopper a lane
 loads a factor entry exactly, so none of it is carried over and
-AlgOptions.sparse_mttkrp / sparse_pallas_passes choose nothing here.
+AlgOptions.sparse_mttkrp / sparse_pallas_passes choose nothing here.  What
+the TPU kernel did keep, factor tiles resident in fast memory, the fiber
+kernel keeps in shared memory.
 
 What bounds it on the H100: the plan stream, 12 bytes a nonzero in float32
-(two int32 coordinates and the value), read once from HBM; the factor
-gathers (4R bytes a row) hit the 50 MB L2.  The plan sorts the nonzeros by
+(two int32 coordinates and the value), read once from HBM, and the factor
+gathers (4R bytes a row) from the 50 MB L2.  The plan sorts the nonzeros by
 the target mode's index and cuts every row into chunks of at most CHUNK
 nonzeros; one warp sums a chunk into a partial row and a second pass sums
 each row's partials in chunk order, so there are no atomics and repeated
-calls give the same bits.  See the source for the design.
+calls give the same bits.  Two kernels read such a plan, and the plan names
+the one it is for (choose_kernel, from the shape alone):
 
-build_plan(indices, values, shape, mode) builds a SparsePlan with torch ops
-on the data's device, once per sparsity pattern and mode.
-mttkrp_sparse_cuda(plan, factors) launches the kernel for a plan on a CUDA
+* "fiber" (3-way tensors whose resident factor tile fits shared memory):
+  one gathered factor's column tile sits in shared memory, the nonzeros of
+  a row are also sorted by the other gathered mode (the fiber mode), and
+  that mode's factor row is gathered once a fiber instead of once a
+  nonzero.
+* "chunk" (every other order, and gathered dimensions too large for shared
+  memory): both factor rows gathered from L2 for every nonzero.
+
+See the source for the design.
+
+build_plan(indices, values, shape, mode, rank) builds a SparsePlan with
+torch ops on the data's device, once per sparsity pattern and mode.
+mttkrp_sparse_cuda(plan, factors) launches the plan's kernel on a CUDA
 card and raises on anything it does not take; for a plan on the CPU it
 returns the plain version, mttkrp_sparse_reference.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
 CHUNK = 256       # nonzeros per chunk: one warp each
 NG_MAX = 4        # gathered modes the kernel takes (tensors of order 2 to 5)
+SMEM_BYTES = 232448   # dynamic shared memory a block may use on an H100 (227 KB)
+FIBER_WARPS = 32      # warps a block of the fiber kernel (kFiberWarps in the source)
+FIBER_P_MAX = 16      # the fiber kernel holds P fiber rows a lane in registers
 
 _LIB = None
+
+
+class KernelChoice(NamedTuple):
+    """Which kernel of csrc/mttkrp_sparse.cu a plan is for.
+
+    variant       "fiber" or "chunk" (see the module docstring)
+    lanes         P: lanes a nonzero (chunk) or columns of the resident
+                  tile (fiber), 8, 16 or 32
+    gather_modes  the gathered modes in the order of the plan's coords
+                  columns: (fiber mode, resident mode) for "fiber",
+                  ascending for "chunk"
+    """
+    variant: str
+    lanes: int
+    gather_modes: tuple
+
+
+def lanes_for(R: int) -> int:
+    """The smallest P of 8, 16, 32 that covers R (32 past 32)."""
+    return 8 if R <= 8 else 16 if R <= 16 else 32
+
+
+def choose_kernel(shape, mode: int, R: int, itemsize: int) -> KernelChoice:
+    """The kernel for target mode `mode` of a tensor of dense `shape` at
+    rank R with `itemsize`-byte values.  A 3-way tensor takes the fiber
+    kernel with the larger gathered mode resident in shared memory (the
+    later mode on a tie), at the largest P <= min(lanes_for(R),
+    FIBER_P_MAX) whose tile of shape[resident] x P values fits SMEM_BYTES;
+    where neither gathered mode fits at P = 8, and for any other order, the
+    chunk kernel."""
+    shape = tuple(int(d) for d in shape)
+    gm = tuple(a for a in range(len(shape)) if a != mode)
+    lanes = lanes_for(R)
+    if len(gm) == 2:
+        for res in sorted(gm, key=lambda g: (shape[g], g), reverse=True):
+            P = min(lanes, FIBER_P_MAX)
+            while P > 8 and shape[res] * P * itemsize > SMEM_BYTES:
+                P //= 2
+            if shape[res] * P * itemsize <= SMEM_BYTES:
+                fib = gm[0] if res == gm[1] else gm[1]
+                return KernelChoice("fiber", P, (fib, res))
+    return KernelChoice("chunk", lanes, gm)
 
 
 class SparsePlan(NamedTuple):
     """The layout of one target mode's nonzeros that the kernel reads.
 
-    coords      (nnz, ng) int32: the gathered modes' coordinates, nonzeros
-                sorted (stably) by the target mode's index
+    variant     "fiber" or "chunk": the kernel the plan is for
+    lanes       P of that kernel (KernelChoice)
+    coords      (nnz, ng) int32: the gathered modes' coordinates, in the
+                order of gather_modes; nonzeros sorted stably by the target
+                mode's index and, for "fiber", then by the fiber mode's
+                coordinate (coords[:, 0])
     vals        (nnz,): the values in the same order
     rowptr      (D + 1,) int64: row i holds sorted nonzeros rowptr[i] ..
                 rowptr[i+1]-1
@@ -55,6 +118,8 @@ class SparsePlan(NamedTuple):
     out_mode: int
     gather_modes: tuple
     shape: tuple
+    variant: str
+    lanes: int
     coords: torch.Tensor
     vals: torch.Tensor
     rowptr: torch.Tensor
@@ -70,11 +135,15 @@ class SparsePlan(NamedTuple):
         return self.chunk_start.shape[0] - 1
 
 
-def build_plan(indices: torch.Tensor, values: torch.Tensor, shape, mode: int
-               ) -> SparsePlan:
+def build_plan(indices: torch.Tensor, values: torch.Tensor, shape, mode: int,
+               rank: int, variant: str | None = None) -> SparsePlan:
     """The kernel's layout for target mode `mode` of the COO tensor
-    (indices (nnz, ndim), values (nnz,)) of dense `shape`, built with torch
-    ops on the data's device.  Raises on coordinates outside `shape`."""
+    (indices (nnz, ndim), values (nnz,)) of dense `shape` at rank `rank`,
+    built with torch ops on the data's device.  The kernel is
+    choose_kernel's; variant="chunk" asks for the chunk kernel whatever the
+    shape (to time it against the fiber kernel), variant="fiber" for the
+    fiber kernel where the shape takes it.  Raises on coordinates outside
+    `shape`."""
     shape = tuple(int(d) for d in shape)
     nd = len(shape)
     if indices.dim() != 2 or indices.shape[1] != nd:
@@ -85,6 +154,16 @@ def build_plan(indices: torch.Tensor, values: torch.Tensor, shape, mode: int
                          f"{indices.shape[0]} coordinates")
     if not 0 <= mode < nd:
         raise ValueError(f"build_plan: mode {mode} of a {nd}-way tensor")
+    if rank < 1:
+        raise ValueError(f"build_plan: rank must be >= 1, got {rank}")
+    choice = choose_kernel(shape, mode, rank, values.element_size())
+    if variant == "chunk" and choice.variant == "fiber":
+        choice = KernelChoice("chunk", lanes_for(rank),
+                              tuple(sorted(choice.gather_modes)))
+    elif variant not in (None, choice.variant):
+        raise ValueError(f"build_plan: mode {mode} of shape {shape} at rank "
+                         f"{rank} takes the {choice.variant} kernel, not "
+                         f"{variant!r}")
     dev = indices.device
     nnz = indices.shape[0]
     if nnz:
@@ -94,9 +173,12 @@ def build_plan(indices: torch.Tensor, values: torch.Tensor, shape, mode: int
             raise ValueError(f"build_plan: coordinates span {lo}..{hi}, "
                              f"outside shape {shape}")
     D = shape[mode]
-    gm = tuple(a for a in range(nd) if a != mode)
+    gm = choice.gather_modes
     rows = indices[:, mode].long()
-    order = torch.sort(rows, stable=True).indices
+    key = rows
+    if choice.variant == "fiber":
+        key = rows * shape[gm[0]] + indices[:, gm[0]].long()
+    order = torch.sort(key, stable=True).indices
     coords = indices[order][:, list(gm)].to(torch.int32).contiguous()
     vals = values[order].contiguous()
     counts = torch.bincount(rows, minlength=D)
@@ -112,6 +194,7 @@ def build_plan(indices: torch.Tensor, values: torch.Tensor, shape, mode: int
                              torch.full((1,), nnz, dtype=torch.int64,
                                         device=dev)])
     return SparsePlan(out_mode=mode, gather_modes=gm, shape=shape,
+                      variant=choice.variant, lanes=choice.lanes,
                       coords=coords, vals=vals, rowptr=rowptr,
                       chunk_ptr=chunk_ptr, chunk_start=chunk_start)
 
@@ -142,11 +225,6 @@ def _plan_indices(plan: SparsePlan) -> torch.Tensor:
     return idx
 
 
-def lanes_for(R: int) -> int:
-    """Lanes per nonzero in the kernel (P in csrc/mttkrp_sparse.cu)."""
-    return 8 if R <= 8 else 16 if R <= 16 else 32
-
-
 def _lib():
     global _LIB
     if _LIB is None:
@@ -157,8 +235,31 @@ def _lib():
                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn = lib.mttkrp_sparse_fiber_run
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def fiber_lanes(lanes: int, itemsize: int) -> int:
+    """Lanes a nonzero (Q) in the fiber kernel at a tile of `lanes` (P)
+    columns: a lane holds 16 bytes of a row.  A warp is 32 / Q groups;
+    each step group g walks nonzeros gQ .. gQ + Q - 1 of the warp's 32."""
+    return lanes * itemsize // 16
+
+
+def fiber_blocks(nchunks: int, sm_count: int) -> int:
+    """Blocks of the fiber kernel: one a streaming multiprocessor, fewer
+    where there are fewer chunks than warps (each block fills its tile)."""
+    return max(1, min(sm_count, -(-nchunks // FIBER_WARPS)))
 
 
 def mttkrp_sparse_cuda(plan: SparsePlan, factors) -> torch.Tensor:
@@ -166,9 +267,9 @@ def mttkrp_sparse_cuda(plan: SparsePlan, factors) -> torch.Tensor:
     mode (factors[plan.out_mode] is not read).  Returns (plan.out_dim, R)
     in the plan's value type.
 
-    A plan on a CUDA card launches the hand-written kernel (and counts the
-    launch in mttkrp_sparse_cuda.launches) or raises; a plan on the CPU
-    takes mttkrp_sparse_reference."""
+    A plan on a CUDA card launches the kernel it names (and counts the call
+    in mttkrp_sparse_cuda.launches) or raises; a plan on the CPU takes
+    mttkrp_sparse_reference."""
     vals = plan.vals
     if len(factors) != len(plan.shape):
         raise ValueError(f"mttkrp_sparse_cuda: {len(factors)} factors for a "
@@ -195,6 +296,9 @@ def mttkrp_sparse_cuda(plan: SparsePlan, factors) -> torch.Tensor:
             or plan.chunk_start.dtype != torch.int64:
         raise ValueError("mttkrp_sparse_cuda: a plan from build_plan is "
                          "needed (int32 coords, int64 chunk tables)")
+    if plan.lanes not in ((8, 16) if plan.variant == "fiber" else (8, 16, 32)):
+        raise ValueError(f"mttkrp_sparse_cuda: plan.lanes {plan.lanes} does "
+                         f"not suit the {plan.variant} kernel")
     ref = factors[plan.gather_modes[0]]
     R = ref.shape[1] if ref.dim() == 2 else -1
     if R < 1:
@@ -214,16 +318,37 @@ def mttkrp_sparse_cuda(plan: SparsePlan, factors) -> torch.Tensor:
     out = torch.empty((D, R), dtype=vals.dtype, device=vals.device)
     partial = torch.empty((plan.nchunks, R), dtype=vals.dtype,
                           device=vals.device)
-    ptrs = [factors[g].data_ptr() for g in plan.gather_modes]
-    ptrs += [None] * (NG_MAX - ng)
-    err = _lib().mttkrp_sparse_run(
-        int(vals.dtype == torch.float64), ng, lanes_for(R),
-        plan.coords.data_ptr(), vals.data_ptr(), plan.chunk_start.data_ptr(),
-        plan.chunk_ptr.data_ptr(), *ptrs, partial.data_ptr(), out.data_ptr(),
-        plan.nchunks, D, R, torch.cuda.current_stream(vals.device).cuda_stream)
+    is_double = int(vals.dtype == torch.float64)
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    if plan.variant == "fiber":
+        fib, res = plan.gather_modes if ng == 2 else (None, None)
+        if res is None or plan.shape[res] * plan.lanes * vals.element_size() \
+                > SMEM_BYTES:
+            raise ValueError(f"mttkrp_sparse_cuda: the fiber kernel takes a "
+                             f"3-way tensor whose resident tile fits "
+                             f"{SMEM_BYTES} bytes (shape {plan.shape}, mode "
+                             f"{plan.out_mode}, P {plan.lanes})")
+        err = _lib().mttkrp_sparse_fiber_run(
+            is_double, plan.lanes, plan.coords.data_ptr(), vals.data_ptr(),
+            plan.chunk_start.data_ptr(), plan.chunk_ptr.data_ptr(),
+            factors[fib].data_ptr(), factors[res].data_ptr(),
+            partial.data_ptr(), out.data_ptr(), plan.nchunks, D, R,
+            plan.shape[res], fiber_blocks(plan.nchunks, _sm_count(vals.device)),
+            stream)
+    elif plan.variant == "chunk":
+        ptrs = [factors[g].data_ptr() for g in plan.gather_modes]
+        ptrs += [None] * (NG_MAX - ng)
+        err = _lib().mttkrp_sparse_run(
+            is_double, ng, plan.lanes, plan.coords.data_ptr(), vals.data_ptr(),
+            plan.chunk_start.data_ptr(), plan.chunk_ptr.data_ptr(), *ptrs,
+            partial.data_ptr(), out.data_ptr(), plan.nchunks, D, R, stream)
+    else:
+        raise ValueError(f"mttkrp_sparse_cuda: unknown plan variant "
+                         f"{plan.variant!r}")
     if err != 0:
         raise RuntimeError(f"mttkrp_sparse launch failed: cudaError {err} "
-                           f"(mode {plan.out_mode}, shape {plan.shape}, R={R}, "
+                           f"({plan.variant} kernel, mode {plan.out_mode}, "
+                           f"shape {plan.shape}, R={R}, P={plan.lanes}, "
                            f"{plan.nchunks} chunks)")
     mttkrp_sparse_cuda.launches += 1
     return out

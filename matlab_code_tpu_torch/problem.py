@@ -133,11 +133,12 @@ class SparseTensor:
     def device(self) -> torch.device:
         return self.values.device
 
-    def with_plans(self, shape) -> "SparseTensor":
+    def with_plans(self, shape, rank: int) -> "SparseTensor":
         """The same tensor with a kernel plan for every mode, built with torch
-        ops on the tensor's device.  shape: the dense mode sizes."""
+        ops on the tensor's device.  shape: the dense mode sizes; rank: the
+        CP rank the plans are laid out for (any rank runs through them)."""
         from matlab_code_tpu_torch.ops.sparse_cuda import build_plan
-        plans = tuple(build_plan(self.indices, self.values, shape, m)
+        plans = tuple(build_plan(self.indices, self.values, shape, m, rank)
                       for m in range(self.ndim))
         return SparseTensor(self.indices, self.values, plans)
 

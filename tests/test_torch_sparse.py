@@ -96,22 +96,18 @@ def test_torch_sparse_reference_matches_dense_mttkrp():
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-12)
 
 
-@pytest.mark.parametrize("mode", [0, 1, 2])
-def test_torch_sparse_plan_invariants(mode):
+def _check_plan_tables(plan, idx, val, shape, mode, order):
     """Every nonzero is in the plan exactly once (duplicates included) with
-    its value; rowptr is monotone, counts the rows and ends at nnz; the
-    chunks tile each row in order, none empty or longer than the chunk."""
-    idx, val = _coo_with_duplicates()
-    shape = (40, 23, 17)
-    L = sc.CHUNK
-    plan = sc.build_plan(torch.tensor(idx), torch.tensor(val), shape, mode)
+    its value, in `order`; rowptr is monotone, counts the rows and ends at
+    nnz; the chunks tile each row in order, none empty or longer than the
+    chunk."""
     nnz, D = len(idx), shape[mode]
+    L = sc.CHUNK
     assert plan.coords.dtype == torch.int32 and plan.coords.shape == (nnz, 2)
-    assert plan.gather_modes == tuple(a for a in range(3) if a != mode)
-    # every nonzero exactly once, duplicates too, and in stable order
-    order = np.argsort(idx[:, mode], kind="stable")
     np.testing.assert_array_equal(sc._plan_indices(plan).numpy(), idx[order])
     np.testing.assert_array_equal(plan.vals.numpy(), val[order])
+    np.testing.assert_array_equal(plan.coords.numpy(),
+                                  idx[order][:, list(plan.gather_modes)])
     rowptr = plan.rowptr.numpy()
     assert rowptr[0] == 0 and rowptr[-1] == nnz and len(rowptr) == D + 1
     assert np.all(np.diff(rowptr) >= 0)
@@ -132,6 +128,162 @@ def test_torch_sparse_plan_invariants(mode):
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2])
+def test_torch_sparse_plan_invariants(mode):
+    """The fiber-sorted layout of a 3-way tensor: the larger gathered mode
+    resident (coords[:, 1]), nonzeros sorted stably by the target index and
+    then by the fiber coordinate (coords[:, 0]), and the chunk tables of
+    _check_plan_tables."""
+    idx, val = _coo_with_duplicates()
+    shape = (40, 23, 17)
+    plan = sc.build_plan(torch.tensor(idx), torch.tensor(val), shape, mode, 5)
+    gm = tuple(a for a in range(3) if a != mode)
+    res = max(gm, key=lambda g: shape[g])
+    fib = gm[0] if res == gm[1] else gm[1]
+    assert (plan.variant, plan.lanes, plan.gather_modes) == ("fiber", 8,
+                                                             (fib, res))
+    order = np.lexsort((idx[:, fib], idx[:, mode]))    # stable, target first
+    _check_plan_tables(plan, idx, val, shape, mode, order)
+    rows = sc._plan_indices(plan).numpy()[:, mode]
+    key = rows.astype(np.int64) * shape[fib] + plan.coords.numpy()[:, 0]
+    assert np.all(np.diff(key) >= 0)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_torch_sparse_chunk_plan_invariants(mode):
+    """The layout of the chunk kernel, asked for by name: the gathered
+    modes in ascending order and the nonzeros sorted stably by the target
+    index alone.  Through the wrapper on the CPU it gives the plain
+    result, as the fiber plan does."""
+    idx, val = _coo_with_duplicates()
+    shape = (40, 23, 17)
+    plan = sc.build_plan(torch.tensor(idx), torch.tensor(val), shape, mode, 5,
+                         variant="chunk")
+    assert (plan.variant, plan.lanes) == ("chunk", 8)
+    assert plan.gather_modes == tuple(a for a in range(3) if a != mode)
+    _check_plan_tables(plan, idx, val, shape, mode,
+                       np.argsort(idx[:, mode], kind="stable"))
+    rng = np.random.default_rng(mode)
+    facs = [torch.tensor(rng.standard_normal((d, 5))) for d in shape]
+    fiber = sc.build_plan(torch.tensor(idx), torch.tensor(val), shape, mode, 5)
+    want = sc.mttkrp_sparse_reference(torch.tensor(idx), torch.tensor(val),
+                                      facs, mode, shape[mode])
+    for p in (plan, fiber):
+        np.testing.assert_allclose(sc.mttkrp_sparse_cuda(p, facs).numpy(),
+                                   want.numpy(), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("case", [
+    # (shape, mode, R, itemsize) -> (variant, P, gather_modes)
+    (((2048,) * 3, 0, 16, 4), ("fiber", 16, (1, 2))),   # the sparse workload
+    (((2048,) * 3, 1, 16, 4), ("fiber", 16, (0, 2))),
+    (((2048,) * 3, 2, 16, 4), ("fiber", 16, (0, 1))),
+    (((2048,) * 3, 0, 16, 8), ("fiber", 8, (1, 2))),    # float64: 256 KB at P 16
+    (((2048,) * 3, 0, 32, 4), ("fiber", 16, (1, 2))),   # R 32: two tiles of 16
+    (((2048,) * 3, 0, 8, 4), ("fiber", 8, (1, 2))),
+    (((2048,) * 3, 0, 40, 4), ("fiber", 16, (1, 2))),
+    (((40, 23, 17), 0, 40, 8), ("fiber", 16, (2, 1))),  # P <= FIBER_P_MAX
+    (((9, 8, 7, 6), 0, 16, 4), ("chunk", 16, (1, 2, 3))),   # four-way
+    (((50, 30), 1, 3, 8), ("chunk", 8, (0,))),              # a matrix
+    (((64, 70000, 60000), 0, 16, 4), ("chunk", 16, (1, 2))),  # neither fits
+    (((64, 70000, 60000), 1, 16, 4), ("fiber", 16, (2, 0))),  # 64 rows do
+    (((64, 7264, 9000), 0, 16, 4), ("fiber", 8, (2, 1))),   # 7264 x 8 x 4 B fits
+    (((64, 7265, 9000), 0, 16, 4), ("chunk", 16, (1, 2))),
+])
+def test_torch_sparse_kernel_choice(case):
+    """choose_kernel, from the shape alone: the larger gathered mode whose
+    column tile of P values fits the shared memory is resident, at the
+    largest P <= min(lanes_for(R), FIBER_P_MAX); the chunk kernel
+    everywhere else."""
+    (shape, mode, R, itemsize), want = case
+    got = sc.choose_kernel(shape, mode, R, itemsize)
+    assert tuple(got) == want
+    if got.variant == "fiber":
+        assert shape[got.gather_modes[1]] * got.lanes * itemsize <= sc.SMEM_BYTES
+
+
+def test_torch_sparse_build_plan_variants():
+    """build_plan takes the chunk kernel when asked, refuses the fiber
+    kernel where the shape does not take it, and records choose_kernel's
+    choice otherwise."""
+    idx = torch.tensor([[0, 1, 2, 3], [1, 0, 2, 1]], dtype=torch.int32)
+    val = torch.ones(2, dtype=torch.float64)
+    shape = (2, 2, 3, 4)
+    assert sc.build_plan(idx, val, shape, 0, 4).variant == "chunk"
+    with pytest.raises(ValueError, match="chunk kernel"):
+        sc.build_plan(idx, val, shape, 0, 4, variant="fiber")
+    with pytest.raises(ValueError, match="rank"):
+        sc.build_plan(idx[:, :3], val, shape[:3], 0, 0)
+    with pytest.raises(ValueError, match="fiber kernel"):
+        sc.build_plan(idx[:, :3], val, shape[:3], 0, 4, variant="bogus")
+    assert sc.fiber_blocks(0, 132) == 1 and sc.fiber_blocks(33, 132) == 2
+    assert sc.fiber_blocks(40_100, 132) == 132
+    assert [sc.fiber_lanes(P, b) for P, b in ((16, 4), (8, 4), (8, 8), (16, 8))
+            ] == [4, 2, 4, 8]
+
+
+def _fiber_walk(plan, facs, R):
+    """csrc/mttkrp_sparse.cu's fiber_partials and row_sums in numpy, in the
+    kernel's summation order: per column tile of P and per chunk, the warp
+    takes 32 nonzeros a step and group g of its 32 / Q groups walks
+    nonzeros gQ .. gQ + Q - 1 of each step, summing v * F_res[k] within a
+    fiber and adding that times F_fib[j] where the fiber coordinate differs
+    from the group's previous one; the groups are summed by the xor
+    butterfly, then each row's chunk partials in chunk order."""
+    P = plan.lanes
+    Q = sc.fiber_lanes(P, plan.vals.element_size())
+    G = 32 // Q
+    fib, res = plan.gather_modes
+    Ff, Fr = facs[fib].numpy(), facs[res].numpy()
+    coords, vals = plan.coords.numpy(), plan.vals.numpy()
+    cs, cp = plan.chunk_start.numpy(), plan.chunk_ptr.numpy()
+    partial = np.full((plan.nchunks, R), np.nan)
+    for r0 in range(0, R, P):
+        cols = slice(r0, min(r0 + P, R))
+        width = cols.stop - cols.start
+        for c in range(plan.nchunks):
+            lo, hi = cs[c], cs[c + 1]
+            accs = []
+            for g in range(G):
+                acc, seg, fj, cur = np.zeros(width), np.zeros(width), 0.0, -1
+                for base in range(lo, hi, 32):
+                    for e in range(base + g * Q, min(base + g * Q + Q, hi)):
+                        j, k = coords[e]
+                        if j != cur:
+                            acc, seg, cur, fj = acc + seg * fj, 0.0, j, Ff[j, cols]
+                        seg = seg + vals[e] * Fr[k, cols]
+                accs.append(acc + seg * fj)
+            off = 1
+            while off < G:
+                accs = [accs[g] + accs[g ^ off] for g in range(G)]
+                off <<= 1
+            partial[c, cols] = accs[0]
+    out = np.zeros((plan.out_dim, R))
+    for row in range(plan.out_dim):
+        for c in range(cp[row], cp[row + 1]):
+            out[row] += partial[c]
+    return out
+
+
+@pytest.mark.parametrize("R", [5, 16, 40])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_torch_sparse_fiber_walk_matches_plain(mode, R):
+    """The fiber layout walked in the kernel's summation order (groups,
+    fiber segments, chunk partials, row sums) at P 8 and 16 (three column
+    tiles of 16 at R 40) equals the plain version."""
+    idx, val = _coo_with_duplicates(seed=9)
+    shape = (40, 23, 17)
+    rng = np.random.default_rng(R)
+    facs = [torch.tensor(rng.standard_normal((d, R))) for d in shape]
+    plan = sc.build_plan(torch.tensor(idx), torch.tensor(val), shape, mode, R)
+    assert plan.variant == "fiber"
+    assert plan.lanes == min(sc.lanes_for(R), sc.FIBER_P_MAX)
+    want = sc.mttkrp_sparse_reference(torch.tensor(idx), torch.tensor(val),
+                                      facs, mode, shape[mode])
+    np.testing.assert_allclose(_fiber_walk(plan, facs, R), want.numpy(),
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
 def test_torch_sparse_plan_walk_matches_plain(mode):
     """A torch walk of the layout the kernel reads: one partial row per
     chunk from coords and vals, then each row's partials summed in chunk
@@ -141,7 +293,7 @@ def test_torch_sparse_plan_walk_matches_plain(mode):
     shape = (40, 23, 17)
     rng = np.random.default_rng(6)
     facs = [torch.tensor(rng.standard_normal((d, 5))) for d in shape]
-    plan = sc.build_plan(torch.tensor(idx), torch.tensor(val), shape, mode)
+    plan = sc.build_plan(torch.tensor(idx), torch.tensor(val), shape, mode, 5)
     B, C = (facs[g] for g in plan.gather_modes)
     contrib = (plan.vals[:, None] * B[plan.coords[:, 0].long()]
                * C[plan.coords[:, 1].long()])
@@ -164,7 +316,8 @@ def test_torch_sparse_wrapper_on_cpu_takes_plain_version():
     shape = (40, 23, 17)
     rng = np.random.default_rng(7)
     facs = [torch.tensor(rng.standard_normal((d, 3))) for d in shape]
-    st = tp.SparseTensor(torch.tensor(idx), torch.tensor(val)).with_plans(shape)
+    st = tp.SparseTensor(torch.tensor(idx), torch.tensor(val)).with_plans(shape,
+                                                                          3)
     before = sc.mttkrp_sparse_cuda.launches
     for m in range(3):
         want = sc.mttkrp_sparse_reference(st.indices, st.values, facs, m,
@@ -179,7 +332,7 @@ def test_torch_sparse_wrapper_on_cpu_takes_plain_version():
     with pytest.raises(ValueError, match="factors"):
         sc.mttkrp_sparse_cuda(st.plans[0], facs[:2])
     with pytest.raises(ValueError, match="outside shape"):
-        sc.build_plan(st.indices, st.values, (40, 23, 16), 0)
+        sc.build_plan(st.indices, st.values, (40, 23, 16), 0, 3)
 
 
 def test_torch_sparse_tensor_container():
@@ -194,8 +347,9 @@ def test_torch_sparse_tensor_container():
     assert (st.ndim, st.dtype, st.device) == (3, torch.float64,
                                               torch.device("cpu"))
     np.testing.assert_array_equal(st.to_dense(X.shape).numpy(), X)
-    planned = st.with_plans(X.shape)
+    planned = st.with_plans(X.shape, 2)
     assert [p.out_mode for p in planned.plans] == [0, 1, 2]
+    assert [p.variant for p in planned.plans] == ["fiber"] * 3
     assert st.plans is None
 
 

@@ -1,5 +1,5 @@
-"""The hand-written sparse COO MTTKRP kernel (csrc/mttkrp_sparse.cu) on a
-CUDA card.
+"""The hand-written sparse COO MTTKRP kernels (csrc/mttkrp_sparse.cu: the
+fiber kernel and the chunk kernel) on a CUDA card.
 
 Every test here needs the card and skips without one.  This file imports
 no jax, so it also runs on a machine that has only torch:
@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from matlab_code_tpu_torch.ops.sparse_cuda import (
-    CHUNK, build_plan, mttkrp_sparse_cuda, mttkrp_sparse_reference)
+    CHUNK, build_plan, choose_kernel, mttkrp_sparse_cuda,
+    mttkrp_sparse_reference)
 from matlab_code_tpu_torch.ops.tensor import mttkrp_sparse
 
 pytestmark = pytest.mark.cuda
@@ -38,17 +39,23 @@ def _coo(shape, nnz, seed=4, duplicates=0, long_row=0):
     return idx, rng.standard_normal(len(idx)), rng
 
 
-@pytest.mark.parametrize("shape,nnz,R,duplicates,long_row", [
-    ((300, 257, 129), 20000, 7, 0, 0),
-    ((40, 23, 17), 3000, 40, 500, 12 * CHUNK),   # R > 32, duplicates, long row
-    ((64, 64, 64), 5000, 16, 100, 0),
-    ((50, 30), 800, 1, 50, 3 * CHUNK),            # a matrix: one gathered mode
-    ((9, 8, 7, 6), 1500, 20, 40, 0),              # four-way: three gathered
+@pytest.mark.parametrize("shape,nnz,R,duplicates,long_row,variant", [
+    ((300, 257, 129), 20000, 7, 0, 0, None),                # fiber kernel
+    ((40, 23, 17), 3000, 40, 500, 12 * CHUNK, None),       # R > 32, duplicates, long row
+    ((64, 64, 64), 5000, 16, 100, 0, None),
+    ((2048, 2048, 2048), 30000, 16, 0, 0, None),           # the workload's tile
+    ((300, 257, 129), 20000, 7, 0, 0, "chunk"),             # chunk kernel, asked for
+    ((40, 23, 17), 3000, 40, 500, 12 * CHUNK, "chunk"),
+    ((50, 30), 800, 1, 50, 3 * CHUNK, None),                # a matrix: one gathered mode
+    ((9, 8, 7, 6), 1500, 20, 40, 0, None),                  # four-way: three gathered
+    ((64, 70000, 60000), 20000, 16, 0, 0, None),            # mode 0: no tile fits
 ])
 def test_torch_mttkrp_sparse_kernel_matches_plain(cuda_device, shape, nnz, R,
-                                                  duplicates, long_row):
+                                                  duplicates, long_row, variant):
     """float64 to 1e-12 and float32 to 1e-4 of the largest entry of the
-    float64 plain result: sums run in another order than index_add_."""
+    float64 plain result: sums run in another order than index_add_.  Each
+    plan runs the kernel choose_kernel names (or the chunk kernel, where
+    asked), and also at another rank than it was laid out for."""
     idx, val, rng = _coo(shape, nnz, duplicates=duplicates, long_row=long_row)
     facs = [rng.standard_normal((d, R)) for d in shape]
     for mode in range(len(shape)):
@@ -57,17 +64,20 @@ def test_torch_mttkrp_sparse_kernel_matches_plain(cuda_device, shape, nnz, R,
             mode, shape[mode])
         scale = want.abs().max().item()
         for dt, tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
-            plan = build_plan(torch.tensor(idx, device=cuda_device),
-                              torch.tensor(val, dtype=dt, device=cuda_device),
-                              shape, mode)
             fc = [torch.tensor(f, dtype=dt, device=cuda_device) for f in facs]
-            before = mttkrp_sparse_cuda.launches
-            got = mttkrp_sparse_cuda(plan, fc)
-            torch.cuda.synchronize()
-            assert mttkrp_sparse_cuda.launches == before + 1
-            assert got.dtype == dt and got.shape == (shape[mode], R)
-            assert (got.double().cpu() - want).abs().max().item() <= tol * scale
-            assert torch.equal(mttkrp_sparse_cuda(plan, fc), got)  # same bits
+            for rank in (R, 2 * R + 1):
+                plan = build_plan(torch.tensor(idx, device=cuda_device),
+                                  torch.tensor(val, dtype=dt, device=cuda_device),
+                                  shape, mode, rank, variant=variant)
+                choice = choose_kernel(shape, mode, rank, fc[0].element_size())
+                assert plan.variant == (variant or choice.variant)
+                before = mttkrp_sparse_cuda.launches
+                got = mttkrp_sparse_cuda(plan, fc)
+                torch.cuda.synchronize()
+                assert mttkrp_sparse_cuda.launches == before + 1
+                assert got.dtype == dt and got.shape == (shape[mode], R)
+                assert (got.double().cpu() - want).abs().max().item() <= tol * scale
+                assert torch.equal(mttkrp_sparse_cuda(plan, fc), got)  # same bits
 
 
 def test_torch_mttkrp_sparse_kernel_rejects_what_it_does_not_take(cuda_device):
@@ -77,7 +87,7 @@ def test_torch_mttkrp_sparse_kernel_rejects_what_it_does_not_take(cuda_device):
     ic = torch.tensor(idx, device=cuda_device)
     fc = [torch.tensor(rng.standard_normal((d, 3)), device=cuda_device)
           for d in shape]
-    plan = build_plan(ic, vc, shape, 0)
+    plan = build_plan(ic, vc, shape, 0, 3)
     with pytest.raises(ValueError):
         mttkrp_sparse_cuda(plan, [fc[0], fc[1].cpu(), fc[2]])
     with pytest.raises(ValueError):
@@ -88,7 +98,7 @@ def test_torch_mttkrp_sparse_kernel_rejects_what_it_does_not_take(cuda_device):
         mttkrp_sparse(ic, vc, fc, 0, shape[0])                 # no plan
     with pytest.raises(ValueError, match="plan is for mode 0"):
         mttkrp_sparse(ic, vc, fc, 1, shape[1], plan=plan)
-    half = build_plan(ic, vc.half(), shape, 0)
+    half = build_plan(ic, vc.half(), shape, 0, 3)
     with pytest.raises(ValueError, match="float32 or float64"):
         mttkrp_sparse_cuda(half, [f.half() for f in fc])
 

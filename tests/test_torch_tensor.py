@@ -15,7 +15,7 @@ from matlab_code_tpu.ops.mttkrp_pallas import mttkrp3_mode0
 
 from matlab_code_tpu_torch.ops import tensor as tt
 from matlab_code_tpu_torch.ops.mttkrp_cuda import (
-    R_MAX, mttkrp3, mttkrp3_reference, plan_mttkrp3)
+    R_MAX, column_blocks, mttkrp3, mttkrp3_reference, plan_mttkrp3)
 
 
 def _factors(rng, shape, R, dtype=np.float64):
@@ -120,6 +120,31 @@ def test_torch_mttkrp3_plan_covers_every_row(shape, R, mode):
 def test_torch_mttkrp3_plan_rejects(bad):
     with pytest.raises(ValueError):
         plan_mttkrp3(bad["shape"], bad["R"], bad["mode"], 4)
+
+
+@pytest.mark.parametrize("R", [1, R_MAX, R_MAX + 1, 40, 70, 3 * R_MAX])
+def test_torch_mttkrp3_column_blocks(R):
+    """mttkrp3 past R_MAX: the column blocks tile [0, R) in order, each
+    within one launch's plan, and the blocks' MTTKRPs side by side equal
+    the JAX package's at rank R."""
+    blocks = column_blocks(R)
+    assert blocks[0][0] == 0 and blocks[-1][1] == R
+    assert all(a < b <= a + R_MAX for a, b in blocks)
+    assert all(b == a2 for (_, b), (a2, _) in zip(blocks, blocks[1:]))
+    assert len(blocks) == -(-R // R_MAX)
+    for a, b in blocks:
+        plan_mttkrp3((6, 5, 7), b - a, 1, 4)
+    rng = np.random.default_rng(R)
+    shape = (6, 5, 7)
+    X = rng.standard_normal(shape)
+    facs = _factors(rng, shape, R)
+    for mode in range(3):
+        got = torch.cat([mttkrp3_reference(
+            torch.tensor(X), [torch.tensor(f[:, a:b]) for f in facs], mode)
+            for a, b in blocks], dim=1)
+        want = np.asarray(jt.mttkrp(jnp.asarray(X),
+                                    [jnp.asarray(f) for f in facs], mode))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-13)
 
 
 def test_torch_khatri_rao_ktensor_gram_match_jax():

@@ -12,8 +12,13 @@ non-zero:
   1. device and precision: the card, its power limit, the TF32 switches;
   2. dense kernel vs plain: the MTTKRP kernel (modes 0, 1, 2) against its
      plain PyTorch version in float64 on the card, at the flagship's two
-     tensor shapes and at ragged shapes (one at R 40: two column blocks);
-     times kernel vs torch.einsum;
+     tensor shapes, at ragged shapes (K = 1, K = 29, odd K, one at R 40: two
+     column blocks) and at bench.py's HBM-resident 256x1024x512 X, with X
+     also in float16 and bfloat16; times kernel vs torch.einsum, and mode
+     2's stream kernel against the earlier mode-2 kernel (the split kernel)
+     in turns, with the partial bytes, the time of one plain read of X
+     (X.sum()) after the same flush, and a design probe of the stream
+     kernel (ring depth, stage size, copy route);
   3. the full-size flagship fit (bench.py's workload: three CP datasets,
      type-4 selector coupling, all modes non-negative) through cmtf_aoadmm
      for 300 outer iterations in float32, counting the kernel's launches;
@@ -56,7 +61,9 @@ REPLACES = "matlab_code_tpu/ops/mttkrp_pallas.py:60"
 SPARSE_SOURCE = "matlab_code_tpu_torch/csrc/mttkrp_sparse.cu"
 SPARSE_REPLACES = "matlab_code_tpu/ops/sparse_pallas.py:300"
 FLAGSHIP_SHAPES = (((128, 512, 256), 16), ((128, 1024, 64), 20))
-RAGGED_SHAPES = (((37, 50, 29), 7), ((5, 3, 130), 1), ((37, 50, 29), 40))
+RAGGED_SHAPES = (((37, 50, 29), 7), ((5, 3, 130), 1), ((37, 50, 29), 40),
+                 ((40, 30, 1), 5), ((7, 9, 31), 20))
+HBM_SHAPE = ((256, 1024, 512), 16)   # bench.py:199-210, X 537 MB
 FIT_ITERS = 300
 CPU_ITERS = 5
 TOL_ITERS = 2000
@@ -370,6 +377,63 @@ def sparse_phases(dev, power):
             "library_ms": None}
 
 
+def stream_variant(plan, shape, R, sms, stages=None, stage_rows=None,
+                   copy=None):
+    """The mode-2 stream plan with another ring depth, stage size or copy
+    route, its row ranges and shared memory recomputed; stages shrink
+    until the ring fits 227 KB."""
+    from matlab_code_tpu_torch.ops import mttkrp_cuda as mc
+    stages = stages or plan.stages
+    stage_rows = stage_rows or plan.stage_rows
+    I, J, _ = shape
+
+    def smem(rows):
+        return mc.stream_smem(stages, rows, plan.tk, plan.rm, plan.kthreads,
+                              plan.phases, R, 4)
+    while stage_rows > 1 and smem(stage_rows) > mc.SMEM_MAX:
+        stage_rows -= 1
+    nsplit, spb = mc._splits(-(-I * J // stage_rows), max(1, sms // plan.ktiles))
+    return plan._replace(stages=stages, stage_rows=stage_rows, nsplit=nsplit,
+                         spb=spb, smem=smem(stage_rows),
+                         copy=plan.copy if copy is None else copy)
+
+
+def design_probe(X32, f32, want, shape, R, flush, power):
+    """The stream kernel's design choices at one shape, float32: the plan
+    (4 slots, bulk copies, stages of at most 32 KB of X) against 3, 6 and 8
+    slots, half-size stages and 16-byte cp.async, each checked against the
+    float64 plain version and timed; the plan is timed first and last."""
+    import torch
+    from matlab_code_tpu_torch.ops import mttkrp_cuda as mc
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = mc.plan_mttkrp3(shape, R, 2, 4, sms)
+    half = max(1, plan.stage_rows // 2)
+    cases = [("plan", plan),
+             ("3 slots", stream_variant(plan, shape, R, sms, stages=3)),
+             ("6 slots", stream_variant(plan, shape, R, sms, stages=6)),
+             ("8 slots, half stages",
+              stream_variant(plan, shape, R, sms, stages=8, stage_rows=half)),
+             ("half stages", stream_variant(plan, shape, R, sms, stage_rows=half)),
+             ("16-byte cp.async", stream_variant(plan, shape, R, sms, copy=16))]
+    ops, _ = mc.kernel_operands(X32, f32, 2)
+    gb = X32.numel() * 4 / 1e9
+    scale = want.abs().max().item()
+    times = {}
+    for name, p in cases + [("plan, again", plan)]:
+        if p.smem > mc.SMEM_MAX or (p.copy == 16 and plan.copy != 0):
+            print(f"  design probe {shape} R={R} {name}: does not fit or apply")
+            continue
+        err = (mc._launch(X32, ops, 2, p).double() - want).abs().max().item()
+        if not err <= 1e-4 * scale:
+            raise RuntimeError(f"design probe {name} disagrees: {shape} R={R}")
+        t = time_ms(lambda: mc._launch(X32, ops, 2, p), flush)
+        times[name] = t
+        print(f"  design probe {shape} R={R} {name}: {t * 1e3:.1f} us "
+              f"({gb / (t / 1e3):.0f} GB/s; {p.stages} slots of {p.stage_rows} "
+              f"rows, copy {p.copy}, smem {p.smem})  [{power}]")
+    return times
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -426,54 +490,117 @@ def main():
     ms = plain_ms = lib_ms = bound_ms = 0.0
     bound_by_ms = {"bytes": 0.0, "operations": 0.0}
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
-    for shape, R in FLAGSHIP_SHAPES + RAGGED_SHAPES:
-        X = rng.standard_normal(shape).astype(np.float32)
-        facs = [rng.standard_normal((n, R)).astype(np.float32) for n in shape]
-        X32 = torch.tensor(X, device=dev)
-        f32 = [torch.tensor(f, device=dev) for f in facs]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape, R in FLAGSHIP_SHAPES + RAGGED_SHAPES + (HBM_SHAPE,):
+        X32 = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(
+            sum(shape) + R), device=dev)
+        f32 = [torch.tensor(rng.standard_normal((n, R)), dtype=torch.float32,
+                            device=dev) for n in shape]
         X64 = X32.double()
         f64 = [f.double() for f in f32]
+        timed = (shape, R) in FLAGSHIP_SHAPES + (HBM_SHAPE,)
         for mode in range(3):
             want = mttkrp3_reference(X64, f64, mode)
             scale = want.abs().max().item()
-            got = mttkrp3(X32, f32, mode)
-            got64 = mttkrp3(X64, f64, mode)
-            torch.cuda.synchronize()
-            err = (got.double() - want).abs().max().item()
-            err64 = (got64 - want).abs().max().item()
-            again = mttkrp3(X32, f32, mode)
-            deterministic = bool(torch.equal(again, got))
-            print(f"{shape} R={R} mode {mode}: max|kernel-plain_f64| = {err:.3e} "
-                  f"(bound {1e-4 * scale:.3e}); float64 kernel {err64:.3e}; "
-                  f"same bits on repeat: {deterministic}")
-            if not err <= 1e-4 * scale:
-                raise RuntimeError(f"kernel disagrees: {shape} R={R} mode {mode}")
-            if not err64 <= 1e-12 * scale:
-                raise RuntimeError(f"float64 kernel disagrees: {shape} R={R} mode {mode}")
-            if not deterministic:
-                raise RuntimeError(f"kernel not deterministic: {shape} mode {mode}")
-            max_abs_err = max(max_abs_err, err)
-            if (shape, R) in FLAGSHIP_SHAPES:
-                eq = ("ijk,jr,kr->ir", "ijk,ir,kr->jr", "ijk,ir,jr->kr")[mode]
-                ops = [f for n, f in enumerate(f32) if n != mode]
+            variants = [None] + (["split"] if mode == 2 and
+                                 (shape, R) != HBM_SHAPE else [])
+            for variant in variants:
+                run = mttkrp3 if variant is None else \
+                    (lambda X, f, m: mttkrp_cuda._mttkrp3_split(X, f))
+                got = run(X32, f32, mode)
+                got64 = run(X64, f64, mode)
+                torch.cuda.synchronize()
+                err = (got.double() - want).abs().max().item()
+                err64 = (got64 - want).abs().max().item()
+                deterministic = bool(torch.equal(run(X32, f32, mode), got)
+                                     and torch.equal(run(X64, f64, mode), got64))
+                label = {None: "kernel", "split": "split variant"}[variant]
+                print(f"{shape} R={R} mode {mode} {label}: max|kernel-plain_f64| "
+                      f"= {err:.3e} (bound {1e-4 * scale:.3e}); float64 "
+                      f"{err64:.3e} (bound {1e-12 * scale:.3e}); same bits on "
+                      f"repeat: {deterministic}")
+                if not err <= 1e-4 * scale:
+                    raise RuntimeError(f"{label} disagrees: {shape} R={R} mode {mode}")
+                if not err64 <= 1e-12 * scale:
+                    raise RuntimeError(f"float64 {label} disagrees: {shape} R={R} "
+                                       f"mode {mode}")
+                if not deterministic:
+                    raise RuntimeError(f"{label} not deterministic: {shape} mode {mode}")
+                if variant is None:
+                    max_abs_err = max(max_abs_err, err)
+            # a 16-bit X, widened to float32 on load: against the float64
+            # plain version of the rounded X
+            for dt16 in (torch.float16, torch.bfloat16):
+                X16 = X32.to(dt16)
+                want16 = mttkrp3_reference(X16.double(), f64, mode)
+                got16 = mttkrp3(X16, f32, mode)
+                err16 = (got16.double() - want16).abs().max().item()
+                scale16 = want16.abs().max().item()
+                same16 = bool(torch.equal(mttkrp3(X16, f32, mode), got16))
+                line16 = (f"{shape} R={R} mode {mode} {dt16} X: "
+                          f"max|kernel-plain_f64| = {err16:.3e} (bound "
+                          f"{1e-4 * scale16:.3e}); same bits on repeat: {same16}")
+                if timed:
+                    t16 = time_ms(lambda: mttkrp3(X16, f32, mode), flush)
+                    line16 += (f"; {t16 * 1e3:.1f} us ({X16.numel() * 2 / 1e6 / t16:.0f}"
+                               f" GB/s)  [{power}]")
+                print(line16)
+                if got16.dtype != torch.float32 or not err16 <= 1e-4 * scale16 \
+                        or not same16:
+                    raise RuntimeError(f"{dt16} X disagrees: {shape} R={R} "
+                                       f"mode {mode}")
+                del X16, want16, got16
+            del got, got64
+            if mode == 2 and R <= 32:
+                plan = mttkrp_cuda.plan_mttkrp3(shape, R, 2, 4, sms)
+                print(f"  mode-2 plan {plan}; split partials "
+                      f"{plan.partial_share(shape, R):.1%} of X's bytes")
+            if not timed:
+                continue
+            eq = ("ijk,jr,kr->ir", "ijk,ir,kr->jr", "ijk,ir,jr->kr")[mode]
+            ops = [f for n, f in enumerate(f32) if n != mode]
+            # X, the two factors read and the output, once each
+            nbytes = 4 * (X32.numel() + sum(f.numel() for f in ops)
+                          + shape[mode] * R)
+            t_b, bound_by = bound(nbytes, 2 * X32.numel() * R)
+            gb = X32.numel() * 4 / 1e9
+            if mode == 2 and (shape, R) in FLAGSHIP_SHAPES:
+                split = (lambda: mttkrp_cuda._mttkrp3_split(X32, f32))
+                stream = (lambda: mttkrp3(X32, f32, 2))
+                runs = [time_ms(fn, flush)
+                        for fn in (stream, split, split, stream)]
+                t_k, t_s = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+                print(f"  mode 2 in turns (stream, split, split, stream): "
+                      f"{', '.join(f'{r * 1e3:.1f}' for r in runs)} us; stream "
+                      f"{t_k * 1e3:.1f} us ({gb / (t_k / 1e3):.0f} GB/s, "
+                      f"{t_b / t_k:.1%} of the bound), split {t_s * 1e3:.1f} us "
+                      f"({gb / (t_s / 1e3):.0f} GB/s): {t_s / t_k:.2f}x  [{power}]")
+            else:
                 t_k = time_ms(lambda: mttkrp3(X32, f32, mode), flush)
-                t_p = time_ms(lambda: mttkrp3_reference(X32, f32, mode), flush)
-                t_l = time_ms(lambda: torch.einsum(eq, X32, *ops), flush)
-                # X, the two factors read and the output, once each
-                nbytes = 4 * (X32.numel() + sum(f.numel() for f in ops)
-                              + shape[mode] * R)
-                t_b, bound_by = bound(nbytes, 2 * X32.numel() * R)
-                gb = X32.numel() * 4 / 1e9
-                print(f"  time: kernel {t_k * 1e3:.1f} us ({gb / (t_k / 1e3):.0f} GB/s)"
-                      f" | plain {t_p * 1e3:.1f} us "
-                      f"({gb / (t_p / 1e3):.0f} GB/s) | torch.einsum "
+            t_l = time_ms(lambda: torch.einsum(eq, X32, *ops), flush)
+            if mode == 2:
+                # what a plain read of X takes after the same flush
+                t_r = time_ms(lambda: X32.sum(), flush)
+                print(f"  X.sum() (one read of X): {t_r * 1e3:.1f} us "
+                      f"({gb / (t_r / 1e3):.0f} GB/s)  [{power}]")
+                design_probe(X32, f32, want, shape, R, flush, power)
+            if (shape, R) == HBM_SHAPE:
+                print(f"  time: kernel {t_k * 1e3:.1f} us ({gb / (t_k / 1e3):.0f} "
+                      f"GB/s, {t_b / t_k:.1%} of the bound) | torch.einsum "
                       f"{t_l * 1e3:.1f} us | bound {t_b * 1e3:.1f} us "
                       f"({bound_by})  [{power}]")
-                ms += t_k
-                plain_ms += t_p
-                lib_ms += t_l
-                bound_ms += t_b
-                bound_by_ms[bound_by] += t_b
+                continue
+            t_p = time_ms(lambda: mttkrp3_reference(X32, f32, mode), flush)
+            print(f"  time: kernel {t_k * 1e3:.1f} us ({gb / (t_k / 1e3):.0f} GB/s)"
+                  f" | plain {t_p * 1e3:.1f} us "
+                  f"({gb / (t_p / 1e3):.0f} GB/s) | torch.einsum "
+                  f"{t_l * 1e3:.1f} us | bound {t_b * 1e3:.1f} us "
+                  f"({bound_by})  [{power}]")
+            ms += t_k
+            plain_ms += t_p
+            lib_ms += t_l
+            bound_ms += t_b
+            bound_by_ms[bound_by] += t_b
         del X32, X64, f32, f64
     print(f"six flagship MTTKRPs (one sweep): kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms, torch.einsum {lib_ms:.3f} ms, "

@@ -80,20 +80,46 @@ def compute_znorm_consts(spec: ProblemSpec, data: ProblemData,
     return tuple(out)
 
 
+def eligible_pp_datasets(spec: ProblemSpec, data: ProblemData,
+                         options: AlgOptions) -> tuple:
+    """Datasets the pairwise-perturbation MTTKRP would take when
+    options.cp_pairwise_perturbation is set: 3-way CP with Frobenius loss,
+    no missing mask, dense 3-way or SparseTensor data (the rule of
+    matlab_code_tpu/models/pairwise.py::eligible_pp_datasets, without its
+    mesh)."""
+    if not options.cp_pairwise_perturbation:
+        return ()
+    out = []
+    for p, ds in enumerate(spec.datasets):
+        if ds.model != CP or len(ds.modes) != 3 or ds.loss != "Frobenius":
+            continue
+        if data.miss and data.miss[p] is not None:
+            continue
+        X = data.objects[p]
+        if isinstance(X, SparseTensor) or getattr(X, "ndim", 0) == 3:
+            out.append(p)
+    return tuple(out)
+
+
 def attach_sparse_plans(spec: ProblemSpec, data: ProblemData,
                         options: AlgOptions) -> ProblemData:
     """Attach the CUDA kernel's plans (ops/sparse_cuda.build_plan) to every
     SparseTensor on a CUDA card that has none, whatever
     options.sparse_mttkrp says: on the card every sparse MTTKRP runs the
     kernel.  Set-up work with torch ops on the card, once per sparsity
-    pattern.  Data on the CPU is returned as it is."""
+    pattern.  A dense 3-way dataset on the card that is not contiguous is
+    copied once here, since the dense kernel (ops/mttkrp_cuda.mttkrp3)
+    never copies X.  Data on the CPU is returned as it is."""
     objs = list(data.objects)
     for p, X in enumerate(objs):
-        if isinstance(X, SparseTensor) and X.plans is None \
-                and X.device.type == "cuda":
-            objs[p] = X.with_plans(
-                tuple(spec.mode_sizes[m] for m in spec.datasets[p].modes),
-                spec.datasets[p].rank)
+        if isinstance(X, SparseTensor):
+            if X.plans is None and X.device.type == "cuda":
+                objs[p] = X.with_plans(
+                    tuple(spec.mode_sizes[m] for m in spec.datasets[p].modes),
+                    spec.datasets[p].rank)
+        elif X.dim() == 3 and X.device.type == "cuda" \
+                and not X.is_contiguous():
+            objs[p] = X.contiguous()
     if all(a is b for a, b in zip(objs, data.objects)):
         return data
     return dataclasses.replace(data, objects=tuple(objs))
@@ -223,8 +249,10 @@ def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
         options: AlgOptions, validate: bool = True):
     """Run AO-ADMM until the stopping rule holds or MaxOuterIters.  Returns
     (state, FitOutput).  Runs on the device and in the dtype of the data;
-    sparse COO data on a CUDA card gets its kernel plans first
-    (attach_sparse_plans)."""
+    sparse COO data on a CUDA card gets its kernel plans first, and dense
+    3-way data on the card is made contiguous once (attach_sparse_plans).
+    Raises NotImplementedError where cp_pairwise_perturbation would take a
+    dataset (eligible_pp_datasets)."""
     if validate:
         check_data_input(spec, data)
     _check_ported(spec)
@@ -233,6 +261,11 @@ def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
     if has_missing(data):
         raise NotImplementedError(
             "missing data (EM imputation) comes with slice 6 (ROADMAP.md)")
+    pp = eligible_pp_datasets(spec, data, options)
+    if pp:
+        raise NotImplementedError(
+            f"cp_pairwise_perturbation on datasets {list(pp)}: the "
+            "pairwise-perturbation MTTKRP comes with slice 7 (ROADMAP.md)")
     apply_matmul_precision(options)
     znorms = compute_znorm_consts(spec, data, options)
     proxes, reg_fns = build_proxes(spec)

@@ -3,15 +3,19 @@
 Counterpart of matlab_code_tpu/ops/mttkrp_pallas.py.  The kernel
 (csrc/mttkrp3.cu) replaces the Pallas kernel `mttkrp3_mode0`
 (mttkrp_pallas.py:50-83, pallas_call at :60) and extends it to modes 1 and
-2, so every dense 3-way MTTKRP of the AO sweep runs through it.
+2, so every dense 3-way MTTKRP of the AO sweep runs through it.  Like the
+Pallas kernel it takes X in float16, bfloat16, float32 or float64 and
+accumulates and returns promote(X.dtype, float32): a 16-bit X is widened to
+float32 as it is loaded.
 
 What bounds it on the H100: ~2R flops per 4-byte element of X (8-15
 flop/byte at R = 16-20), far below the float32 ridge, so the roof is X's
 bytes over HBM bandwidth.  The kernel reads X once, coalesced along the
 contiguous k axis, keeps the other factors in registers and shared memory,
 and reduces split partial sums in a fixed second pass instead of with
-atomics, so repeated calls give the same bits.  See the source for the
-layout of each mode.
+atomics, so repeated calls give the same bits.  Mode 2 streams X as the
+(I*J) x K matrix it is through a ring of asynchronous copies, one block an
+SM (StreamPlan).  See the source for the layout of each mode.
 
 mttkrp3(X, factors, mode) launches the kernel for a CUDA tensor (once per
 column block of at most R_MAX past R_MAX) and raises on anything it does
@@ -20,30 +24,95 @@ not take; for a CPU tensor it returns the plain version, mttkrp3_reference.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
+# dtypes of X the kernel takes, and their codes in csrc/mttkrp3.cu (XDtype)
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
+               torch.bfloat16: 3}
+KERNEL_DTYPES = tuple(DTYPE_CODES)
 R_MAX = 32                  # largest rank one launch takes (registers)
 _RM_BUCKETS = (8, 16, 24, 32)
 _ROWS_THREADS = 256         # block size of the mode-0/1 kernel
 _ROWS_TARGET_BLOCKS = 1024  # enough blocks of 8 warps to fill 132 SMs
-_MODE2_TARGET_WARPS = 2048  # mode 2: more warps means more split partials
+_MODE2_TARGET_WARPS = 2048  # split mode-2 kernel: more warps, more partials
 _TILE_BYTES = 16384         # shared-memory budget of one factor tile
 _GRID_YZ_MAX = 65535
+# the mode-2 stream kernel (constants shared with csrc/mttkrp3.cu)
+STREAM_THREADS = 256        # kStreamThreads: consumer threads a block at most
+STREAM_STAGES = 4           # slots of the ring the plan takes
+PLAIN_COPY = 1              # kPlainCopy: a copy width of plain loads/stores
+_STAGE_BYTES = 32768        # X bytes a stage holds at most
+_KR_BYTES = 8192            # KR tile bytes a stage holds at most
+_ACC_BYTES = 256            # accumulators a thread keeps (64 registers)
+SMEM_MAX = 232448           # 227 KB of shared memory a block can use
 
 _LIB = None
 
 
+def acc_size(itemsize: int) -> int:
+    """Bytes of an accumulator (and of a factor and output element) for an
+    X of `itemsize` bytes: float32 for 2- and 4-byte X, float64 for 8."""
+    return max(4, itemsize)
+
+
 class Plan(NamedTuple):
-    """Launch plan of one mttkrp3 call (see csrc/mttkrp3.cu)."""
+    """Launch plan of the rows kernel (modes 0/1, see csrc/mttkrp3.cu)."""
     rm: int      # rank padded to a register bucket
     tk: int      # threads along k
-    ns_a: int    # modes 0/1: splits of the walked axis; mode 2: splits of i
-    ns_b: int    # mode 2: splits of j (1 otherwise)
-    per_a: int   # rows per split of the ns_a axis
-    per_b: int   # rows per split of the ns_b axis
+    ns: int      # splits of the walked axis (j for mode 0, i for mode 1)
+    per: int     # rows per split
+
+    @property
+    def nsplit(self) -> int:
+        return self.ns
+
+
+class StreamPlan(NamedTuple):
+    """Launch plan of the mode-2 stream kernel (mttkrp3_mode2_stream in
+    csrc/mttkrp3.cu).  The I*J rows of X are cut into stages of stage_rows
+    rows; block (b, t) of an (nsplit, ktiles) grid owns stages
+    b * spb .. (b + 1) * spb - 1 and columns t * tk .. (t + 1) * tk - 1 of
+    k, and streams them through a ring of `stages` slots."""
+    rm: int          # rank padded to a register bucket
+    kpt: int         # consecutive k a thread owns (1, 2 or 4)
+    copy: int        # X: 0 bulk copies (TMA), 16/8/4 bytes a cp.async, or
+    #                  PLAIN_COPY
+    abw: int         # A and B rows: 0 bulk copies, else bytes a cp.async
+    kthreads: int    # threads along k (a multiple of 32)
+    phases: int      # row phases (kthreads * phases consumer threads)
+    tk: int          # columns of X a k tile holds
+    ktiles: int      # k tiles
+    nsplit: int      # row ranges, one partial each
+    spb: int         # stages a range holds
+    stage_rows: int  # rows a stage holds
+    stages: int      # slots of the ring
+    smem: int        # dynamic shared memory of a block, bytes
+
+    @property
+    def threads(self) -> int:
+        """Consumer threads (the block has one producer warp more)."""
+        return self.kthreads * self.phases
+
+    def partial_share(self, shape: tuple[int, int, int], R: int) -> float:
+        """Bytes of the split partials (written once, read once) over the
+        bytes of X, for an X and partials of one element size."""
+        I, J, _ = shape
+        return 2 * self.nsplit * R / (I * J) if self.nsplit > 1 else 0.0
+
+
+class SplitPlan(NamedTuple):
+    """Launch plan of the earlier mode-2 kernel (mttkrp3_mode2), kept for
+    comparison: a block owns a tile of k and splits of i and j."""
+    rm: int
+    tk: int
+    ns_a: int    # splits of i
+    ns_b: int    # splits of j
+    per_a: int
+    per_b: int
 
     @property
     def nsplit(self) -> int:
@@ -68,37 +137,120 @@ def column_blocks(R: int) -> list[tuple[int, int]]:
     return [(a, min(a + R_MAX, R)) for a in range(0, R, R_MAX)]
 
 
-def plan_mttkrp3(shape: tuple[int, int, int], R: int, mode: int,
-                 itemsize: int) -> Plan:
-    """Launch plan for an (I, J, K) tensor at rank R; raises on what the
-    kernel does not take."""
+def _widest(itemsize: int, *multiples: int) -> int | None:
+    """The widest copy (16, 8 or 4 bytes, at least one element) that
+    divides every one of `multiples`."""
+    return next((w for w in (16, 8, 4) if w >= itemsize
+                 and all(m % w == 0 for m in multiples)), None)
+
+
+def _rm(R: int) -> int:
+    return next(b for b in _RM_BUCKETS if b >= R)
+
+
+def stream_smem(stages: int, stage_rows: int, tk: int, rm: int,
+                kthreads: int, phases: int, R: int, itemsize: int) -> int:
+    """Dynamic shared memory of the stream kernel (StreamSmem in
+    csrc/mttkrp3.cu) for an X of `itemsize` bytes: the ring of X, the ring
+    of A/B rows and each consumer warp's KR rows, or the phase sums that
+    reuse them, then a full and an empty mbarrier a slot."""
+    ts = acc_size(itemsize)
+    ring = -(-stages * stage_rows * tk * itemsize // 16) * 16
+    rows_w = -(-stage_rows // phases)
+    body = ring + (stages * (2 * stage_rows + 1)
+                   + kthreads * phases // 32 * rows_w) * rm * ts
+    red = phases * R * (tk + 16 // ts) * ts
+    return -(-max(body, red) // 16) * 16 + 16 * stages
+
+
+def _plan_stream(shape: tuple[int, int, int], rm: int, R: int, itemsize: int,
+                 sms: int, x_align: int, f_align: int) -> StreamPlan:
     I, J, K = shape
-    if min(I, J, K) < 1:
+    ts = acc_size(itemsize)
+    # KPT: the widest that keeps one read of X within 16 bytes, 64
+    # accumulator registers, vector reads aligned (K % KPT == 0) and a
+    # warp busy
+    kpt = next(p for p in (4, 2, 1)
+               if p == 1 or (p * itemsize <= 16 and p * rm * ts <= _ACC_BYTES
+                             and K % p == 0 and K >= 32 * p))
+    tk = min(K, STREAM_THREADS * kpt)   # tile k only past the block's threads
+    ktiles = math.ceil(K / tk)
+    kthreads = 32 * math.ceil(math.ceil(tk / kpt) / 32)
+    phases = STREAM_THREADS // kthreads
+    if x_align < itemsize or f_align < ts:
+        raise ValueError(f"mttkrp3: a data pointer is aligned to "
+                         f"{min(x_align, f_align)} bytes, below its element")
+    # X: bulk copies (0) where every row and k tile starts on 16 bytes,
+    # else cp.async of the widest the alignment allows, else (a 16-bit X
+    # on 2 bytes) plain loads and stores; A and B rows likewise
+    copy = _widest(itemsize, K * itemsize, tk * itemsize, x_align) or PLAIN_COPY
+    abw = _widest(ts, R * ts, f_align)
+    copy, abw = (0 if w == 16 else w for w in (copy, abw))
+    stage_rows = max(1, min(_STAGE_BYTES // (tk * itemsize),
+                            _KR_BYTES // (rm * ts)))
+    nsplit, spb = _splits(math.ceil(I * J / stage_rows), max(1, sms // ktiles))
+    smem = stream_smem(STREAM_STAGES, stage_rows, tk, rm, kthreads, phases, R,
+                       itemsize)
+    if smem > SMEM_MAX:
+        raise ValueError(f"mttkrp3: the mode-2 plan needs {smem} bytes of "
+                         f"shared memory for {shape}")
+    return StreamPlan(rm, kpt, copy, abw, kthreads, phases, tk, ktiles, nsplit,
+                      spb, stage_rows, STREAM_STAGES, smem)
+
+
+def _check_plan_args(shape, R: int, mode: int) -> None:
+    if min(shape) < 1:
         raise ValueError(f"mttkrp3 needs I, J, K >= 1, got {shape}")
     if not 1 <= R <= R_MAX:
         raise ValueError(f"mttkrp3 takes 1 <= R <= {R_MAX}, got R={R}")
     if mode not in (0, 1, 2):
         raise ValueError(f"mttkrp3 mode must be 0, 1 or 2, got {mode}")
-    rm = next(b for b in _RM_BUCKETS if b >= R)
-    tile_rows = max(1, _TILE_BYTES // (rm * itemsize))
-    if mode < 2:
-        O, Sn = (I, J) if mode == 0 else (J, I)
-        tk = _pow2_clamp(K, 32, _ROWS_THREADS)
-        want = max(math.ceil(_ROWS_TARGET_BLOCKS / O), math.ceil(Sn / tile_rows))
-        ns, per = _splits(Sn, want)
-        plan = Plan(rm, tk, ns, 1, per, 1)
-    else:
-        tk = _pow2_clamp(K, 32, 128)
-        ktiles = math.ceil(K / tk)
-        target = max(1, _MODE2_TARGET_WARPS // (tk // 32))
-        nj_min = math.ceil(J / tile_rows)
-        ni, per_i = _splits(I, math.ceil(target / (ktiles * nj_min)))
-        nj, per_j = _splits(J, max(nj_min, math.ceil(target / (ktiles * ni))))
-        plan = Plan(rm, tk, ni, nj, per_i, per_j)
-    if plan.ns_a > _GRID_YZ_MAX or plan.ns_b > _GRID_YZ_MAX:
+
+
+@functools.lru_cache(maxsize=256)
+def plan_mttkrp3(shape: tuple[int, int, int], R: int, mode: int,
+                 itemsize: int, sms: int, x_align: int = 16,
+                 f_align: int = 16) -> Plan | StreamPlan:
+    """Launch plan for an (I, J, K) tensor of `itemsize`-byte elements at
+    rank R on a card with `sms` streaming multiprocessors; raises on what
+    the kernel does not take.
+
+    Modes 0 and 1 take the rows kernel (Plan), mode 2 the stream kernel
+    (StreamPlan).  x_align and f_align are the byte alignments of the data
+    pointers of X and of A and B; the stream kernel's copies follow them."""
+    _check_plan_args(shape, R, mode)
+    I, J, K = shape
+    rm = _rm(R)
+    if mode == 2:
+        return _plan_stream(shape, rm, R, itemsize, sms, x_align, f_align)
+    tile_rows = max(1, _TILE_BYTES // (rm * acc_size(itemsize)))
+    O, Sn = (I, J) if mode == 0 else (J, I)
+    want = max(math.ceil(_ROWS_TARGET_BLOCKS / O), math.ceil(Sn / tile_rows))
+    ns, per = _splits(Sn, want)
+    if ns > _GRID_YZ_MAX:
         raise ValueError(f"mttkrp3: shape {shape} needs more than "
                          f"{_GRID_YZ_MAX} splits")
-    return plan
+    return Plan(rm, _pow2_clamp(K, 32, _ROWS_THREADS), ns, per)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_split(shape: tuple[int, int, int], R: int,
+                itemsize: int) -> SplitPlan:
+    """Launch plan of the earlier mode-2 kernel (comparisons only)."""
+    _check_plan_args(shape, R, 2)
+    I, J, K = shape
+    rm = _rm(R)
+    tile_rows = max(1, _TILE_BYTES // (rm * itemsize))
+    tk = _pow2_clamp(K, 32, 128)
+    ktiles = math.ceil(K / tk)
+    target = max(1, _MODE2_TARGET_WARPS // (tk // 32))
+    nj_min = math.ceil(J / tile_rows)
+    ni, per_i = _splits(I, math.ceil(target / (ktiles * nj_min)))
+    nj, per_j = _splits(J, max(nj_min, math.ceil(target / (ktiles * ni))))
+    if max(ni, nj) > _GRID_YZ_MAX:
+        raise ValueError(f"mttkrp3: shape {shape} needs more than "
+                         f"{_GRID_YZ_MAX} splits")
+    return SplitPlan(rm, tk, ni, nj, per_i, per_j)
 
 
 def mttkrp3_reference(X: torch.Tensor, factors, mode: int) -> torch.Tensor:
@@ -119,12 +271,120 @@ def _lib():
     if _LIB is None:
         from matlab_code_tpu_torch.ops._build import load_library
         lib = load_library("mttkrp3", ["mttkrp3.cu"])
-        fn = lib.mttkrp3_run
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        # (ints before the five pointers, ints after them), then the stream
+        for name, head, tail in (("mttkrp3_run", 3, 7),
+                                 ("mttkrp3_stream_run", 3, 15),
+                                 ("mttkrp3_split_run", 2, 9)):
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_int] * head + [ctypes.c_void_p] * 5
+                           + [ctypes.c_int] * tail + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _align(ptr: int) -> int:
+    """Largest power of two up to 16 that divides ptr."""
+    return min(16, ptr & -ptr) if ptr else 16
+
+
+def kernel_operands(X: torch.Tensor, factors, mode: int):
+    """Check what the kernel takes and return (factors in the kernel's
+    accumulator dtype, R): a 3-way X in KERNEL_DTYPES, contiguous, and
+    contiguous (X.shape[n], R) factors on X's device in X.dtype or
+    promote(X.dtype, float32) (factors[mode] is not read).  A 16-bit
+    factor is widened to float32 here (a copy of a small matrix); X is
+    never copied.  Raises ValueError on anything else."""
+    if X.dim() != 3 or len(factors) != 3:
+        raise ValueError(f"mttkrp3 takes a 3-way tensor and 3 factors, got "
+                         f"X.dim()={X.dim()} and {len(factors)} factors")
+    if X.dtype not in DTYPE_CODES:
+        raise ValueError(f"mttkrp3 takes X in float16, bfloat16, float32 or "
+                         f"float64, got {X.dtype}")
+    if not X.is_contiguous():
+        raise ValueError("mttkrp3 takes a contiguous X (it never copies X)")
+    acc = torch.promote_types(X.dtype, torch.float32)
+    ref = factors[(mode + 1) % 3]
+    R = ref.shape[1] if ref.dim() == 2 else -1
+    out = list(factors)
+    for n, f in enumerate(factors):
+        if n == mode:
+            continue
+        if f.device != X.device or f.dtype not in (X.dtype, acc):
+            raise ValueError(f"mttkrp3: factor {n} is {f.dtype} on {f.device}, "
+                             f"X is {X.dtype} on {X.device}")
+        if f.dim() != 2 or f.shape != (X.shape[n], R) or not f.is_contiguous():
+            raise ValueError(f"mttkrp3: factor {n} must be a contiguous "
+                             f"({X.shape[n]}, {R}) matrix, got {tuple(f.shape)}")
+        out[n] = f.to(acc)
+    return out, R
+
+
+def _launch(X: torch.Tensor, factors, mode: int,
+            plan: Plan | StreamPlan | SplitPlan) -> torch.Tensor:
+    """Run the kernel of `plan` on checked operands (kernel_operands) with
+    R <= R_MAX, and count the launch in mttkrp3.launches."""
+    A, B, C = factors
+    R = factors[(mode + 1) % 3].shape[1]
+    I, J, K = X.shape
+    acc = torch.promote_types(X.dtype, torch.float32)
+    out = torch.empty((X.shape[mode], R), dtype=acc, device=X.device)
+    part = (torch.empty((plan.nsplit, X.shape[mode], R), dtype=acc,
+                        device=X.device) if plan.nsplit > 1 else out)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    code = DTYPE_CODES[X.dtype]
+    if isinstance(plan, StreamPlan):
+        err = _lib().mttkrp3_stream_run(
+            code, plan.rm, plan.kpt, X.data_ptr(), A.data_ptr(), B.data_ptr(),
+            part.data_ptr(), out.data_ptr(), I, J, K, R, plan.tk,
+            plan.kthreads, plan.phases, plan.nsplit, plan.ktiles, plan.spb,
+            plan.stage_rows, plan.stages, plan.copy, plan.abw, plan.smem,
+            stream)
+    elif isinstance(plan, SplitPlan):
+        err = _lib().mttkrp3_split_run(
+            code, plan.rm, X.data_ptr(), A.data_ptr(), B.data_ptr(),
+            part.data_ptr(), out.data_ptr(), I, J, K, R, plan.tk, plan.ns_a,
+            plan.ns_b, plan.per_a, plan.per_b, stream)
+    else:
+        f0 = (B, A)[mode]
+        err = _lib().mttkrp3_run(
+            code, plan.rm, mode, X.data_ptr(), f0.data_ptr(), C.data_ptr(),
+            part.data_ptr(), out.data_ptr(), I, J, K, R, plan.tk, plan.ns,
+            plan.per, stream)
+    if err != 0:
+        raise RuntimeError(f"mttkrp3 launch failed: cudaError {err} "
+                           f"(shape {tuple(X.shape)}, {X.dtype}, R={R}, "
+                           f"mode={mode}, {plan})")
+    mttkrp3.launches += 1
+    return out
+
+
+def _on_card(X: torch.Tensor, factors, mode: int, run) -> torch.Tensor:
+    """Check the operands and call run(X, factors, mode) once per column
+    block of at most R_MAX."""
+    if X.device.type != "cuda":
+        raise ValueError(f"mttkrp3: unsupported device {X.device}")
+    facs, R = kernel_operands(X, factors, mode)
+    if R <= R_MAX:
+        return run(X, facs, mode)
+    return torch.cat([
+        run(X, [f if n == mode else f[:, a:b].contiguous()
+                for n, f in enumerate(facs)], mode)
+        for a, b in column_blocks(R)], dim=1)
+
+
+def _run_planned(X: torch.Tensor, facs, mode: int) -> torch.Tensor:
+    A, B, _ = facs
+    R = facs[(mode + 1) % 3].shape[1]
+    plan = plan_mttkrp3(tuple(X.shape), R, mode, X.element_size(),
+                        _sms(X.device), _align(X.data_ptr()),
+                        min(_align(A.data_ptr()), _align(B.data_ptr())))
+    return _launch(X, facs, mode, plan)
 
 
 def mttkrp3(X: torch.Tensor, factors, mode: int) -> torch.Tensor:
@@ -133,53 +393,27 @@ def mttkrp3(X: torch.Tensor, factors, mode: int) -> torch.Tensor:
     (X.shape[mode], R) in promote(X.dtype, float32).
 
     A CUDA tensor launches the hand-written kernel (and counts the launch in
-    mttkrp3.launches) or raises; R > R_MAX runs it once a column block of
-    column_blocks(R) and counts each launch.  A CPU tensor takes
-    mttkrp3_reference."""
+    mttkrp3.launches) or raises (kernel_operands says what it takes); R >
+    R_MAX runs it once a column block of column_blocks(R) and counts each
+    launch.  A CPU tensor takes mttkrp3_reference."""
     if X.device.type == "cpu":
         return mttkrp3_reference(X, factors, mode)
-    if X.device.type != "cuda":
-        raise ValueError(f"mttkrp3: unsupported device {X.device}")
-    if X.dim() != 3 or len(factors) != 3:
-        raise ValueError(f"mttkrp3 takes a 3-way tensor and 3 factors, got "
-                         f"X.dim()={X.dim()} and {len(factors)} factors")
-    if X.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"mttkrp3 takes float32 or float64, got {X.dtype}")
-    if not X.is_contiguous():
-        raise ValueError("mttkrp3 takes a contiguous X (it never copies X)")
-    ref = factors[(mode + 1) % 3]
-    R = ref.shape[1] if ref.dim() == 2 else -1
-    for n, f in enumerate(factors):
-        if n == mode:
-            continue
-        if f.device != X.device or f.dtype != X.dtype:
-            raise ValueError(f"mttkrp3: factor {n} is {f.dtype} on {f.device}, "
-                             f"X is {X.dtype} on {X.device}")
-        if f.dim() != 2 or f.shape != (X.shape[n], R) or not f.is_contiguous():
-            raise ValueError(f"mttkrp3: factor {n} must be a contiguous "
-                             f"({X.shape[n]}, {R}) matrix, got {tuple(f.shape)}")
-    if R > R_MAX:
-        return torch.cat([
-            mttkrp3(X, [f if n == mode else f[:, a:b].contiguous()
-                        for n, f in enumerate(factors)], mode)
-            for a, b in column_blocks(R)], dim=1)
-    plan = plan_mttkrp3(tuple(X.shape), R, mode, X.element_size())
-    I, J, K = X.shape
-    out = torch.empty((X.shape[mode], R), dtype=X.dtype, device=X.device)
-    part = (torch.empty((plan.nsplit, X.shape[mode], R), dtype=X.dtype,
-                        device=X.device) if plan.nsplit > 1 else out)
-    A, B, C = factors
-    f0, f1 = ((B, C), (A, C), (A, B))[mode]
-    err = _lib().mttkrp3_run(
-        int(X.dtype == torch.float64), plan.rm, mode, X.data_ptr(),
-        f0.data_ptr(), f1.data_ptr(), part.data_ptr(), out.data_ptr(),
-        I, J, K, R, plan.tk, plan.ns_a, plan.ns_b, plan.per_a, plan.per_b,
-        torch.cuda.current_stream(X.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mttkrp3 launch failed: cudaError {err} "
-                           f"(shape {tuple(X.shape)}, R={R}, mode={mode}, {plan})")
-    mttkrp3.launches += 1
-    return out
+    return _on_card(X, factors, mode, _run_planned)
 
 
 mttkrp3.launches = 0
+
+
+def _mttkrp3_split(X: torch.Tensor, factors) -> torch.Tensor:
+    """Mode 2 through the earlier mode-2 kernel (SplitPlan), float32 and
+    float64 on the card only: kept to compare the stream kernel with, and
+    deleted with it."""
+    if X.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the split mode-2 kernel takes float32 or float64, "
+                         f"got {X.dtype}")
+
+    def run(X, facs, mode):
+        R = facs[0].shape[1]
+        return _launch(X, facs, 2,
+                       _plan_split(tuple(X.shape), R, X.element_size()))
+    return _on_card(X, factors, 2, run)

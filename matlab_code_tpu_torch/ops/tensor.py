@@ -1,15 +1,17 @@
 """Tensor operations: MTTKRP (dense and sparse COO), Khatri-Rao, ktensor
 reconstruction, Grams (counterpart of matlab_code_tpu/ops/tensor.py).
 
-mttkrp dispatches a 3-way CUDA tensor to the hand-written kernel
-(ops/mttkrp_cuda.mttkrp3); a CPU tensor, and any other order, takes the
-plain einsum.  mttkrp_sparse sends COO data on a CUDA card to the
+mttkrp sends every 3-way CUDA tensor to the hand-written kernel
+(ops/mttkrp_cuda.mttkrp3), which takes float16, bfloat16, float32 and
+float64 and raises on any other dtype; a CPU tensor and any other order
+take the plain einsum.  mttkrp_sparse sends COO data on a CUDA card to the
 hand-written sparse kernel (ops/sparse_cuda.mttkrp_sparse_cuda) and COO
 data on the CPU to its plain version; AlgOptions.sparse_mttkrp chooses
 nothing here.
 """
 from __future__ import annotations
 
+import functools
 import string
 
 import torch
@@ -21,18 +23,35 @@ from matlab_code_tpu_torch.ops.sparse_cuda import (
 _LETTERS = string.ascii_lowercase
 
 
+def takes_kernel(X: torch.Tensor) -> bool:
+    """True where mttkrp sends a dense X to the hand-written kernel: every
+    3-way CUDA tensor, whatever its dtype (the kernel raises on a dtype it
+    does not take)."""
+    return X.dim() == 3 and X.device.type == "cuda"
+
+
 def mttkrp(X: torch.Tensor, factors, mode: int) -> torch.Tensor:
     """Matricized-tensor times Khatri-Rao product for dense X:
     unfold(X, mode) @ khatri_rao(factors except mode), shape
-    (X.shape[mode], R) (Tensor Toolbox `mttkrp`, cmtf_fun_AOADMM.m:97)."""
+    (X.shape[mode], R) (Tensor Toolbox `mttkrp`, cmtf_fun_AOADMM.m:97), in
+    the dtype torch.einsum would give (as the JAX package's mttkrp).
+
+    Which path runs is decided from X alone, before any launch: a 3-way
+    CUDA tensor launches the kernel (takes_kernel), which raises on a
+    non-contiguous X (fit makes its datasets contiguous once) and on a
+    dtype other than float16, bfloat16, float32 and float64.  The kernel
+    accumulates and returns promote(X.dtype, float32), as the Pallas kernel
+    does; its result is cast to the einsum's dtype once, at the end (a
+    no-op in float32 and float64).  Every other X takes torch.einsum."""
     n = X.dim()
     if len(factors) != n:
         raise ValueError(f"mttkrp: {len(factors)} factors for a {n}-way tensor")
-    if n == 3 and X.device.type == "cuda":
-        return mttkrp3(X, factors, mode)
+    operands = [X] + [factors[i] for i in range(n) if i != mode]
+    if takes_kernel(X):
+        dt = functools.reduce(torch.promote_types, (o.dtype for o in operands))
+        return mttkrp3(X, factors, mode).to(dt)
     tensor_sub = _LETTERS[:n]
     factor_subs = [f"{_LETTERS[i]}z" for i in range(n) if i != mode]
-    operands = [X] + [factors[i] for i in range(n) if i != mode]
     eq = tensor_sub + "," + ",".join(factor_subs) + "->" + _LETTERS[mode] + "z"
     return torch.einsum(eq, *operands)
 

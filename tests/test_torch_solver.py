@@ -215,3 +215,55 @@ def test_torch_reference_seeded_replays(mod, noise_fms, monkeypatch):
                                f"{mod.split('_')[0]}.npz"))["func_val_conv"]
     np.testing.assert_allclose(res["out"].func_val_conv, ref, rtol=1e-9,
                                atol=1e-12)
+
+
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_torch_fit_pairwise_perturbation_raises_where_eligible(layout):
+    """cp_pairwise_perturbation on a 3-way CP dataset with Frobenius loss
+    (dense or COO): the JAX fit would switch it to the approximate pairwise
+    MTTKRP, which the port does not have yet, so the port raises instead of
+    running the exact trajectory."""
+    spec, data, state0 = _to_port(*_jax_problem("cp_nonneg_coupled"))
+    if layout == "sparse":
+        objs = (tp.SparseTensor.from_dense(data.objects[0]),) + data.objects[1:]
+        data = tp.ProblemData(objects=objs, coupl_trafo=data.coupl_trafo,
+                              coupl_trafo2=data.coupl_trafo2)
+    from matlab_code_tpu_torch.models.solver import eligible_pp_datasets
+    opts = tp.AlgOptions(MaxOuterIters=2, cp_pairwise_perturbation=True)
+    assert eligible_pp_datasets(spec, data, opts) == (0,)
+    assert eligible_pp_datasets(spec, data, tp.AlgOptions()) == ()
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        tfit(spec, data, state0, opts)
+
+
+def test_torch_fit_pairwise_perturbation_without_eligible_dataset():
+    """cp_pairwise_perturbation on a problem with no 3-way CP dataset (two
+    coupled matrices): neither package takes the pairwise path, and the
+    port's fit matches the JAX fit with the same flag."""
+    NN = ConstraintSpec("non-negativity")
+    spec = ProblemSpec(
+        mode_sizes=(10, 11, 10, 12),
+        datasets=(DatasetSpec(model="CP", modes=(0, 1), rank=2),
+                  DatasetSpec(model="CP", modes=(2, 3), rank=2)),
+        coupling=CouplingSpec(lin_coupled_modes=(1, 0, 1, 0),
+                              coupling_type=(0,)),
+        constraints=(NN, None, NN, None))
+    data, _, _, _ = create_coupled_data(
+        spec, lambdas=[[1, 1], [1, 1]], noise=0.05,
+        distr=["rand", "randn", "rand", "randn"], rng=3)
+    data, _ = normalize_data(spec, data)
+    init = InitOptions(distr=("rand", "randn", "rand", "randn"), normalize=True,
+                       lambdas_init=((1, 1), (1, 1)))
+    state0 = init_coupled(spec, data, init, key=2)
+    opts = AlgOptions(MaxOuterIters=8, AbsFuncTol=0.0, OuterRelTol=0.0,
+                      cp_pairwise_perturbation=True)
+    _, out_ref = fit(spec, data, state0, opts)
+    tspec, tdata, tstate0 = _to_port(spec, data, state0)
+    topts = options_from_reference(opts)
+    assert topts.cp_pairwise_perturbation
+    _, out = tfit(tspec, tdata, tstate0, topts)
+    for a, b in [(out.func_val_conv, out_ref.func_val_conv),
+                 (out.func_coupl_conv, out_ref.func_coupl_conv),
+                 (out.func_constr_conv, out_ref.func_constr_conv)]:
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-14)
+    assert out.OuterIterations == out_ref.OuterIterations == 8

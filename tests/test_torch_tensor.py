@@ -15,7 +15,9 @@ from matlab_code_tpu.ops.mttkrp_pallas import mttkrp3_mode0
 
 from matlab_code_tpu_torch.ops import tensor as tt
 from matlab_code_tpu_torch.ops.mttkrp_cuda import (
-    R_MAX, column_blocks, mttkrp3, mttkrp3_reference, plan_mttkrp3)
+    KERNEL_DTYPES, PLAIN_COPY, R_MAX, SMEM_MAX, STREAM_STAGES, STREAM_THREADS,
+    Plan, SplitPlan, StreamPlan, _plan_split, acc_size, column_blocks,
+    kernel_operands, mttkrp3, mttkrp3_reference, plan_mttkrp3)
 
 
 def _factors(rng, shape, R, dtype=np.float64):
@@ -85,41 +87,230 @@ def test_torch_mttkrp3_rejects_other_devices():
         mttkrp3(X, facs, 0)
 
 
+SMS = 132   # streaming multiprocessors of an H100 SXM
+FLAGSHIP = (((128, 512, 256), 16), ((128, 1024, 64), 20))
+
+
 @pytest.mark.parametrize("shape,R", [
     ((128, 512, 256), 16), ((128, 1024, 64), 20), ((37, 50, 29), 7),
     ((5, 3, 130), 1), ((1, 1, 1), 32), ((3, 70000, 2), 9)])
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_torch_mttkrp3_plan_covers_every_row(shape, R, mode):
-    """The launch plan of csrc/mttkrp3.cu: splits cover the split axes with
-    no empty split, the factor tile fits its shared-memory budget and the
-    grid stays inside CUDA's limits."""
-    for itemsize in (4, 8):
-        plan = plan_mttkrp3(shape, R, mode, itemsize)
-        I, J, K = shape
-        assert plan.rm >= R and plan.rm % 8 == 0
-        assert plan.tk in (32, 64, 128, 256)
+    """The launch plans of csrc/mttkrp3.cu, for X of 2, 4 and 8 bytes.
+    Modes 0/1: splits cover the split axis with no empty split, the factor
+    tile fits its shared-memory budget and the grid stays inside CUDA's
+    limits.  Mode 2 (the stream kernel): the row ranges cover the I*J rows
+    once, the k tiles cover K, the ring and the KR tiles fit 227 KB, the
+    copy width follows the alignment, and at the flagship shapes the split
+    partials move under 10 % of X's bytes.  The split mode-2 plan kept for
+    comparison: splits cover i and j, its tile fits, its grid stays inside
+    CUDA's limits."""
+    I, J, K = shape
+    for itemsize in (2, 4, 8):
+        ts = acc_size(itemsize)
         if mode < 2:
+            plan = plan_mttkrp3(shape, R, mode, itemsize, SMS)
+            assert isinstance(plan, Plan)
+            assert plan.rm >= R and plan.rm % 8 == 0
+            assert plan.tk in (32, 64, 128, 256)
             n = J if mode == 0 else I
-            axes = [(n, plan.ns_a, plan.per_a)]
-            assert plan.ns_b == 1
-            tile_rows = plan.per_a
-        else:
-            axes = [(I, plan.ns_a, plan.per_a), (J, plan.ns_b, plan.per_b)]
-            tile_rows = plan.per_b
-        for n, ns, per in axes:
+            assert (plan.ns - 1) * plan.per < n <= plan.ns * plan.per
+            assert 1 <= plan.ns <= 65535
+            assert plan.per * plan.rm * ts <= 16384
+            continue
+        for x_align in (16, 8, 4, 2):
+            if x_align < itemsize:
+                continue
+            plan = plan_mttkrp3(shape, R, 2, itemsize, SMS, x_align=x_align)
+            assert isinstance(plan, StreamPlan)
+            assert plan.rm >= R and plan.rm % 8 == 0
+            assert plan.stages == STREAM_STAGES
+            # row ranges: consecutive stages, none empty, covering I*J once
+            stages = -(-I * J // plan.stage_rows)
+            assert (plan.nsplit - 1) * plan.spb < stages <= plan.nsplit * plan.spb
+            assert plan.nsplit * plan.ktiles <= SMS
+            # k tiles, and the threads that own them
+            assert (plan.ktiles - 1) * plan.tk < K <= plan.ktiles * plan.tk
+            assert plan.ktiles == 1 or plan.tk == STREAM_THREADS * plan.kpt
+            assert plan.kthreads % 32 == 0 and plan.kthreads * plan.kpt >= plan.tk
+            assert plan.threads <= STREAM_THREADS
+            assert K % plan.kpt == 0 and plan.kpt * itemsize <= 16
+            assert plan.kpt * plan.rm * ts <= 256      # 64 registers
+            # the rings of X and of A/B rows, the consumer warps' KR rows
+            # (or the phase sums that reuse them) and two mbarriers a slot
+            # fit 227 KB
+            ring = STREAM_STAGES * plan.stage_rows * plan.tk * itemsize
+            kr = plan.stage_rows * plan.rm * ts
+            warps_kr = (plan.threads // 32 * -(-plan.stage_rows // plan.phases)
+                        * plan.rm * ts)
+            assert plan.stage_rows * plan.tk * itemsize <= 32768 \
+                or plan.stage_rows == 1
+            assert kr <= 8192 or plan.stage_rows == 1
+            assert plan.smem >= ring + STREAM_STAGES * (2 * kr + plan.rm * ts) \
+                + warps_kr + 16 * STREAM_STAGES
+            assert plan.smem >= (plan.phases * R * (plan.tk + 16 // ts) * ts
+                                 + 16 * STREAM_STAGES)
+            assert plan.smem <= SMEM_MAX
+            # bulk copies (0) where every row and k tile of X starts on 16
+            # bytes, else the widest cp.async the alignment allows, else
+            # (a 16-bit X on 2 bytes) plain loads and stores
+            want = next((w for w in (16, 8, 4) if w >= itemsize
+                         and (K * itemsize) % w == 0 and x_align % w == 0),
+                        PLAIN_COPY)
+            assert plan.copy == (0 if want == 16 else want)
+            assert (plan.tk * itemsize) % want == 0
+            assert want != PLAIN_COPY or itemsize == 2
+            abw = next(w for w in (16, 8, 4) if w >= ts and (R * ts) % w == 0)
+            assert plan.abw == (0 if abw == 16 else abw)
+            if (shape, R) in FLAGSHIP:
+                assert plan.nsplit * plan.ktiles >= SMS // 2
+                assert plan.partial_share(shape, R) < 0.10
+                if itemsize == 4 and x_align == 16:
+                    assert plan.copy == 0 and plan.ktiles == 1
+        if itemsize == 2:
+            continue
+        split = _plan_split(shape, R, itemsize)
+        assert isinstance(split, SplitPlan)
+        assert split.rm >= R and split.tk in (32, 64, 128)
+        for n, ns, per in ((I, split.ns_a, split.per_a),
+                           (J, split.ns_b, split.per_b)):
             assert (ns - 1) * per < n <= ns * per
             assert 1 <= ns <= 65535
-        assert tile_rows * plan.rm * itemsize <= 16384
+        assert split.per_b * split.rm * itemsize <= 16384
+
+
+def _stream_walk(X, A, B, plan):
+    """out = X^T KR gathered as csrc/mttkrp3.cu's stream kernel gathers it: each
+    (row range, k tile) block walks its stages, thread phase p taking rows
+    p, p + phases, ... of every stage; the block adds its phases in order;
+    warp w of reduce_splits adds partials w, w + 8, ... and the eight
+    warp sums are added in warp order."""
+    I, J, K = X.shape
+    R = A.shape[1]
+    Xm = X.reshape(I * J, K)
+    kr = (A[:, None, :] * B[None, :, :]).reshape(I * J, R)
+    part = torch.zeros((plan.nsplit, K, R), dtype=X.dtype)
+    rows = plan.spb * plan.stage_rows
+    for b in range(plan.nsplit):
+        s0, s1 = b * rows, min(I * J, (b + 1) * rows)
+        for t in range(plan.ktiles):
+            k0, k1 = t * plan.tk, min(K, (t + 1) * plan.tk)
+            acc = torch.zeros((plan.phases, k1 - k0, R), dtype=X.dtype)
+            for r0 in range(s0, s1, plan.stage_rows):
+                nr = min(plan.stage_rows, s1 - r0)
+                for row in range(nr):
+                    s = r0 + row
+                    acc[row % plan.phases] += Xm[s, k0:k1, None] * kr[s]
+            tot = acc[0]
+            for ph in range(1, plan.phases):
+                tot = tot + acc[ph]
+            part[b, k0:k1] = tot
+    if plan.nsplit == 1:
+        return part[0]
+    warps = []
+    for w in range(8):
+        v = torch.zeros((K, R), dtype=X.dtype)
+        for b in range(w, plan.nsplit, 8):
+            v = v + part[b]
+        warps.append(v)
+    out = warps[0]
+    for v in warps[1:]:
+        out = out + v
+    return out
+
+
+@pytest.mark.parametrize("shape,R,sms", [
+    ((37, 50, 29), 7, SMS), ((37, 50, 29), 7, 19), ((4, 33, 64), 20, 5),
+    ((3, 20, 256), 16, 4), ((2, 30, 600), 32, 4)])
+def test_torch_mttkrp3_stream_walk_matches_jax(shape, R, sms):
+    """A coverage check of the stream plan: its row ranges, k tiles, stages
+    and phases, walked as the kernel walks them in float64 on the CPU, take
+    every (row, k) term exactly once, so the sum equals the JAX package's
+    mode-2 MTTKRP to 1e-12 (a term dropped or taken twice would show; the
+    order of the sums does not at that tolerance).  Ranges and stages start
+    mid-i where their rows are not a multiple of J."""
+    rng = np.random.default_rng(sum(shape) + R)
+    X = rng.standard_normal(shape)
+    facs = _factors(rng, shape, R)
+    plan = plan_mttkrp3(shape, R, 2, 8, sms)
+    assert plan.nsplit > 1 or shape == (2, 30, 600)
+    got = _stream_walk(torch.tensor(X), torch.tensor(facs[0]),
+                       torch.tensor(facs[1]), plan)
+    want = np.asarray(jt.mttkrp(jnp.asarray(X), [jnp.asarray(f) for f in facs],
+                                2))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32, torch.float64])
+def test_torch_mttkrp_kernel_dtype_decision(dtype):
+    """tensor.mttkrp decides from X alone which path runs: every 3-way CUDA
+    X launches the kernel, which takes the four float dtypes; any other
+    order and any CPU X take torch.einsum.  (No CUDA tensor exists here, so
+    the decision is read off takes_kernel with stand-ins.)"""
+    class Stand:   # what takes_kernel reads of a tensor
+        def __init__(self, ndim, device):
+            self.ndim, self.device, self.dtype = ndim, torch.device(device), dtype
+
+        def dim(self):
+            return self.ndim
+
+    assert dtype in KERNEL_DTYPES
+    assert tt.takes_kernel(Stand(3, "cuda")) is True
+    assert tt.takes_kernel(Stand(2, "cuda")) is False
+    assert tt.takes_kernel(Stand(4, "cuda")) is False
+    assert tt.takes_kernel(Stand(3, "cpu")) is False
+    # the CPU path is the einsum, whatever the dtype
+    rng = np.random.default_rng(5)
+    X = torch.tensor(rng.standard_normal((3, 4, 5))).to(dtype)
+    facs = [torch.tensor(f).to(dtype) for f in _factors(rng, (3, 4, 5), 2)]
+    before = mttkrp3.launches
+    got = tt.mttkrp(X, facs, 2)
+    assert mttkrp3.launches == before and got.dtype == dtype
+    torch.testing.assert_close(
+        got, torch.einsum("abc,az,bz->cz", X, facs[0], facs[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32, torch.float64, torch.int32,
+                                   torch.complex64])
+def test_torch_mttkrp3_kernel_operands(dtype):
+    """What the kernel takes (kernel_operands, which mttkrp3 runs on a CUDA
+    X before any launch): X in one of the four float dtypes, the factors in
+    X's dtype or promote(X.dtype, float32), handed to the kernel in the
+    latter (a 16-bit factor is widened; X is never copied).  Any other
+    dtype of X raises."""
+    rng = np.random.default_rng(6)
+    shape = (3, 4, 5)
+    X = torch.tensor(rng.standard_normal(shape)).to(dtype)
+    facs = [torch.tensor(f).to(dtype) for f in _factors(rng, shape, 2)]
+    if dtype not in KERNEL_DTYPES:
+        with pytest.raises(ValueError, match="float16, bfloat16"):
+            kernel_operands(X, facs, 1)
+        return
+    acc = torch.promote_types(dtype, torch.float32)
+    for given in {dtype, acc}:
+        ops, R = kernel_operands(X, [f.to(given) for f in facs], 1)
+        assert R == 2
+        assert [f.dtype for n, f in enumerate(ops) if n != 1] == [acc, acc]
+        for n in (0, 2):
+            torch.testing.assert_close(ops[n], facs[n].to(acc), rtol=0, atol=0)
+    if dtype != torch.float64:
+        with pytest.raises(ValueError, match="factor 0"):
+            kernel_operands(X, [facs[0].double(), facs[1], facs[2]], 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel_operands(X.transpose(0, 1), [facs[1], facs[0], facs[2]], 0)
 
 
 @pytest.mark.parametrize("bad", [
     dict(shape=(2, 3, 4), R=R_MAX + 1, mode=0),
     dict(shape=(2, 3, 4), R=0, mode=0),
     dict(shape=(2, 3, 4), R=4, mode=3),
-    dict(shape=(0, 3, 4), R=4, mode=1)])
+    dict(shape=(0, 3, 4), R=4, mode=1),
+    dict(shape=(2, 3, 4), R=R_MAX + 1, mode=2)])
 def test_torch_mttkrp3_plan_rejects(bad):
     with pytest.raises(ValueError):
-        plan_mttkrp3(bad["shape"], bad["R"], bad["mode"], 4)
+        plan_mttkrp3(bad["shape"], bad["R"], bad["mode"], 4, SMS)
 
 
 @pytest.mark.parametrize("R", [1, R_MAX, R_MAX + 1, 40, 70, 3 * R_MAX])
@@ -133,7 +324,8 @@ def test_torch_mttkrp3_column_blocks(R):
     assert all(b == a2 for (_, b), (a2, _) in zip(blocks, blocks[1:]))
     assert len(blocks) == -(-R // R_MAX)
     for a, b in blocks:
-        plan_mttkrp3((6, 5, 7), b - a, 1, 4)
+        plan_mttkrp3((6, 5, 7), b - a, 1, 4, SMS)
+        plan_mttkrp3((6, 5, 7), b - a, 2, 4, SMS)
     rng = np.random.default_rng(R)
     shape = (6, 5, 7)
     X = rng.standard_normal(shape)

@@ -10,22 +10,25 @@ runs eight phases, each printing its seconds; any failure raises and exits
 non-zero:
 
   1. device and precision: the card, its power limit, the TF32 switches;
-  2. dense kernel vs plain: the MTTKRP kernel (modes 0, 1, 2) against its
-     plain PyTorch version in float64 on the card, at the flagship's two
-     tensor shapes, at ragged shapes (K = 1, K = 29, odd K, one at R 40: two
+  2. dense kernel vs plain: the MTTKRP kernels (the rows-stream kernel of
+     modes 0 and 1, the stream kernel of mode 2) against their plain
+     PyTorch version in float64 on the card, at the flagship's two tensor
+     shapes, at ragged shapes (K = 1, K = 29, odd K, one at R 40: two
      column blocks) and at bench.py's HBM-resident 256x1024x512 X, with X
-     also in float16 and bfloat16; times kernel vs torch.einsum, and mode
-     2's stream kernel against the earlier mode-2 kernel (the split kernel)
-     in turns, with the partial bytes, the time of one plain read of X
-     (X.sum()) after the same flush, and a design probe of the stream
-     kernel (ring depth, stage size, copy route);
+     also in float16 and bfloat16 and, at the timed shapes, one element
+     off an aligned pointer; prints each plan and its partial bytes;
+     times every mode against torch.einsum, its bound and one plain read
+     of X (X.sum()) after the same flush, and runs a design probe of each
+     kernel (tile rows, ring depth, stage size, copy route);
   3. the full-size flagship fit (bench.py's workload: three CP datasets,
      type-4 selector coupling, all modes non-negative) through cmtf_aoadmm
      for 300 outer iterations in float32, counting the kernel's launches;
   4. card vs CPU: the first 5 outer iterations from one init state, on the
      card in float32 and on the CPU in float64 (plain path);
   5. fit to tolerance (AbsFuncTol 1e-4, OuterRelTol 1e-10, at most 2000
-     iterations): a measurement that does not gate the result;
+     iterations) from phase 3's init state, with the kernel in
+     float32, with the plain version in float32 and with the kernel in
+     float64: a measurement that does not gate the result;
   6. sparse kernels vs plain: the sparse COO MTTKRP kernels (the fiber
      kernel the plans name for these shapes and the chunk kernel; modes 0,
      1, 2, float32 and float64) against their plain version on the card,
@@ -44,6 +47,7 @@ power limit, and as its last line {"ok": true, "device": {...}}.  It
 imports nothing of JAX, and it fails without a CUDA card or without the
 package beside it.
 """
+import functools
 import json
 import os
 import re
@@ -67,6 +71,7 @@ HBM_SHAPE = ((256, 1024, 512), 16)   # bench.py:199-210, X 537 MB
 FIT_ITERS = 300
 CPU_ITERS = 5
 TOL_ITERS = 2000
+TOL_MARKS = (2e-4, 1.6e-4)   # f_tensors levels whose first iteration is shown
 # (shape, draws, R, duplicated draws, extra nonzeros in row 0)
 SPARSE_RAGGED = (((300, 257, 129), 20000, 7, 0, 0),
                  ((40, 23, 17), 3000, 40, 500, 3072),
@@ -398,39 +403,78 @@ def stream_variant(plan, shape, R, sms, stages=None, stage_rows=None,
                          copy=plan.copy if copy is None else copy)
 
 
-def design_probe(X32, f32, want, shape, R, flush, power):
-    """The stream kernel's design choices at one shape, float32: the plan
-    (4 slots, bulk copies, stages of at most 32 KB of X) against 3, 6 and 8
-    slots, half-size stages and 16-byte cp.async, each checked against the
-    float64 plain version and timed; the plan is timed first and last."""
+def rows_variant(plan, shape, R, sms, ob=None, stages=None, stage_rows=None,
+                 copy=None):
+    """The modes-0/1 rows-stream plan with other tile rows, ring depth,
+    stage size or copy route, its ranges, blocks and shared memory
+    recomputed (stages of at most 32 KB of X for other tile rows); stages
+    shrink until the ring fits 227 KB."""
+    from matlab_code_tpu_torch.ops import mttkrp_cuda as mc
+    O, Sn = (shape[0], shape[1]) if plan.mode == 0 else (shape[1], shape[0])
+    ob = min(ob or plan.ob, O)
+    stages = stages or plan.stages
+    n_ot = -(-O // ob)
+    ns, per = mc._splits(Sn, max(1, sms // (n_ot * plan.ktiles)))
+    rows = max(1, min(stage_rows or (
+        plan.stage_rows if ob == plan.ob else
+        min(mc._STAGE_BYTES // (ob * plan.tk * 4),
+            mc._KR_BYTES // (plan.rm * 4))), per))
+    threads = 32 * -(-ob * plan.kthreads // 32)
+
+    copy = plan.copy if copy is None else copy
+
+    def smem(rows):
+        return mc.rows_smem(plan.mode, stages, rows, ob, plan.tk, plan.rm,
+                            threads, 4, copy)
+    while rows > 1 and smem(rows) > mc.SMEM_MAX:
+        rows -= 1
+    return plan._replace(ob=ob, ns=ns, per=per, stages=stages,
+                         nblk=min(ns * n_ot, max(1, sms // plan.ktiles)),
+                         stage_rows=rows, smem=smem(rows), copy=copy)
+
+
+def design_probe(X32, f32, want, shape, R, mode, flush, power):
+    """A dense kernel's design choices at one shape, float32: the plan (4
+    slots, bulk copies, stages of at most 32 KB of X; in modes 0/1 tiles of
+    256 / kthreads output rows) against half tiles (modes 0/1), 3 and 6
+    slots, half-size stages (mode 2 also 8 slots of them) and 16-byte
+    cp.async, each checked against the float64 plain version and timed;
+    the plan is timed first and last."""
     import torch
     from matlab_code_tpu_torch.ops import mttkrp_cuda as mc
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = mc.plan_mttkrp3(shape, R, 2, 4, sms)
+    plan = mc.plan_mttkrp3(shape, R, mode, 4, sms)
     half = max(1, plan.stage_rows // 2)
-    cases = [("plan", plan),
-             ("3 slots", stream_variant(plan, shape, R, sms, stages=3)),
-             ("6 slots", stream_variant(plan, shape, R, sms, stages=6)),
-             ("8 slots, half stages",
-              stream_variant(plan, shape, R, sms, stages=8, stage_rows=half)),
-             ("half stages", stream_variant(plan, shape, R, sms, stage_rows=half)),
-             ("16-byte cp.async", stream_variant(plan, shape, R, sms, copy=16))]
-    ops, _ = mc.kernel_operands(X32, f32, 2)
+    if mode == 2:
+        variant = functools.partial(stream_variant, plan, shape, R, sms)
+        cases = [("3 slots", variant(stages=3)), ("6 slots", variant(stages=6)),
+                 ("8 slots, half stages", variant(stages=8, stage_rows=half))]
+    else:
+        variant = functools.partial(rows_variant, plan, shape, R, sms)
+        cases = [("half tile rows", variant(ob=max(1, plan.ob // 2))),
+                 ("3 slots", variant(stages=3)), ("6 slots", variant(stages=6))]
+    cases = ([("plan", plan)] + cases
+             + [("half stages", variant(stage_rows=half)),
+                ("16-byte cp.async", variant(copy=16)), ("plan, again", plan)])
+    ops, _ = mc.kernel_operands(X32, f32, mode)
     gb = X32.numel() * 4 / 1e9
     scale = want.abs().max().item()
     times = {}
-    for name, p in cases + [("plan, again", plan)]:
+    for name, p in cases:
         if p.smem > mc.SMEM_MAX or (p.copy == 16 and plan.copy != 0):
-            print(f"  design probe {shape} R={R} {name}: does not fit or apply")
+            print(f"  design probe {shape} R={R} mode {mode} {name}: does not "
+                  f"fit or apply")
             continue
-        err = (mc._launch(X32, ops, 2, p).double() - want).abs().max().item()
+        err = (mc._launch(X32, ops, mode, p).double() - want).abs().max().item()
         if not err <= 1e-4 * scale:
-            raise RuntimeError(f"design probe {name} disagrees: {shape} R={R}")
-        t = time_ms(lambda: mc._launch(X32, ops, 2, p), flush)
+            raise RuntimeError(f"design probe {name} disagrees: {shape} R={R} "
+                               f"mode {mode}")
+        t = time_ms(lambda: mc._launch(X32, ops, mode, p), flush)
         times[name] = t
-        print(f"  design probe {shape} R={R} {name}: {t * 1e3:.1f} us "
-              f"({gb / (t / 1e3):.0f} GB/s; {p.stages} slots of {p.stage_rows} "
-              f"rows, copy {p.copy}, smem {p.smem})  [{power}]")
+        tiles = f"tiles of {p.ob} rows, " if mode < 2 else ""
+        print(f"  design probe {shape} R={R} mode {mode} {name}: {t * 1e3:.1f}"
+              f" us ({gb / (t / 1e3):.0f} GB/s; {tiles}{p.stages} slots of "
+              f"{p.stage_rows} rows, copy {p.copy}, smem {p.smem})  [{power}]")
     return times
 
 
@@ -448,6 +492,7 @@ def main():
     from matlab_code_tpu_torch.models.admm import _resolve_inner_solve, to_host
     from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit
     from matlab_code_tpu_torch.ops import _build, mttkrp_cuda, sparse_cuda
+    from matlab_code_tpu_torch.ops import tensor as tensor_ops
     from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3, mttkrp3_reference
     from matlab_code_tpu_torch.options import apply_matmul_precision
     from matlab_code_tpu_torch.utils import flagship
@@ -499,35 +544,50 @@ def main():
         X64 = X32.double()
         f64 = [f.double() for f in f32]
         timed = (shape, R) in FLAGSHIP_SHAPES + (HBM_SHAPE,)
+        gb = X32.numel() * 4 / 1e9
+        if timed:
+            # what a plain read of X takes after the same flush
+            t_r = time_ms(lambda: X32.sum(), flush)
+            print(f"{shape} X.sum() (one read of X): {t_r * 1e3:.1f} us "
+                  f"({gb / (t_r / 1e3):.0f} GB/s)  [{power}]")
         for mode in range(3):
             want = mttkrp3_reference(X64, f64, mode)
             scale = want.abs().max().item()
-            variants = [None] + (["split"] if mode == 2 and
-                                 (shape, R) != HBM_SHAPE else [])
-            for variant in variants:
-                run = mttkrp3 if variant is None else \
-                    (lambda X, f, m: mttkrp_cuda._mttkrp3_split(X, f))
-                got = run(X32, f32, mode)
-                got64 = run(X64, f64, mode)
-                torch.cuda.synchronize()
-                err = (got.double() - want).abs().max().item()
-                err64 = (got64 - want).abs().max().item()
-                deterministic = bool(torch.equal(run(X32, f32, mode), got)
-                                     and torch.equal(run(X64, f64, mode), got64))
-                label = {None: "kernel", "split": "split variant"}[variant]
-                print(f"{shape} R={R} mode {mode} {label}: max|kernel-plain_f64| "
-                      f"= {err:.3e} (bound {1e-4 * scale:.3e}); float64 "
-                      f"{err64:.3e} (bound {1e-12 * scale:.3e}); same bits on "
-                      f"repeat: {deterministic}")
-                if not err <= 1e-4 * scale:
-                    raise RuntimeError(f"{label} disagrees: {shape} R={R} mode {mode}")
-                if not err64 <= 1e-12 * scale:
-                    raise RuntimeError(f"float64 {label} disagrees: {shape} R={R} "
-                                       f"mode {mode}")
-                if not deterministic:
-                    raise RuntimeError(f"{label} not deterministic: {shape} mode {mode}")
-                if variant is None:
-                    max_abs_err = max(max_abs_err, err)
+            got = mttkrp3(X32, f32, mode)
+            got64 = mttkrp3(X64, f64, mode)
+            torch.cuda.synchronize()
+            err = (got.double() - want).abs().max().item()
+            err64 = (got64 - want).abs().max().item()
+            deterministic = bool(torch.equal(mttkrp3(X32, f32, mode), got)
+                                 and torch.equal(mttkrp3(X64, f64, mode), got64))
+            print(f"{shape} R={R} mode {mode} kernel: max|kernel-plain_f64| "
+                  f"= {err:.3e} (bound {1e-4 * scale:.3e}); float64 "
+                  f"{err64:.3e} (bound {1e-12 * scale:.3e}); same bits on "
+                  f"repeat: {deterministic}")
+            if not err <= 1e-4 * scale:
+                raise RuntimeError(f"kernel disagrees: {shape} R={R} mode {mode}")
+            if not err64 <= 1e-12 * scale:
+                raise RuntimeError(f"float64 kernel disagrees: {shape} R={R} "
+                                   f"mode {mode}")
+            if not deterministic:
+                raise RuntimeError(f"kernel not deterministic: {shape} mode {mode}")
+            max_abs_err = max(max_abs_err, err)
+            if timed:
+                # X one element off an aligned pointer: modes 0/1 copy its
+                # runs' envelopes, mode 2 takes 4-byte cp.async
+                Xo = torch.empty(X32.numel() + 1, device=dev)[1:].view(shape)
+                Xo.copy_(X32)
+                got_o = mttkrp3(Xo, f32, mode)
+                err_o = (got_o.double() - want).abs().max().item()
+                same_o = bool(torch.equal(mttkrp3(Xo, f32, mode), got_o))
+                print(f"{shape} R={R} mode {mode} X one element off: "
+                      f"max|kernel-plain_f64| = {err_o:.3e} (bound "
+                      f"{1e-4 * scale:.3e}); same bits on repeat: {same_o}")
+                if not err_o <= 1e-4 * scale or not same_o:
+                    raise RuntimeError(f"kernel disagrees on an X one element "
+                                       f"off: {shape} R={R} mode {mode}")
+                max_abs_err = max(max_abs_err, err_o)
+                del Xo, got_o
             # a 16-bit X, widened to float32 on load: against the float64
             # plain version of the rounded X
             for dt16 in (torch.float16, torch.bfloat16):
@@ -551,10 +611,10 @@ def main():
                                        f"mode {mode}")
                 del X16, want16, got16
             del got, got64
-            if mode == 2 and R <= 32:
-                plan = mttkrp_cuda.plan_mttkrp3(shape, R, 2, 4, sms)
-                print(f"  mode-2 plan {plan}; split partials "
-                      f"{plan.partial_share(shape, R):.1%} of X's bytes")
+            if R <= 32:
+                plan = mttkrp_cuda.plan_mttkrp3(shape, R, mode, 4, sms)
+                print(f"  mode-{mode} plan {plan}; split partials "
+                      f"{plan.partial_share(shape, R):.2%} of X's bytes")
             if not timed:
                 continue
             eq = ("ijk,jr,kr->ir", "ijk,ir,kr->jr", "ijk,ir,jr->kr")[mode]
@@ -563,39 +623,18 @@ def main():
             nbytes = 4 * (X32.numel() + sum(f.numel() for f in ops)
                           + shape[mode] * R)
             t_b, bound_by = bound(nbytes, 2 * X32.numel() * R)
-            gb = X32.numel() * 4 / 1e9
-            if mode == 2 and (shape, R) in FLAGSHIP_SHAPES:
-                split = (lambda: mttkrp_cuda._mttkrp3_split(X32, f32))
-                stream = (lambda: mttkrp3(X32, f32, 2))
-                runs = [time_ms(fn, flush)
-                        for fn in (stream, split, split, stream)]
-                t_k, t_s = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
-                print(f"  mode 2 in turns (stream, split, split, stream): "
-                      f"{', '.join(f'{r * 1e3:.1f}' for r in runs)} us; stream "
-                      f"{t_k * 1e3:.1f} us ({gb / (t_k / 1e3):.0f} GB/s, "
-                      f"{t_b / t_k:.1%} of the bound), split {t_s * 1e3:.1f} us "
-                      f"({gb / (t_s / 1e3):.0f} GB/s): {t_s / t_k:.2f}x  [{power}]")
-            else:
-                t_k = time_ms(lambda: mttkrp3(X32, f32, mode), flush)
+            t_k = time_ms(lambda: mttkrp3(X32, f32, mode), flush)
             t_l = time_ms(lambda: torch.einsum(eq, X32, *ops), flush)
-            if mode == 2:
-                # what a plain read of X takes after the same flush
-                t_r = time_ms(lambda: X32.sum(), flush)
-                print(f"  X.sum() (one read of X): {t_r * 1e3:.1f} us "
-                      f"({gb / (t_r / 1e3):.0f} GB/s)  [{power}]")
-                design_probe(X32, f32, want, shape, R, flush, power)
+            line = (f"  time: kernel {t_k * 1e3:.1f} us ({gb / (t_k / 1e3):.0f} "
+                    f"GB/s, {t_b / t_k:.1%} of the bound, {t_k / t_r:.2f}x "
+                    f"X.sum()) | torch.einsum {t_l * 1e3:.1f} us | bound "
+                    f"{t_b * 1e3:.1f} us ({bound_by})")
+            design_probe(X32, f32, want, shape, R, mode, flush, power)
             if (shape, R) == HBM_SHAPE:
-                print(f"  time: kernel {t_k * 1e3:.1f} us ({gb / (t_k / 1e3):.0f} "
-                      f"GB/s, {t_b / t_k:.1%} of the bound) | torch.einsum "
-                      f"{t_l * 1e3:.1f} us | bound {t_b * 1e3:.1f} us "
-                      f"({bound_by})  [{power}]")
+                print(f"{line}  [{power}]")
                 continue
             t_p = time_ms(lambda: mttkrp3_reference(X32, f32, mode), flush)
-            print(f"  time: kernel {t_k * 1e3:.1f} us ({gb / (t_k / 1e3):.0f} GB/s)"
-                  f" | plain {t_p * 1e3:.1f} us "
-                  f"({gb / (t_p / 1e3):.0f} GB/s) | torch.einsum "
-                  f"{t_l * 1e3:.1f} us | bound {t_b * 1e3:.1f} us "
-                  f"({bound_by})  [{power}]")
+            print(f"{line} | plain {t_p * 1e3:.1f} us  [{power}]")
             ms += t_k
             plain_ms += t_p
             lib_ms += t_l
@@ -672,14 +711,35 @@ def main():
     done(4, t0)
 
     # ---- 5. fit to tolerance (measurement) -----------------------------------
+    # the same fit three ways, from one init state: how far the iteration
+    # count moves with the order of the MTTKRP's sums (the plain version:
+    # torch.einsum on the card), and where float64 takes it
     t0 = phase(5, "fit to tolerance (AbsFuncTol 1e-4, OuterRelTol 1e-10)")
     opts_tol = flagship.flagship_options(TOL_ITERS, AbsFuncTol=1e-4,
                                          OuterRelTol=1e-10)
-    _, out_tol = fit(spec, data, state_from_numpy(init_np, dev, torch.float32),
-                     opts_tol)
-    print(f"iterations {out_tol.OuterIterations}; exit {out_tol.exit_flag}; "
-          f"f_tensors {out_tol.f_tensors:.6e}; wall clock "
-          f"{out_tol.time_total:.3f} s  [{power}]")
+    kernel_path = tensor_ops.takes_kernel
+    for label, dt in (("kernel, float32", torch.float32),
+                      ("plain version, float32", torch.float32),
+                      ("kernel, float64", torch.float64)):
+        spec_t, data_t = ((spec, data) if dt == torch.float32
+                          else flagship.build_problem(dev, dt))
+        mttkrp3.launches = 0
+        if label.startswith("plain"):
+            tensor_ops.takes_kernel = lambda X: False
+        try:
+            _, out_tol = fit(spec_t, data_t,
+                             state_from_numpy(init_np, dev, dt), opts_tol)
+        finally:
+            tensor_ops.takes_kernel = kernel_path
+        f = np.asarray(out_tol.func_val_conv)
+        reach = [int(np.argmax(f <= v)) if np.any(f <= v) else None
+                 for v in TOL_MARKS]
+        print(f"{label}: iterations {out_tol.OuterIterations}; exit "
+              f"{out_tol.exit_flag}; f_tensors {out_tol.f_tensors:.6e}; first "
+              f"iteration at f_tensors <= {TOL_MARKS}: {reach}; kernel launches "
+              f"{mttkrp3.launches}; wall clock {out_tol.time_total:.3f} s  "
+              f"[{power}]")
+        del data_t
     done(5, t0)
 
     sparse = sparse_phases(dev, power)

@@ -13,9 +13,11 @@ flop/byte at R = 16-20), far below the float32 ridge, so the roof is X's
 bytes over HBM bandwidth.  The kernel reads X once, coalesced along the
 contiguous k axis, keeps the other factors in registers and shared memory,
 and reduces split partial sums in a fixed second pass instead of with
-atomics, so repeated calls give the same bits.  Mode 2 streams X as the
-(I*J) x K matrix it is through a ring of asynchronous copies, one block an
-SM (StreamPlan).  See the source for the layout of each mode.
+atomics, so repeated calls give the same bits.  Every mode streams X
+through a ring of asynchronous copies, about one block an SM: modes 0 and 1
+as tiles of output rows against ranges of walked rows (RowsStreamPlan),
+mode 2 as the (I*J) x K matrix X is (StreamPlan).  See the source for the
+layout of each mode.
 
 mttkrp3(X, factors, mode) launches the kernel for a CUDA tensor (once per
 column block of at most R_MAX past R_MAX) and raises on anything it does
@@ -36,17 +38,15 @@ DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
 KERNEL_DTYPES = tuple(DTYPE_CODES)
 R_MAX = 32                  # largest rank one launch takes (registers)
 _RM_BUCKETS = (8, 16, 24, 32)
-_ROWS_THREADS = 256         # block size of the mode-0/1 kernel
-_ROWS_TARGET_BLOCKS = 1024  # enough blocks of 8 warps to fill 132 SMs
-_MODE2_TARGET_WARPS = 2048  # split mode-2 kernel: more warps, more partials
-_TILE_BYTES = 16384         # shared-memory budget of one factor tile
 _GRID_YZ_MAX = 65535
-# the mode-2 stream kernel (constants shared with csrc/mttkrp3.cu)
+# the stream kernels (constants shared with csrc/mttkrp3.cu)
 STREAM_THREADS = 256        # kStreamThreads: consumer threads a block at most
-STREAM_STAGES = 4           # slots of the ring the plan takes
+STREAM_STAGES = 4           # slots of the ring the plans take
 PLAIN_COPY = 1              # kPlainCopy: a copy width of plain loads/stores
+ENVELOPE_COPY = 2           # kEnvelope: X's runs as bulk copies of their
+#                             16-byte-aligned envelopes (rows-stream kernel)
 _STAGE_BYTES = 32768        # X bytes a stage holds at most
-_KR_BYTES = 8192            # KR tile bytes a stage holds at most
+_KR_BYTES = 8192            # factor (KR or F) row bytes a stage holds at most
 _ACC_BYTES = 256            # accumulators a thread keeps (64 registers)
 SMEM_MAX = 232448           # 227 KB of shared memory a block can use
 
@@ -59,16 +59,49 @@ def acc_size(itemsize: int) -> int:
     return max(4, itemsize)
 
 
-class Plan(NamedTuple):
-    """Launch plan of the rows kernel (modes 0/1, see csrc/mttkrp3.cu)."""
-    rm: int      # rank padded to a register bucket
-    tk: int      # threads along k
-    ns: int      # splits of the walked axis (j for mode 0, i for mode 1)
-    per: int     # rows per split
+class RowsStreamPlan(NamedTuple):
+    """Launch plan of the modes-0/1 stream kernel (mttkrp3_rows_stream in
+    csrc/mttkrp3.cu).  o is the output axis (i in mode 0, j in mode 1) and
+    s the walked axis (j, i).  o is cut into tiles of ob rows, s into ns
+    ranges of per rows and k into ktiles tiles of tk columns; a unit is one
+    (range, o tile) pair, range-major.  Block (b, t) of an (nblk, ktiles)
+    grid walks units b, b + nblk, ... of k tile t in turn,
+    streaming each unit's stages of stage_rows walked rows through a ring
+    of `stages` slots, and writes partial (range, k tile) of its o rows."""
+    mode: int        # 0 or 1
+    rm: int          # rank padded to a register bucket
+    kpt: int         # consecutive k a thread owns (1, 2 or 4)
+    copy: int        # X: 0 bulk copies (TMA), ENVELOPE_COPY (bulk copies
+    #                  of each run's 16-byte-aligned envelope), 16/8/4 bytes
+    #                  a cp.async, or PLAIN_COPY
+    fcopy: int       # F rows: 0 one bulk copy a stage, else bytes a cp.async
+    kthreads: int    # threads along k (a power of two)
+    ob: int          # output rows a tile holds (ob * kthreads <= 256)
+    tk: int          # columns of X a k tile holds
+    ktiles: int      # k tiles
+    ns: int          # ranges of the walked axis
+    per: int         # walked rows a range holds
+    nblk: int        # blocks along the units
+    stage_rows: int  # walked rows a stage holds
+    stages: int      # slots of the ring
+    smem: int        # dynamic shared memory of a block, bytes
+
+    @property
+    def threads(self) -> int:
+        """Consumer threads (the block has one producer warp more)."""
+        return 32 * math.ceil(self.ob * self.kthreads / 32)
 
     @property
     def nsplit(self) -> int:
-        return self.ns
+        """Partials, one a (range, k tile); reduce_splits sums them."""
+        return self.ns * self.ktiles
+
+    def partial_share(self, shape: tuple[int, int, int], R: int) -> float:
+        """Bytes of the split partials (written once, read once) over the
+        bytes of X, for an X and partials of one element size."""
+        I, J, K = shape
+        O = shape[self.mode]
+        return 2 * self.nsplit * O * R / (I * J * K) if self.nsplit > 1 else 0.0
 
 
 class StreamPlan(NamedTuple):
@@ -104,25 +137,6 @@ class StreamPlan(NamedTuple):
         return 2 * self.nsplit * R / (I * J) if self.nsplit > 1 else 0.0
 
 
-class SplitPlan(NamedTuple):
-    """Launch plan of the earlier mode-2 kernel (mttkrp3_mode2), kept for
-    comparison: a block owns a tile of k and splits of i and j."""
-    rm: int
-    tk: int
-    ns_a: int    # splits of i
-    ns_b: int    # splits of j
-    per_a: int
-    per_b: int
-
-    @property
-    def nsplit(self) -> int:
-        return self.ns_a * self.ns_b
-
-
-def _pow2_clamp(n: int, lo: int, hi: int) -> int:
-    return max(lo, min(hi, 1 << max(0, (n - 1).bit_length())))
-
-
 def _splits(n: int, want: int) -> tuple[int, int]:
     """(splits, rows per split) covering n rows with about `want` splits and
     no empty split."""
@@ -148,6 +162,37 @@ def _rm(R: int) -> int:
     return next(b for b in _RM_BUCKETS if b >= R)
 
 
+def _k_tiles(K: int, rm: int, itemsize: int) -> tuple[int, int, int]:
+    """(KPT, tk, ktiles) of both stream kernels: KPT is the widest that
+    keeps one read of X within 16 bytes, 64 accumulator registers, vector
+    reads aligned (K % KPT == 0) and a warp busy; k is tiled only past the
+    block's threads."""
+    ts = acc_size(itemsize)
+    kpt = next(p for p in (4, 2, 1)
+               if p == 1 or (p * itemsize <= 16 and p * rm * ts <= _ACC_BYTES
+                             and K % p == 0 and K >= 32 * p))
+    tk = min(K, STREAM_THREADS * kpt)
+    ktiles = math.ceil(K / tk)
+    if ktiles > _GRID_YZ_MAX:
+        raise ValueError(f"mttkrp3: K={K} needs more than {_GRID_YZ_MAX} "
+                         f"k tiles")
+    return kpt, tk, ktiles
+
+
+def _copy_routes(K: int, tk: int, R: int, itemsize: int, x_align: int,
+                 f_align: int) -> tuple[int, int]:
+    """The widest copy of X (16, 8 or 4 bytes, or PLAIN_COPY for a 16-bit
+    X on 2 bytes) whose every row and k tile start is aligned to it, and
+    of the factor rows; then 16 bytes becomes 0, a bulk copy."""
+    ts = acc_size(itemsize)
+    if x_align < itemsize or f_align < ts:
+        raise ValueError(f"mttkrp3: a data pointer is aligned to "
+                         f"{min(x_align, f_align)} bytes, below its element")
+    copy = _widest(itemsize, K * itemsize, tk * itemsize, x_align) or PLAIN_COPY
+    fw = _widest(ts, R * ts, f_align)
+    return (0 if copy == 16 else copy), (0 if fw == 16 else fw)
+
+
 def stream_smem(stages: int, stage_rows: int, tk: int, rm: int,
                 kthreads: int, phases: int, R: int, itemsize: int) -> int:
     """Dynamic shared memory of the stream kernel (StreamSmem in
@@ -163,29 +208,68 @@ def stream_smem(stages: int, stage_rows: int, tk: int, rm: int,
     return -(-max(body, red) // 16) * 16 + 16 * stages
 
 
+def rows_smem(mode: int, stages: int, stage_rows: int, ob: int, tk: int,
+              rm: int, threads: int, itemsize: int, copy: int) -> int:
+    """Dynamic shared memory of the rows-stream kernel (RowsSmem in
+    csrc/mttkrp3.cu) for an X of `itemsize` bytes: the ring of X (in mode 0
+    each output row's run padded by 16 bytes; on the envelope route each
+    run on 16 bytes and 16 bytes more), the ring of F rows and the C tile at
+    pitch rm, a sum a consumer warp, then a full and an empty mbarrier a
+    slot."""
+    ts = acc_size(itemsize)
+    pad = 16 // itemsize
+    if copy == ENVELOPE_COPY:
+        opitch = -(-stage_rows * tk // pad) * pad + 2 * pad
+        mpitch = -(-ob * tk // pad) * pad + pad
+    else:
+        opitch, mpitch = stage_rows * tk + pad, ob * tk
+    xstage = ob * opitch if mode == 0 else stage_rows * mpitch
+    f = -(-stages * xstage * itemsize // 16) * 16
+    red = f + (stages * stage_rows + tk) * rm * ts
+    return -(-(red + threads // 32 * rm * ts) // 16) * 16 + 16 * stages
+
+
+def _plan_rows(shape: tuple[int, int, int], mode: int, R: int, itemsize: int,
+               sms: int, x_align: int, f_align: int) -> RowsStreamPlan:
+    I, J, K = shape
+    O, Sn = (I, J) if mode == 0 else (J, I)
+    rm = _rm(R)
+    ts = acc_size(itemsize)
+    kpt, tk, ktiles = _k_tiles(K, rm, itemsize)
+    kthreads = 1 << (math.ceil(tk / kpt) - 1).bit_length()
+    # a tile of output rows fills the block's 256 consumer threads
+    ob = min(STREAM_THREADS // kthreads, O)
+    n_ot = math.ceil(O / ob)
+    # split the walked axis only where the o tiles leave SMs idle
+    ns, per = _splits(Sn, max(1, sms // (n_ot * ktiles)))
+    copy, fw = _copy_routes(K, tk, R, itemsize, x_align, f_align)
+    if copy != 0 and ktiles == 1:
+        # rows off 16 bytes: a run is one bulk copy of its envelope
+        copy = ENVELOPE_COPY
+    # F rows: one bulk copy a stage where they are not padded to rm
+    fcopy = 16 if fw == 0 and R < rm else fw
+    stage_rows = max(1, min(_STAGE_BYTES // (ob * tk * itemsize),
+                            _KR_BYTES // (rm * ts), per))
+    # units dealt to the blocks in turn, at most one block an SM
+    nblk = min(ns * n_ot, max(1, sms // ktiles))
+    threads = 32 * math.ceil(ob * kthreads / 32)
+    smem = rows_smem(mode, STREAM_STAGES, stage_rows, ob, tk, rm, threads,
+                     itemsize, copy)
+    if smem > SMEM_MAX:
+        raise ValueError(f"mttkrp3: the mode-{mode} plan needs {smem} bytes "
+                         f"of shared memory for {shape}")
+    return RowsStreamPlan(mode, rm, kpt, copy, fcopy, kthreads, ob, tk, ktiles,
+                          ns, per, nblk, stage_rows, STREAM_STAGES, smem)
+
+
 def _plan_stream(shape: tuple[int, int, int], rm: int, R: int, itemsize: int,
                  sms: int, x_align: int, f_align: int) -> StreamPlan:
     I, J, K = shape
     ts = acc_size(itemsize)
-    # KPT: the widest that keeps one read of X within 16 bytes, 64
-    # accumulator registers, vector reads aligned (K % KPT == 0) and a
-    # warp busy
-    kpt = next(p for p in (4, 2, 1)
-               if p == 1 or (p * itemsize <= 16 and p * rm * ts <= _ACC_BYTES
-                             and K % p == 0 and K >= 32 * p))
-    tk = min(K, STREAM_THREADS * kpt)   # tile k only past the block's threads
-    ktiles = math.ceil(K / tk)
+    kpt, tk, ktiles = _k_tiles(K, rm, itemsize)
     kthreads = 32 * math.ceil(math.ceil(tk / kpt) / 32)
     phases = STREAM_THREADS // kthreads
-    if x_align < itemsize or f_align < ts:
-        raise ValueError(f"mttkrp3: a data pointer is aligned to "
-                         f"{min(x_align, f_align)} bytes, below its element")
-    # X: bulk copies (0) where every row and k tile starts on 16 bytes,
-    # else cp.async of the widest the alignment allows, else (a 16-bit X
-    # on 2 bytes) plain loads and stores; A and B rows likewise
-    copy = _widest(itemsize, K * itemsize, tk * itemsize, x_align) or PLAIN_COPY
-    abw = _widest(ts, R * ts, f_align)
-    copy, abw = (0 if w == 16 else w for w in (copy, abw))
+    copy, abw = _copy_routes(K, tk, R, itemsize, x_align, f_align)
     stage_rows = max(1, min(_STAGE_BYTES // (tk * itemsize),
                             _KR_BYTES // (rm * ts)))
     nsplit, spb = _splits(math.ceil(I * J / stage_rows), max(1, sms // ktiles))
@@ -210,47 +294,19 @@ def _check_plan_args(shape, R: int, mode: int) -> None:
 @functools.lru_cache(maxsize=256)
 def plan_mttkrp3(shape: tuple[int, int, int], R: int, mode: int,
                  itemsize: int, sms: int, x_align: int = 16,
-                 f_align: int = 16) -> Plan | StreamPlan:
+                 f_align: int = 16) -> RowsStreamPlan | StreamPlan:
     """Launch plan for an (I, J, K) tensor of `itemsize`-byte elements at
     rank R on a card with `sms` streaming multiprocessors; raises on what
     the kernel does not take.
 
-    Modes 0 and 1 take the rows kernel (Plan), mode 2 the stream kernel
-    (StreamPlan).  x_align and f_align are the byte alignments of the data
-    pointers of X and of A and B; the stream kernel's copies follow them."""
+    Modes 0 and 1 take the rows-stream kernel (RowsStreamPlan), mode 2 the
+    stream kernel (StreamPlan).  x_align and f_align are the byte
+    alignments of the data pointers of X and of the factors read; the
+    copies follow them."""
     _check_plan_args(shape, R, mode)
-    I, J, K = shape
-    rm = _rm(R)
     if mode == 2:
-        return _plan_stream(shape, rm, R, itemsize, sms, x_align, f_align)
-    tile_rows = max(1, _TILE_BYTES // (rm * acc_size(itemsize)))
-    O, Sn = (I, J) if mode == 0 else (J, I)
-    want = max(math.ceil(_ROWS_TARGET_BLOCKS / O), math.ceil(Sn / tile_rows))
-    ns, per = _splits(Sn, want)
-    if ns > _GRID_YZ_MAX:
-        raise ValueError(f"mttkrp3: shape {shape} needs more than "
-                         f"{_GRID_YZ_MAX} splits")
-    return Plan(rm, _pow2_clamp(K, 32, _ROWS_THREADS), ns, per)
-
-
-@functools.lru_cache(maxsize=64)
-def _plan_split(shape: tuple[int, int, int], R: int,
-                itemsize: int) -> SplitPlan:
-    """Launch plan of the earlier mode-2 kernel (comparisons only)."""
-    _check_plan_args(shape, R, 2)
-    I, J, K = shape
-    rm = _rm(R)
-    tile_rows = max(1, _TILE_BYTES // (rm * itemsize))
-    tk = _pow2_clamp(K, 32, 128)
-    ktiles = math.ceil(K / tk)
-    target = max(1, _MODE2_TARGET_WARPS // (tk // 32))
-    nj_min = math.ceil(J / tile_rows)
-    ni, per_i = _splits(I, math.ceil(target / (ktiles * nj_min)))
-    nj, per_j = _splits(J, max(nj_min, math.ceil(target / (ktiles * ni))))
-    if max(ni, nj) > _GRID_YZ_MAX:
-        raise ValueError(f"mttkrp3: shape {shape} needs more than "
-                         f"{_GRID_YZ_MAX} splits")
-    return SplitPlan(rm, tk, ni, nj, per_i, per_j)
+        return _plan_stream(shape, _rm(R), R, itemsize, sms, x_align, f_align)
+    return _plan_rows(shape, mode, R, itemsize, sms, x_align, f_align)
 
 
 def mttkrp3_reference(X: torch.Tensor, factors, mode: int) -> torch.Tensor:
@@ -272,9 +328,8 @@ def _lib():
         from matlab_code_tpu_torch.ops._build import load_library
         lib = load_library("mttkrp3", ["mttkrp3.cu"])
         # (ints before the five pointers, ints after them), then the stream
-        for name, head, tail in (("mttkrp3_run", 3, 7),
-                                 ("mttkrp3_stream_run", 3, 15),
-                                 ("mttkrp3_split_run", 2, 9)):
+        for name, head, tail in (("mttkrp3_rows_run", 3, 17),
+                                 ("mttkrp3_stream_run", 3, 15)):
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.c_int] * head + [ctypes.c_void_p] * 5
                            + [ctypes.c_int] * tail + [ctypes.c_void_p])
@@ -326,7 +381,7 @@ def kernel_operands(X: torch.Tensor, factors, mode: int):
 
 
 def _launch(X: torch.Tensor, factors, mode: int,
-            plan: Plan | StreamPlan | SplitPlan) -> torch.Tensor:
+            plan: RowsStreamPlan | StreamPlan) -> torch.Tensor:
     """Run the kernel of `plan` on checked operands (kernel_operands) with
     R <= R_MAX, and count the launch in mttkrp3.launches."""
     A, B, C = factors
@@ -345,17 +400,14 @@ def _launch(X: torch.Tensor, factors, mode: int,
             plan.kthreads, plan.phases, plan.nsplit, plan.ktiles, plan.spb,
             plan.stage_rows, plan.stages, plan.copy, plan.abw, plan.smem,
             stream)
-    elif isinstance(plan, SplitPlan):
-        err = _lib().mttkrp3_split_run(
-            code, plan.rm, X.data_ptr(), A.data_ptr(), B.data_ptr(),
-            part.data_ptr(), out.data_ptr(), I, J, K, R, plan.tk, plan.ns_a,
-            plan.ns_b, plan.per_a, plan.per_b, stream)
     else:
-        f0 = (B, A)[mode]
-        err = _lib().mttkrp3_run(
-            code, plan.rm, mode, X.data_ptr(), f0.data_ptr(), C.data_ptr(),
-            part.data_ptr(), out.data_ptr(), I, J, K, R, plan.tk, plan.ns,
-            plan.per, stream)
+        F = (B, A)[mode]
+        err = _lib().mttkrp3_rows_run(
+            code, plan.rm, plan.kpt, X.data_ptr(), F.data_ptr(), C.data_ptr(),
+            part.data_ptr(), out.data_ptr(), mode, I, J, K, R, plan.ob,
+            plan.kthreads, plan.tk, plan.ktiles, plan.ns, plan.per, plan.nblk,
+            plan.stage_rows, plan.stages, plan.copy, plan.fcopy, plan.smem,
+            stream)
     if err != 0:
         raise RuntimeError(f"mttkrp3 launch failed: cudaError {err} "
                            f"(shape {tuple(X.shape)}, {X.dtype}, R={R}, "
@@ -364,26 +416,11 @@ def _launch(X: torch.Tensor, factors, mode: int,
     return out
 
 
-def _on_card(X: torch.Tensor, factors, mode: int, run) -> torch.Tensor:
-    """Check the operands and call run(X, factors, mode) once per column
-    block of at most R_MAX."""
-    if X.device.type != "cuda":
-        raise ValueError(f"mttkrp3: unsupported device {X.device}")
-    facs, R = kernel_operands(X, factors, mode)
-    if R <= R_MAX:
-        return run(X, facs, mode)
-    return torch.cat([
-        run(X, [f if n == mode else f[:, a:b].contiguous()
-                for n, f in enumerate(facs)], mode)
-        for a, b in column_blocks(R)], dim=1)
-
-
 def _run_planned(X: torch.Tensor, facs, mode: int) -> torch.Tensor:
-    A, B, _ = facs
     R = facs[(mode + 1) % 3].shape[1]
+    f_align = min(_align(f.data_ptr()) for n, f in enumerate(facs) if n != mode)
     plan = plan_mttkrp3(tuple(X.shape), R, mode, X.element_size(),
-                        _sms(X.device), _align(X.data_ptr()),
-                        min(_align(A.data_ptr()), _align(B.data_ptr())))
+                        _sms(X.device), _align(X.data_ptr()), f_align)
     return _launch(X, facs, mode, plan)
 
 
@@ -398,22 +435,16 @@ def mttkrp3(X: torch.Tensor, factors, mode: int) -> torch.Tensor:
     launch.  A CPU tensor takes mttkrp3_reference."""
     if X.device.type == "cpu":
         return mttkrp3_reference(X, factors, mode)
-    return _on_card(X, factors, mode, _run_planned)
+    if X.device.type != "cuda":
+        raise ValueError(f"mttkrp3: unsupported device {X.device}")
+    facs, R = kernel_operands(X, factors, mode)
+    if R <= R_MAX:
+        return _run_planned(X, facs, mode)
+    return torch.cat([
+        _run_planned(X, [f if n == mode else f[:, a:b].contiguous()
+                         for n, f in enumerate(facs)], mode)
+        for a, b in column_blocks(R)], dim=1)
 
 
 mttkrp3.launches = 0
 
-
-def _mttkrp3_split(X: torch.Tensor, factors) -> torch.Tensor:
-    """Mode 2 through the earlier mode-2 kernel (SplitPlan), float32 and
-    float64 on the card only: kept to compare the stream kernel with, and
-    deleted with it."""
-    if X.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"the split mode-2 kernel takes float32 or float64, "
-                         f"got {X.dtype}")
-
-    def run(X, facs, mode):
-        R = facs[0].shape[1]
-        return _launch(X, facs, 2,
-                       _plan_split(tuple(X.shape), R, X.element_size()))
-    return _on_card(X, factors, 2, run)

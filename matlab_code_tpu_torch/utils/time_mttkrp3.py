@@ -1,14 +1,21 @@
 """Time the dense MTTKRP kernel (ops/mttkrp_cuda.mttkrp3) in its three
-modes at the flagship's two tensor shapes, float32, the L2 flushed before
-each run, on one CUDA card.  It serves to compare two checkouts in one
-call, in turns (A, B, B, A):
+modes at the flagship's two tensor shapes, the L2 flushed before each run,
+on one CUDA card.  It serves to compare two checkouts in one call, in turns
+(A, B, B, A):
 
     python3 matlab_code_tpu_torch/utils/time_mttkrp3.py [--root DIR] [--label NAME]
+
+Each shape is timed with a float32 X, and then as X whose rows do not
+start on 16 bytes, which the kernels copy by other routes than whole-row
+bulk copies: a float32 X one element and two elements off an aligned
+pointer, K one less (odd K) and a bfloat16 X one element off (X on 2
+bytes).  Mode 2 copies these by 4- and 8-byte cp.async and plain copies,
+modes 0/1 as bulk copies of each run's 16-byte-aligned envelope.
 
 --root is the checkout whose matlab_code_tpu_torch is timed (by default
 the one this file is in); its kernels build into that checkout.  Prints
 one JSON line: the label, the card's name and power limit (nvidia-smi) and
-the median milliseconds of each (shape, R, mode).
+the median milliseconds of each (shape, R, mode, case).
 """
 from __future__ import annotations
 
@@ -20,6 +27,10 @@ import subprocess
 import sys
 
 SHAPES = (((128, 512, 256), 16), ((128, 1024, 64), 20))
+# (case, elements X lies off an aligned pointer, K less, dtype)
+CASES = (("", 0, 0, "float32"), ("one element off", 1, 0, "float32"),
+         ("two elements off", 2, 0, "float32"), ("odd K", 0, 1, "float32"),
+         ("bfloat16 one element off", 1, 0, "bfloat16"))
 
 
 def main() -> None:
@@ -44,25 +55,30 @@ def main() -> None:
     dev = torch.device("cuda")
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
     times = {}
-    for shape, R in SHAPES:
-        gen = torch.Generator(device=dev).manual_seed(sum(shape) + R)
-        X = torch.randn(shape, generator=gen, device=dev)
-        facs = [torch.randn((n, R), generator=gen, device=dev) for n in shape]
-        for mode in range(3):
-            for _ in range(args.warmup):
-                flush.zero_()
-                mttkrp3(X, facs, mode)
-            ts = []
-            for _ in range(args.runs):
-                flush.zero_()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                mttkrp3(X, facs, mode)
-                end.record()
-                torch.cuda.synchronize()
-                ts.append(start.elapsed_time(end))
-            times[f"{shape} R={R} mode {mode}"] = float(np.median(ts))
+    for (I, J, K0), R in SHAPES:
+        for case, off, dk, dtype in CASES:
+            shape = (I, J, K0 - dk)
+            gen = torch.Generator(device=dev).manual_seed(I + J + K0 + R)
+            n = I * J * shape[2]
+            buf = torch.randn(n + off, generator=gen, device=dev)
+            X = buf.to(getattr(torch, dtype))[off:].view(shape)
+            facs = [torch.randn((m, R), generator=gen, device=dev) for m in shape]
+            for mode in range(3):
+                for _ in range(args.warmup):
+                    flush.zero_()
+                    mttkrp3(X, facs, mode)
+                ts = []
+                for _ in range(args.runs):
+                    flush.zero_()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    mttkrp3(X, facs, mode)
+                    end.record()
+                    torch.cuda.synchronize()
+                    ts.append(start.elapsed_time(end))
+                key = f"{(I, J, K0)} R={R} mode {mode}" + (f" {case}" if case else "")
+                times[key] = float(np.median(ts))
     power = None
     if shutil.which("nvidia-smi"):
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

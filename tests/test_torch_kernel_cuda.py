@@ -1,4 +1,4 @@
-"""The hand-written MTTKRP kernel (csrc/mttkrp3.cu) on a CUDA card.
+"""The hand-written MTTKRP kernels (csrc/mttkrp3.cu) on a CUDA card.
 
 Every test here needs the card and skips without one.  This file imports
 no jax, so it also runs on a machine that has only torch:
@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from matlab_code_tpu_torch.ops.mttkrp_cuda import (
-    PLAIN_COPY, StreamPlan, _mttkrp3_split, column_blocks, mttkrp3,
+    ENVELOPE_COPY, PLAIN_COPY, RowsStreamPlan, StreamPlan, column_blocks, mttkrp3,
     mttkrp3_reference, plan_mttkrp3)
 
 pytestmark = pytest.mark.cuda
@@ -102,6 +102,7 @@ def test_torch_mttkrp3_mode2_stream_kernel(cuda_device, shape, R, offset):
     ((6, 40, 64), 16, 0),      # bulk copies
     ((6, 40, 64), 16, 2),      # 4-byte cp.async
     ((4, 300, 520), 32, 0),    # k tiles
+    ((4, 300, 520), 32, 1),    # k tiles, X on 2 bytes: plain copies
     ((20, 33, 70), 40, 0)])    # column blocks 32 + 8
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
 def test_torch_mttkrp3_kernel_16bit_x(cuda_device, shape, R, offset, dtype):
@@ -118,8 +119,11 @@ def test_torch_mttkrp3_kernel_16bit_x(cuda_device, shape, R, offset, dtype):
           for f in facs]
     X64 = Xc.double().cpu()
     if offset == 1 and R <= 32:
-        plan = plan_mttkrp3(shape, R, 2, 2, sms, x_align=2)
-        assert plan.copy == PLAIN_COPY
+        for mode in range(3):
+            plan = plan_mttkrp3(shape, R, mode, 2, sms, x_align=2)
+            # modes 0/1 copy whole runs' envelopes where k is not tiled
+            assert plan.copy == (ENVELOPE_COPY if mode < 2 and plan.ktiles == 1
+                                 else PLAIN_COPY)
     for mode in range(3):
         want = mttkrp3_reference(X64, [f.double().cpu() for f in fc], mode)
         before = mttkrp3.launches
@@ -136,22 +140,46 @@ def test_torch_mttkrp3_kernel_16bit_x(cuda_device, shape, R, offset, dtype):
         _check(got_h, want_h, torch.float32)
 
 
-@pytest.mark.parametrize("shape,R", [((37, 50, 29), 7), ((128, 512, 256), 16),
-                                     ((128, 1024, 64), 20)])
-def test_torch_mttkrp3_mode2_split_variant_matches_stream(cuda_device, shape,
-                                                          R):
-    """The earlier mode-2 kernel (_mttkrp3_split) and the stream kernel on
-    the same inputs, both against the float64 plain version."""
-    X, facs = _inputs(shape, R, seed=7)
-    want = mttkrp3_reference(torch.tensor(X), [torch.tensor(f) for f in facs], 2)
+@pytest.mark.parametrize("shape,R,offset", [
+    ((40, 30, 1), 5, 0),       # K = 1: one thread along k, 4/8-byte copies
+    ((37, 50, 29), 7, 0),      # K = 29: ragged o tiles and walked ranges
+    ((7, 9, 31), 20, 0),       # odd K: float64 rows of 8-byte copies
+    ((20, 33, 70), 32, 0),     # R 32
+    ((37, 50, 29), 40, 0),     # R 40: column blocks 32 + 8
+    ((6, 40, 64), 16, 1),      # X one element past an aligned pointer
+    ((4, 300, 520), 32, 0),    # float64 at R 32 tiles k (K > 256)
+    ((2000, 40, 64), 16, 0),   # mode 0: blocks walk several o tiles
+    ((40, 2000, 64), 16, 0)])  # mode 1: the same
+@pytest.mark.parametrize("mode", [0, 1])
+def test_torch_mttkrp3_rows_stream_kernel(cuda_device, shape, R, offset, mode):
+    """The modes-0/1 stream kernel against the plain version: float64 to
+    1e-12 and float32 to 1e-4 of the largest entry, the same bits on
+    repeat, one launch a column block."""
+    X, facs = _inputs(shape, R, seed=6)
+    want = mttkrp3_reference(torch.tensor(X), [torch.tensor(f) for f in facs],
+                             mode)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     for dt in (torch.float64, torch.float32):
-        Xc = torch.tensor(X, dtype=dt, device=cuda_device)
+        base = torch.zeros(X.size + offset, dtype=dt, device=cuda_device)
+        Xc = base[offset:].view(shape)
+        Xc.copy_(torch.tensor(X, dtype=dt))
         fc = [torch.tensor(f, dtype=dt, device=cuda_device) for f in facs]
-        stream = mttkrp3(Xc, fc, 2)
-        split = _mttkrp3_split(Xc, fc)
+        plan = plan_mttkrp3(shape, min(R, 32), mode, Xc.element_size(), sms,
+                            x_align=16 if offset == 0 else Xc.element_size())
+        assert isinstance(plan, RowsStreamPlan)
+        assert (plan.copy == 0) == (
+            offset == 0 and shape[2] * Xc.element_size() % 16 == 0)
+        if shape[mode] == 2000:   # more units than blocks
+            assert plan.nblk < plan.ns * -(-shape[mode] // plan.ob)
+        if shape == (4, 300, 520) and dt == torch.float64:
+            assert plan.ktiles > 1
+        before = mttkrp3.launches
+        got = mttkrp3(Xc, fc, mode)
         torch.cuda.synchronize()
-        _check(stream, want, dt)
-        _check(split, want, dt)
+        assert mttkrp3.launches == before + len(column_blocks(R))
+        assert got.dtype == dt and got.shape == (shape[mode], R)
+        _check(got, want, dt)
+        assert torch.equal(mttkrp3(Xc, fc, mode), got)
 
 
 def test_torch_fit_on_cuda_takes_a_permuted_x(cuda_device):

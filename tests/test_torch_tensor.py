@@ -15,9 +15,9 @@ from matlab_code_tpu.ops.mttkrp_pallas import mttkrp3_mode0
 
 from matlab_code_tpu_torch.ops import tensor as tt
 from matlab_code_tpu_torch.ops.mttkrp_cuda import (
-    KERNEL_DTYPES, PLAIN_COPY, R_MAX, SMEM_MAX, STREAM_STAGES, STREAM_THREADS,
-    Plan, SplitPlan, StreamPlan, _plan_split, acc_size, column_blocks,
-    kernel_operands, mttkrp3, mttkrp3_reference, plan_mttkrp3)
+    ENVELOPE_COPY, KERNEL_DTYPES, PLAIN_COPY, R_MAX, SMEM_MAX, STREAM_STAGES,
+    STREAM_THREADS, RowsStreamPlan, StreamPlan, acc_size, column_blocks, kernel_operands,
+    mttkrp3, mttkrp3_reference, plan_mttkrp3)
 
 
 def _factors(rng, shape, R, dtype=np.float64):
@@ -91,37 +91,101 @@ SMS = 132   # streaming multiprocessors of an H100 SXM
 FLAGSHIP = (((128, 512, 256), 16), ((128, 1024, 64), 20))
 
 
+def _want_copy(K, tk, itemsize, x_align):
+    """The copy route of X a plan must take: bulk copies (0) where every row
+    and k tile starts on 16 bytes, else the widest cp.async the alignment
+    allows, else (a 16-bit X on 2 bytes) plain loads and stores."""
+    want = next((w for w in (16, 8, 4) if w >= itemsize
+                 and (K * itemsize) % w == 0 and (tk * itemsize) % w == 0
+                 and x_align % w == 0), PLAIN_COPY)
+    assert want != PLAIN_COPY or itemsize == 2
+    return 0 if want == 16 else want
+
+
+def _check_rows_plan(plan, shape, R, mode, itemsize, x_align, sms=SMS):
+    """The rows-stream plan (modes 0/1): o tiles, walked ranges and units
+    cover their axes once, k tiles cover K, KPT x RM fits 64 registers,
+    the ring, F rows, C tile and warp sums fit 227 KB, the copy route
+    follows the alignment: bulk copies where every row starts on 16 bytes,
+    else with one k tile a bulk copy of each run's 16-byte-aligned
+    envelope, else cp.async or plain copies."""
+    I, J, K = shape
+    O, Sn = (I, J) if mode == 0 else (J, I)
+    ts = acc_size(itemsize)
+    assert isinstance(plan, RowsStreamPlan) and plan.mode == mode
+    assert plan.rm >= R and plan.rm % 8 == 0
+    assert plan.stages == STREAM_STAGES
+    # o tiles, walked ranges and the units the blocks walk
+    assert 1 <= plan.ob <= O and plan.ob * plan.kthreads <= STREAM_THREADS
+    n_ot = -(-O // plan.ob)
+    assert (plan.ns - 1) * plan.per < Sn <= plan.ns * plan.per
+    units = plan.ns * n_ot
+    assert plan.nblk == min(units, sms // plan.ktiles)
+    assert plan.ns == 1 or n_ot * plan.ktiles * plan.ns <= sms
+    # k tiles, and the threads that own them
+    assert (plan.ktiles - 1) * plan.tk < K <= plan.ktiles * plan.tk
+    assert plan.ktiles == 1 or plan.tk == STREAM_THREADS * plan.kpt
+    kth = plan.kthreads
+    assert kth & (kth - 1) == 0 and kth // 2 < -(-plan.tk // plan.kpt) <= kth
+    assert plan.threads % 32 == 0 and plan.threads <= STREAM_THREADS
+    assert K % plan.kpt == 0 and plan.kpt * itemsize <= 16
+    assert plan.kpt * plan.rm * ts <= 256       # 64 registers
+    # stages of at most 32 KB of X and 8 KB of F rows, within a range
+    assert 1 <= plan.stage_rows <= plan.per
+    assert plan.stage_rows == 1 or (
+        plan.ob * plan.stage_rows * plan.tk * itemsize <= 32768
+        and plan.stage_rows * plan.rm * ts <= 8192)
+    # the ring of X (mode 0: each o's run padded by 16 bytes; envelopes:
+    # each run on 16 bytes and 16 bytes more), the ring of F rows, the C
+    # tile, a sum a consumer warp, two mbarriers a slot
+    want = _want_copy(K, plan.tk, itemsize, x_align)
+    assert plan.copy == (ENVELOPE_COPY if want != 0 and plan.ktiles == 1
+                         else want)
+    if plan.copy == ENVELOPE_COPY:
+        run = (plan.stage_rows if mode == 0 else plan.ob) * plan.tk * itemsize
+        run = -(-run // 16) * 16 + 16
+        xslot = (plan.ob * (run + 16) if mode == 0 else plan.stage_rows * run)
+    else:
+        xslot = plan.stage_rows * plan.ob * plan.tk * itemsize
+        if mode == 0:
+            xslot += plan.ob * 16
+    need = (STREAM_STAGES * (xslot + plan.stage_rows * plan.rm * ts)
+            + plan.tk * plan.rm * ts + plan.threads // 32 * plan.rm * ts
+            + 16 * STREAM_STAGES)
+    assert need <= plan.smem <= SMEM_MAX
+    # F rows: one bulk copy a stage only where they are not padded
+    fw = next(w for w in (16, 8, 4) if w >= ts and (R * ts) % w == 0)
+    assert plan.fcopy == (0 if fw == 16 and R == plan.rm else fw)
+
+
 @pytest.mark.parametrize("shape,R", [
     ((128, 512, 256), 16), ((128, 1024, 64), 20), ((37, 50, 29), 7),
     ((5, 3, 130), 1), ((1, 1, 1), 32), ((3, 70000, 2), 9)])
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_torch_mttkrp3_plan_covers_every_row(shape, R, mode):
-    """The launch plans of csrc/mttkrp3.cu, for X of 2, 4 and 8 bytes.
-    Modes 0/1: splits cover the split axis with no empty split, the factor
-    tile fits its shared-memory budget and the grid stays inside CUDA's
-    limits.  Mode 2 (the stream kernel): the row ranges cover the I*J rows
-    once, the k tiles cover K, the ring and the KR tiles fit 227 KB, the
-    copy width follows the alignment, and at the flagship shapes the split
-    partials move under 10 % of X's bytes.  The split mode-2 plan kept for
-    comparison: splits cover i and j, its tile fits, its grid stays inside
-    CUDA's limits."""
+    """The launch plans of csrc/mttkrp3.cu, for X of 2, 4 and 8 bytes at
+    each alignment of X's pointer.  Modes 0/1 (the rows-stream kernel):
+    _check_rows_plan, and at the flagship shapes at least half the SMs
+    busy and split partials under 1 % of X's bytes.  Mode 2 (the stream
+    kernel): the row ranges cover the I*J rows once, the k tiles cover K,
+    the ring and the KR tiles fit 227 KB, the copy width follows the
+    alignment, and at the flagship shapes the split partials move under
+    10 % of X's bytes."""
     I, J, K = shape
     for itemsize in (2, 4, 8):
         ts = acc_size(itemsize)
-        if mode < 2:
-            plan = plan_mttkrp3(shape, R, mode, itemsize, SMS)
-            assert isinstance(plan, Plan)
-            assert plan.rm >= R and plan.rm % 8 == 0
-            assert plan.tk in (32, 64, 128, 256)
-            n = J if mode == 0 else I
-            assert (plan.ns - 1) * plan.per < n <= plan.ns * plan.per
-            assert 1 <= plan.ns <= 65535
-            assert plan.per * plan.rm * ts <= 16384
-            continue
         for x_align in (16, 8, 4, 2):
             if x_align < itemsize:
                 continue
-            plan = plan_mttkrp3(shape, R, 2, itemsize, SMS, x_align=x_align)
+            plan = plan_mttkrp3(shape, R, mode, itemsize, SMS, x_align=x_align)
+            if mode < 2:
+                _check_rows_plan(plan, shape, R, mode, itemsize, x_align)
+                if (shape, R) in FLAGSHIP:
+                    assert plan.nblk * plan.ktiles >= SMS // 2
+                    assert plan.partial_share(shape, R) < 0.01
+                    if itemsize == 4 and x_align == 16:
+                        assert plan.copy == 0 and plan.ktiles == 1
+                continue
             assert isinstance(plan, StreamPlan)
             assert plan.rm >= R and plan.rm % 8 == 0
             assert plan.stages == STREAM_STAGES
@@ -151,15 +215,7 @@ def test_torch_mttkrp3_plan_covers_every_row(shape, R, mode):
             assert plan.smem >= (plan.phases * R * (plan.tk + 16 // ts) * ts
                                  + 16 * STREAM_STAGES)
             assert plan.smem <= SMEM_MAX
-            # bulk copies (0) where every row and k tile of X starts on 16
-            # bytes, else the widest cp.async the alignment allows, else
-            # (a 16-bit X on 2 bytes) plain loads and stores
-            want = next((w for w in (16, 8, 4) if w >= itemsize
-                         and (K * itemsize) % w == 0 and x_align % w == 0),
-                        PLAIN_COPY)
-            assert plan.copy == (0 if want == 16 else want)
-            assert (plan.tk * itemsize) % want == 0
-            assert want != PLAIN_COPY or itemsize == 2
+            assert plan.copy == _want_copy(K, plan.tk, itemsize, x_align)
             abw = next(w for w in (16, 8, 4) if w >= ts and (R * ts) % w == 0)
             assert plan.abw == (0 if abw == 16 else abw)
             if (shape, R) in FLAGSHIP:
@@ -167,16 +223,83 @@ def test_torch_mttkrp3_plan_covers_every_row(shape, R, mode):
                 assert plan.partial_share(shape, R) < 0.10
                 if itemsize == 4 and x_align == 16:
                     assert plan.copy == 0 and plan.ktiles == 1
-        if itemsize == 2:
-            continue
-        split = _plan_split(shape, R, itemsize)
-        assert isinstance(split, SplitPlan)
-        assert split.rm >= R and split.tk in (32, 64, 128)
-        for n, ns, per in ((I, split.ns_a, split.per_a),
-                           (J, split.ns_b, split.per_b)):
-            assert (ns - 1) * per < n <= ns * per
-            assert 1 <= ns <= 65535
-        assert split.per_b * split.rm * itemsize <= 16384
+
+
+def _rows_walk(X, factors, plan):
+    """out = the mode-`plan.mode` MTTKRP gathered as csrc/mttkrp3.cu's
+    rows-stream kernel gathers it: block (b, t) walks units b, b + nblk,
+    ... of k tile t, each unit its stages of walked rows, adding X[o, s, k] * F[s, :] for the tile's
+    o and the k tile's k; at a unit's end it multiplies by C[k, :], sums
+    over k and writes partial (range, k tile); warp w of reduce_splits
+    adds partials w, w + 8, ... and the eight warp sums are added in warp
+    order.  Also returns how often each (o, s, k) term was taken."""
+    mode = plan.mode
+    F, C = factors[1 - mode], factors[2]
+    Xo = X if mode == 0 else X.transpose(0, 1)      # (o, s, k)
+    O, Sn, K = Xo.shape
+    R = F.shape[1]
+    n_ot = -(-O // plan.ob)
+    units = plan.ns * n_ot
+    part = torch.zeros((plan.nsplit, O, R), dtype=X.dtype)
+    seen = torch.zeros((O, Sn, K), dtype=torch.int64)
+    for t in range(plan.ktiles):
+        k0, k1 = t * plan.tk, min(K, (t + 1) * plan.tk)
+        for b in range(plan.nblk):
+            for u in range(b, units, plan.nblk):
+                q, o0 = u // n_ot, u % n_ot * plan.ob
+                o1 = min(O, o0 + plan.ob)
+                s_end = min(Sn, (q + 1) * plan.per)
+                acc = torch.zeros((o1 - o0, k1 - k0, R), dtype=X.dtype)
+                for s0 in range(q * plan.per, s_end, plan.stage_rows):
+                    for s in range(s0, min(s_end, s0 + plan.stage_rows)):
+                        acc += Xo[o0:o1, s, k0:k1, None] * F[s]
+                        seen[o0:o1, s, k0:k1] += 1
+                part[q * plan.ktiles + t, o0:o1] = (acc * C[k0:k1]).sum(1)
+    if plan.nsplit == 1:
+        return part[0], seen
+    warps = []
+    for w in range(8):
+        v = torch.zeros((O, R), dtype=X.dtype)
+        for p in range(w, plan.nsplit, 8):
+            v = v + part[p]
+        warps.append(v)
+    out = warps[0]
+    for v in warps[1:]:
+        out = out + v
+    return out, seen
+
+
+@pytest.mark.parametrize("shape,R,sms", [
+    ((40, 30, 1), 5, SMS),       # K = 1: one thread along k
+    ((37, 50, 29), 7, SMS),      # K = 29, ragged tiles and ranges
+    ((7, 9, 31), 20, SMS),       # odd K
+    ((1, 50, 64), 16, SMS),      # I = 1
+    ((30, 3, 64), 16, SMS),      # J < ob
+    ((9, 21, 64), 20, SMS),      # J not a multiple of ob
+    ((20, 33, 70), 16, 4),       # fewer SMs than units: several a block
+    ((4, 6, 300), 32, SMS)])     # float64 at R 32 tiles k
+@pytest.mark.parametrize("mode", [0, 1])
+def test_torch_mttkrp3_rows_walk_matches_jax(shape, R, sms, mode):
+    """A coverage check of the rows-stream plan: its o tiles, walked
+    ranges, units, stages and k tiles, walked as the kernel walks them in
+    float64 on the CPU, take every (o, s, k) term exactly once, so the sum
+    equals the JAX package's MTTKRP to 1e-12 (the order of the sums does
+    not show at that tolerance)."""
+    rng = np.random.default_rng(sum(shape) + R + mode)
+    X = rng.standard_normal(shape)
+    facs = _factors(rng, shape, R)
+    plan = plan_mttkrp3(shape, R, mode, 8, sms)
+    _check_rows_plan(plan, shape, R, mode, 8, 16, sms)
+    if sms == 4:   # more units than blocks: a block walks several
+        assert plan.nblk < plan.ns * -(-shape[mode] // plan.ob)
+    if shape == (4, 6, 300):
+        assert plan.ktiles > 1
+    got, seen = _rows_walk(torch.tensor(X), [torch.tensor(f) for f in facs],
+                           plan)
+    assert torch.all(seen == 1)
+    want = np.asarray(jt.mttkrp(jnp.asarray(X), [jnp.asarray(f) for f in facs],
+                                mode))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
 
 
 def _stream_walk(X, A, B, plan):

@@ -40,10 +40,31 @@ non-zero:
   7. the full-size sparse CP fit through cmtf_aoadmm for 50 outer
      iterations in float32, counting the sparse kernel's launches;
   8. card vs CPU on the sparse path: the first 3 outer iterations from one
-     init state, on the card in float32 and on the CPU in float64.
+     init state, on the card in float32 and on the CPU in float64;
+  9. the sequential-prox kernels vs plain (csrc/prox_seq.cu): kernel A
+     (non-decreasing, non-increasing, unimodal with and without
+     non-negativity) and kernel B (TV) at n in {1, 2, 29, 256, 512, 1024,
+     4096} and R in {1, 16, 20, 40}, float32 and float64, with constant
+     columns, ties, all-negative columns, lam = 0 and lam above each
+     column's TV, against the plain version in float64 (float64 rtol 1e-12,
+     float32 rtol 1e-5).  The plain version reads every value on the host
+     and syncs on every step, so it runs on the CPU (its time, on the
+     host clock, is the kernels line's plain_ms).  Times both kernels at
+     512x16, 256x16 and 4096x20 beside their bound (a column's n
+     dependent steps at one a clock of the card's maximum SM clock, or
+     the bytes at 3.35 TB/s), and runs every other new prox kind on a
+     4096x20 card tensor against the CPU in float64;
+ 10. the CP surface at full size (utils/surface.py: the flagship's three
+     datasets under coupling types 1, 2, 3 and 5, with unimodal, TV, GL
+     smoothness, simplex and l1 constraints): for each type 20 outer
+     iterations through cmtf_aoadmm in float32 on the card (ms per
+     iteration, launches of the three kernels, host syncs, peak memory),
+     3 outer iterations under torch.profiler (device time by kernel, the
+     device's busy share), then the first 3 outer iterations from one init
+     state on the card and on the CPU in float64, held to rtol 1e-8.
 
-It then prints one JSON line describing both kernels, the card's name and
-power limit, and as its last line {"ok": true, "device": {...}}.  It
+It then prints one JSON line describing the four kernels, the card's name
+and power limit, and as its last line {"ok": true, "device": {...}}.  It
 imports nothing of JAX, and it fails without a CUDA card or without the
 package beside it.
 """
@@ -82,6 +103,17 @@ SPARSE_CPU_ITERS = 3
 # float32 flop/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+PROX_SOURCE = "matlab_code_tpu_torch/csrc/prox_seq.cu"
+ISOTONIC_REPLACES = ("matlab_code_tpu/ops/isotonic.py:23-147 (lax loop, no "
+                     "pallas_call)")
+TV_REPLACES = "matlab_code_tpu/ops/tv.py:23-126 (lax loop, no pallas_call)"
+PROX_NS = (1, 2, 29, 256, 512, 1024, 4096)
+PROX_RS = (1, 16, 20, 40)
+# (n, R) the kernels are timed at: X0's 512 and 256 modes at R 16, and
+# the flagship's widest mode at R 20
+PROX_TIMED = ((512, 16), (256, 16), (4096, 20))
+SURFACE_ITERS = 20
+SURFACE_CPU_ITERS = 3
 
 
 def phase(n, title):
@@ -382,6 +414,301 @@ def sparse_phases(dev, power):
             "library_ms": None}
 
 
+def sm_clock_hz():
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvidia-smi clocks.max.sm: {proc.stderr.strip()}")
+    return float(proc.stdout.strip().splitlines()[0]) * 1e6
+
+
+def prox_inputs(n, R, seed):
+    """A normal (n, R) matrix with a constant column, a column of ties (a
+    0.5 grid), an all-negative column and a column with a long plateau."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, R))
+    if R >= 4:
+        X[:, 1] = 0.3
+        X[:, 2] = np.round(2 * X[:, 2]) / 2
+        X[:, 3] = -np.abs(X[:, 3]) - 0.1
+    if R >= 5:
+        X[n // 4: 3 * n // 4, 4] = 1.0
+    return X
+
+
+def check_close(got, want, rtol, label):
+    """max |got - want| / |want| elementwise (0 where both are 0); raises
+    past rtol.  Returns the largest absolute difference."""
+    import torch
+    g, w = got.double().cpu(), want.double().cpu()
+    diff = (g - w).abs()
+    rel = torch.where(diff == 0, torch.zeros_like(diff),
+                      diff / w.abs().clamp(min=1e-300))
+    if not bool((rel <= rtol).all()):
+        raise RuntimeError(f"{label}: max rel diff {float(rel.max()):.3e} > "
+                           f"{rtol:.0e}")
+    return float(diff.max())
+
+
+def profile_fit(spec, data, state, opts, top=6):
+    """Run fit under torch.profiler and print the device time by kernel
+    (top `top`) and the device's busy share of the wall clock (both under
+    the profiler's own overhead)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from matlab_code_tpu_torch.models.solver import fit
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fit(spec, data, state, opts)
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t) * 1e6
+    from torch.autograd import DeviceType
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        print("  profiler: no device time recorded (not measured)")
+        return
+    print(f"  profiler, {opts.MaxOuterIters} outer iterations: device busy "
+          f"{busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall ({busy / wall_us:.1%}); "
+          f"{sum(r[1] for r in rows)} device calls; top by device time:")
+    for t_us, count, key in rows[:top]:
+        print(f"    {t_us / 1e3:8.3f} ms  {count:6d} calls  {key[:90]}")
+
+
+def prox_phases(dev, power):
+    """Phases 9 and 10: the sequential-prox kernels and the CP surface.
+    Returns the kernels line's entries of kernels A and B."""
+    import torch
+    from matlab_code_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from matlab_code_tpu_torch.models.admm import to_host
+    from matlab_code_tpu_torch.models.init import init_coupled
+    from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit
+    from matlab_code_tpu_torch.ops import isotonic, prox, tv
+    from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
+    from matlab_code_tpu_torch.ops.prox_cuda import (
+        project_isotonic_cols, prox_tv_cols)
+    from matlab_code_tpu_torch.utils import surface
+
+    # ---- 9. sequential-prox kernels vs plain ----------------------------------
+    t0 = phase(9, "sequential-prox kernels (A: isotonic/unimodal, B: TV) vs plain")
+    kinds_a = ((isotonic.INCREASING, False, "non-decreasing"),
+               (isotonic.DECREASING, False, "non-increasing"),
+               (isotonic.UNIMODAL, False, "unimodal"),
+               (isotonic.UNIMODAL, True, "unimodal, non-negative"))
+    err_a = err_b = 0.0
+    checked = 0
+    for n in PROX_NS:
+        for R in PROX_RS:
+            X = prox_inputs(n, R, 7 * n + R)
+            tv_max = float(np.max(np.sum(np.abs(np.diff(X, axis=0)), axis=0))) \
+                if n > 1 else 0.0
+            for dt, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+                Xd = torch.tensor(X, dtype=dt, device=dev)
+                Xh = Xd.double().cpu()      # the plain version's float64 input
+                for kind, nn, label in kinds_a:
+                    want = isotonic.columns_reference(Xh, kind, nn)
+                    got = project_isotonic_cols(Xd, kind, nn)
+                    again = project_isotonic_cols(Xd, kind, nn)
+                    torch.cuda.synchronize()
+                    if got.dtype != dt or not torch.equal(got, again):
+                        raise RuntimeError(f"kernel A {label} {n}x{R} {dt}: "
+                                           f"dtype {got.dtype}, same bits "
+                                           f"{torch.equal(got, again)}")
+                    e = check_close(got, want, rtol, f"kernel A {label} {n}x{R} {dt}")
+                    if dt == torch.float32:
+                        err_a = max(err_a, e)
+                    if nn and float(got.min()) < 0:
+                        raise RuntimeError("kernel A: negative non-negative unimodal")
+                for lam in (0.0, 0.05, tv_max + 1.0):
+                    want = tv.columns_reference(Xh, lam)
+                    lam_d = torch.tensor(lam, dtype=torch.float64, device=dev)
+                    got = prox_tv_cols(Xd, lam_d)
+                    again = prox_tv_cols(Xd, lam)
+                    torch.cuda.synchronize()
+                    if got.dtype != dt or not torch.equal(got, again):
+                        raise RuntimeError(f"kernel B {n}x{R} {dt} lam {lam}: "
+                                           f"same bits {torch.equal(got, again)}")
+                    e = check_close(got, want, rtol, f"kernel B {n}x{R} {dt} lam {lam}")
+                    if dt == torch.float32:
+                        err_b = max(err_b, e)
+                checked += 1
+    print(f"kernels A and B held to the float64 plain version at {checked} "
+          f"(n, R, dtype) cases x 4 kinds / 3 lam (float64 rtol 1e-12, float32 "
+          f"rtol 1e-5 elementwise; same bits on repeat); float32 max abs diff "
+          f"A {err_a:.3e}, B {err_b:.3e}")
+    clock = sm_clock_hz()
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    timed = {}
+    for n, R in PROX_TIMED:
+        X = torch.tensor(prox_inputs(n, R, 3), dtype=torch.float32, device=dev)
+        Xh = X.double().cpu()
+        for name in ("A", "B"):
+            steps = []
+            tc = time.perf_counter()
+            if name == "A":
+                isotonic.columns_reference(Xh, isotonic.UNIMODAL, True, steps)
+                fn = lambda: project_isotonic_cols(X, isotonic.UNIMODAL, True)
+            else:
+                tv.columns_reference(Xh, 1e-3, steps)
+                lam_d = torch.tensor(1e-3, dtype=torch.float64, device=dev)
+                fn = lambda: prox_tv_cols(X, lam_d)
+            t_plain = (time.perf_counter() - tc) * 1e3
+            t_k = time_ms(fn, flush, runs=25)
+            t_bytes = 2 * X.numel() * 4 / HBM_BYTES_S * 1e3
+            # each output row depends on the rows before it: n dependent
+            # steps, one a clock; the plain walk's longest chain (a scan's
+            # slots and merges, or Condat's states) is printed beside it
+            chain = n
+            t_steps = chain / clock * 1e3
+            t_b = max(t_bytes, t_steps)
+            timed[(name, n, R)] = (t_k, t_plain, t_b,
+                                   "operations" if t_steps >= t_bytes else "bytes")
+            print(f"  kernel {name} ({'unimodal, non-negative' if name == 'A' else 'TV, lam 1e-3'}"
+                  f") {n}x{R} float32: {t_k * 1e3:.1f} us | bound "
+                  f"{t_b * 1e3:.3f} us ({chain} dependent steps at "
+                  f"{clock / 1e9:.2f} GHz: {t_steps * 1e3:.3f} us; bytes "
+                  f"{t_bytes * 1e3:.3f} us) = {t_b / t_k:.2%}; the plain "
+                  f"walk's longest chain {max(steps)} steps | plain (CPU, "
+                  f"host clock) {t_plain:.1f} ms  [{power}]")
+    del flush
+    # every other new prox kind on a card tensor, against the CPU in float64
+    X = prox_inputs(4096, 20, 5)
+    rng = np.random.default_rng(9)
+    M = rng.standard_normal((4096, 8))
+    quad = np.diag(np.full(4096, 2.0)) + 0.01 * (M @ M.T) / 8
+    others = [("simplex column-wise", (1.0,)), ("simplex row-wise", (1.0,)),
+              ("l1-ball", (2.0,)), ("l2-ball", (1.0,)),
+              ("non-negative l2-ball", (1.0,)), ("orthonormal", ()),
+              ("l1 regularization", (0.1,)), ("l0 regularization", (0.05,)),
+              ("l2 regularization", (0.3,)), ("ridge", (0.2,)),
+              ("quadratic regularization", (0.5,)), ("GL smoothness", (1.0,))]
+    worst = 0.0
+    for kind, params in others:
+        spec = prox.ConstraintSpec(kind, params,
+                                   quad if kind == "quadratic regularization"
+                                   else None)
+        pf, rf = prox.make_prox(spec, 4096)
+        rho = 0.7
+        got = pf(torch.tensor(X, device=dev),
+                 torch.tensor(rho, dtype=torch.float64, device=dev))
+        want = pf(torch.tensor(X), rho)
+        err = float((got.cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        worst = max(worst, err / scale)
+        if got.device.type != torch.device(dev).type or not err <= 1e-10 * scale:
+            raise RuntimeError(f"prox {kind}: card vs CPU {err:.3e} (scale "
+                               f"{scale:.3e})")
+        if rf is not None:
+            a, b = float(rf(torch.tensor(X, device=dev))), float(rf(torch.tensor(X)))
+            if not abs(a - b) <= 1e-10 * abs(b):
+                raise RuntimeError(f"reg {kind}: card {a} vs CPU {b}")
+    print(f"{len(others)} other prox kinds on a 4096x20 card tensor (float64) "
+          f"against the CPU: max |card - CPU| / max|CPU| = {worst:.3e} (bound "
+          f"1e-10: other summation orders and factorizations)")
+    done(9, t0)
+
+    # ---- 10. the CP surface at full size --------------------------------------
+    t0 = phase(10, f"CP surface, coupling types {surface.CTYPES}, "
+                   f"{SURFACE_ITERS} outer iterations, float32")
+    launches = {"A": 0, "B": 0}
+    for ctype in surface.CTYPES:
+        tc = time.perf_counter()
+        spec, data, ds = surface.build_problem(ctype, dev, torch.float32)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(ctype)
+        state0 = init_coupled(spec, data, surface.surface_init_options(ctype),
+                              generator=gen, delta_shapes=ds)
+        opts = surface.surface_options(SURFACE_ITERS, AbsFuncTol=0.0,
+                                       OuterRelTol=0.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mttkrp3.launches = project_isotonic_cols.launches = 0
+        prox_tv_cols.launches = to_host.calls = 0
+        zhat, _, _, out = cmtf_aoadmm(spec, data, opts, init=state0)
+        n_mk, n_a, n_b = (mttkrp3.launches, project_isotonic_cols.launches,
+                          prox_tv_cols.launches)
+        syncs = to_host.calls
+        launches["A"] += n_a
+        launches["B"] += n_b
+        streams = np.stack([out.func_val_conv, out.func_coupl_conv,
+                            out.func_constr_conv, out.func_PAR2_coupl])
+        if out.OuterIterations != SURFACE_ITERS or not np.all(np.isfinite(streams)):
+            raise RuntimeError(f"surface type {ctype}: {out.OuterIterations} "
+                               "iterations or non-finite streams")
+        if n_mk < 6 * SURFACE_ITERS or n_a < SURFACE_ITERS or n_b < SURFACE_ITERS:
+            raise RuntimeError(f"surface type {ctype}: launches mttkrp3 {n_mk}, "
+                               f"A {n_a}, B {n_b}")
+        if [f.shape for f in zhat[0]["factors"]] != [
+                (spec.mode_sizes[m], 16) for m in (0, 1, 2)]:
+            raise RuntimeError("surface: unexpected factor shapes")
+        dts = np.diff(out.time_at_it)
+        print(f"type {ctype}: datasets {[tuple(X.shape) for X in data.objects]}"
+              f", ranks {surface.RANKS[ctype]}; f_tensors {out.func_val_conv[0]:.6e}"
+              f" -> {out.f_tensors:.6e}; f_couplings {out.f_couplings:.3e}; "
+              f"f_constraints {out.f_constraints:.3e}")
+        print(f"  median ms per outer iteration {np.median(dts) * 1e3:.3f} (min "
+              f"{dts.min() * 1e3:.3f}, max {dts.max() * 1e3:.3f}); launches per "
+              f"outer iteration: mttkrp3 {n_mk / SURFACE_ITERS:.2f}, kernel A "
+              f"{n_a / SURFACE_ITERS:.2f}, kernel B {n_b / SURFACE_ITERS:.2f}; "
+              f"host syncs {syncs / SURFACE_ITERS:.2f}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB  [{power}]")
+        opts3 = surface.surface_options(SURFACE_CPU_ITERS, AbsFuncTol=0.0,
+                                        OuterRelTol=0.0)
+        profile_fit(spec, data, state0, opts3)
+        # the first iterations from one init state: card and CPU in float64
+        init_np = state_to_numpy(state0)
+        del data, zhat
+        _, data64, _ = surface.build_problem(ctype, dev, torch.float64)
+        _, out_gpu = fit(spec, data64, state_from_numpy(init_np, dev,
+                                                         torch.float64), opts3)
+        del data64
+        tcpu = time.perf_counter()
+        _, data_c, _ = surface.build_problem(ctype, "cpu", torch.float64)
+        _, out_cpu = fit(spec, data_c, state_from_numpy(init_np, "cpu",
+                                                         torch.float64), opts3)
+        del data_c
+        k = SURFACE_CPU_ITERS + 1
+        for label, a, b, f32 in [
+                ("f_tensors", out_gpu.func_val_conv, out_cpu.func_val_conv,
+                 out.func_val_conv),
+                ("f_couplings", out_gpu.func_coupl_conv, out_cpu.func_coupl_conv,
+                 out.func_coupl_conv),
+                ("f_constraints", out_gpu.func_constr_conv,
+                 out_cpu.func_constr_conv, out.func_constr_conv),
+                ("f_PAR2_couplings", out_gpu.func_PAR2_coupl,
+                 out_cpu.func_PAR2_coupl, out.func_PAR2_coupl)]:
+            den = np.maximum(np.abs(b), 1e-300)
+            rel = np.max(np.abs(a - b) / den)
+            rel32 = np.max(np.abs(f32[:k] - b) / den)
+            print(f"  {label}: card float64 {a[-1]:.12e} cpu float64 "
+                  f"{b[-1]:.12e} max rel diff {rel:.3e} (bound 1e-8); card "
+                  f"float32 max rel diff {rel32:.3e} (not gated)")
+            np.testing.assert_allclose(a, b, rtol=1e-8, atol=0, err_msg=label)
+        print(f"  type {ctype}: {time.perf_counter() - tc:.1f} s, the CPU "
+              f"side {time.perf_counter() - tcpu:.1f} s")
+    done(10, t0)
+
+    entries = []
+    for name, fn, main, replaces in (
+            ("A", "project_isotonic_cols", (512, 16), ISOTONIC_REPLACES),
+            ("B", "prox_tv_cols", (256, 16), TV_REPLACES)):
+        t_k, t_p, t_b, by = timed[(name, *main)]
+        entries.append({
+            "name": fn, "route": "cuda", "source": PROX_SOURCE,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err_a if name == "A" else err_b, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
+            "library_ms": None})
+    return entries
+
+
 def stream_variant(plan, shape, R, sms, stages=None, stage_rows=None,
                    copy=None):
     """The mode-2 stream plan with another ring depth, stage size or copy
@@ -491,7 +818,7 @@ def main():
     from matlab_code_tpu_torch.convert import state_from_numpy, state_to_numpy
     from matlab_code_tpu_torch.models.admm import _resolve_inner_solve, to_host
     from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit
-    from matlab_code_tpu_torch.ops import _build, mttkrp_cuda, sparse_cuda
+    from matlab_code_tpu_torch.ops import _build, mttkrp_cuda, prox_cuda, sparse_cuda
     from matlab_code_tpu_torch.ops import tensor as tensor_ops
     from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3, mttkrp3_reference
     from matlab_code_tpu_torch.options import apply_matmul_precision
@@ -519,8 +846,9 @@ def main():
     # ---- 2. kernel vs plain -------------------------------------------------
     t0 = phase(2, "MTTKRP kernel vs plain")
     tb = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:    # one nvcc per source, together
-        for fut in [pool.submit(mttkrp_cuda._lib), pool.submit(sparse_cuda._lib)]:
+    with ThreadPoolExecutor(3) as pool:    # one nvcc per source, together
+        for fut in [pool.submit(mttkrp_cuda._lib), pool.submit(sparse_cuda._lib),
+                    pool.submit(prox_cuda._lib)]:
             fut.result()
     print(f"kernel libraries built and loaded in {time.perf_counter() - tb:.1f} s")
     for log in _build.BUILD_LOGS.values():
@@ -743,6 +1071,7 @@ def main():
     done(5, t0)
 
     sparse = sparse_phases(dev, power)
+    prox_entries = prox_phases(dev, power)
 
     print(json.dumps({"kernels": [{
         "name": "mttkrp3", "route": "cuda", "source": KERNEL_SOURCE,
@@ -750,7 +1079,7 @@ def main():
         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": max(bound_by_ms, key=bound_by_ms.get),
         "library_ms": lib_ms},
-        sparse]}))
+        sparse] + prox_entries}))
     print(power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -24,13 +24,25 @@ from matlab_code_tpu_torch.problem import (
 from matlab_code_tpu_torch.state import FIELDS, SolverState
 
 
+def constraint_from_reference(c) -> ConstraintSpec | None:
+    """Copy a ConstraintSpec of the JAX package: every kind, its params,
+    its matrix as a numpy array.  A 'custom' spec raises ValueError: its
+    fns are jnp code, which the port cannot call."""
+    if c is None:
+        return None
+    if c.kind == "custom":
+        raise ValueError(
+            "a 'custom' constraint of the JAX package carries jnp functions; "
+            "build the port's ConstraintSpec('custom', fns=...) with torch "
+            "functions instead")
+    matrix = None if c.matrix is None else np.asarray(c.matrix)
+    return ConstraintSpec(c.kind, tuple(c.params), matrix)
+
+
 def spec_from_reference(obj) -> ProblemSpec:
     """Copy a ProblemSpec of the JAX package (read by attribute) into the
     port's ProblemSpec."""
-    constraints = tuple(
-        None if c is None else ConstraintSpec(c.kind, tuple(c.params),
-                                              c.matrix, tuple(c.fns))
-        for c in obj.constraints)
+    constraints = tuple(constraint_from_reference(c) for c in obj.constraints)
     return ProblemSpec(
         mode_sizes=tuple(obj.mode_sizes),
         datasets=tuple(DatasetSpec(model=d.model, modes=tuple(d.modes),

@@ -1,5 +1,5 @@
-"""Inner ADMM loops: constrained-only and coupled (coupling types 0 and 4),
-counterpart of the main-path part of matlab_code_tpu/models/admm.py
+"""Inner ADMM loops: constrained-only and coupled (coupling types 0-5),
+counterpart of the CP part of matlab_code_tpu/models/admm.py
 (cmtf_fun_AOADMM.m:591-1075).
 
 The JAX package runs each inner loop as a lax.while_loop that exits on the
@@ -7,7 +7,7 @@ residuals.  Here it is an eager host loop with the same exit rule: the
 condition `it <= MaxInnerIters and (residual > tol)` is tested before each
 body, residuals start at inf, and the loop returns it - 1.  Each test after
 the first reads two residuals from the device (one host sync, counted by
-to_host).  Coupling types 1, 2, 3 and 5 come with slice 3, PARAFAC2 with
+to_host).  PARAFAC2 modes (and their par2C coupling branches) come with
 slice 4 and non-Frobenius losses with slice 5.
 """
 from __future__ import annotations
@@ -22,7 +22,7 @@ from matlab_code_tpu_torch.problem import ProblemSpec
 from matlab_code_tpu_torch.state import SolverState, tuple_set
 
 _fro = torch.linalg.norm
-PORTED_COUPLING_TYPES = (0, 4)
+PORTED_COUPLING_TYPES = (0, 1, 2, 3, 4, 5)
 
 
 def to_host(t):
@@ -44,10 +44,8 @@ def _safe_div(a, b):
 
 def _check_ctype(ctype: int) -> None:
     if ctype not in PORTED_COUPLING_TYPES:
-        raise NotImplementedError(
-            f"coupling type {ctype} is not ported yet: the port carries types "
-            f"{PORTED_COUPLING_TYPES}; types 1, 2, 3 and 5 come with slice 3 "
-            "(ROADMAP.md, 'the rest of the CP surface')")
+        raise ValueError(f"coupling type {ctype} is not one of "
+                         f"{PORTED_COUPLING_TYPES}")
 
 
 def make_update_constraint(spec: ProblemSpec, proxes):
@@ -146,14 +144,28 @@ def admm_constrained_only(spec: ProblemSpec, state: SolverState, m: int, p: int,
 
 def _factor_update_case(spec, state, data, m, cid, ctype, A, rho,
                         constrained, solve):
-    """One coupled-factor update for mode m (Frobenius loss), ctypes 0/4."""
-    _check_ctype(ctype)
+    """One coupled-factor update for CP mode m (Frobenius loss): `solve`
+    is linalg.sylvester_solver's for types 1 and 5 (B2 X + X B = A_inner,
+    B the mode's normal matrix, B2 = rho/2 H^T H [+ rho/2 I]) and
+    make_spd_solver's right solver for the other types."""
     Delta = state.coupling_fac[cid - 1]
     dual = state.coupling_dual_fac[m]
+    H = data.coupl_trafo[m] if data.coupl_trafo else None
+    if ctype in (1, 5):
+        target = Delta if ctype == 1 else Delta @ data.coupl_trafo2[m]
+        A_inner = A + 0.5 * rho * (H.T @ (target - dual))
+        if constrained:
+            A_inner = A_inner + 0.5 * rho * (
+                state.constraint_fac[m] - state.constraint_dual_fac[m])
+        return solve(A_inner)
     if ctype == 0:
         extra = Delta - dual
-    else:
-        extra = Delta @ data.coupl_trafo[m] - dual
+    elif ctype == 2:
+        extra = (Delta - dual) @ H.T
+    elif ctype == 3:
+        extra = H @ Delta - dual
+    else:  # 4
+        extra = Delta @ H - dual
     A_inner = A + 0.5 * rho * extra
     if constrained:
         A_inner = A_inner + 0.5 * rho * (
@@ -162,81 +174,141 @@ def _factor_update_case(spec, state, data, m, cid, ctype, A, rho,
 
 
 def _delta_update(spec, state, data, cmodes, cid, ctype, rhos):
-    """Consensus Delta update (cmtf_fun_AOADMM.m:660-675, 938-963)."""
-    _check_ctype(ctype)
+    """Consensus Delta update for each coupling type (cmtf_fun_AOADMM.m
+    :660-675, 737-749, 807-815, 872-881, 938-963, 1026-1054)."""
     Delta = state.coupling_fac[cid - 1]
-    if ctype == 0:
+    zero = torch.zeros((), dtype=Delta.dtype, device=Delta.device)
+    if ctype in (0, 1, 2):
         num = torch.zeros_like(Delta)
-        sum_rho = 0.0
+        sum_rho = zero
         for jj in cmodes:
             r = rhos[jj]
-            num = num + r * (state.fac[jj] + state.coupling_dual_fac[jj])
+            fac = state.fac[jj]
+            if ctype == 1:
+                fac = data.coupl_trafo[jj] @ fac
+            elif ctype == 2:
+                fac = fac @ data.coupl_trafo[jj]
+            num = num + r * (fac + state.coupling_dual_fac[jj])
             sum_rho = sum_rho + r
         return num / sum_rho
-    H0 = data.coupl_trafo[cmodes[0]]
-    D = H0.shape[0]
-    AA = torch.zeros((D, D), dtype=Delta.dtype, device=Delta.device)
-    BB = torch.zeros((state.fac[cmodes[0]].shape[0], D), dtype=Delta.dtype,
-                     device=Delta.device)
+    if ctype == 3:
+        H0 = data.coupl_trafo[cmodes[0]]
+        AA = torch.zeros((H0.shape[1], H0.shape[1]), dtype=Delta.dtype,
+                         device=Delta.device)
+        BB = torch.zeros((H0.shape[1], state.fac[cmodes[0]].shape[1]),
+                         dtype=Delta.dtype, device=Delta.device)
+        for jj in cmodes:
+            H = data.coupl_trafo[jj]
+            r = rhos[jj]
+            AA = AA + H.T @ (r * H)
+            BB = BB + H.T @ (r * (state.fac[jj] + state.coupling_dual_fac[jj]))
+        return solve(AA, BB)
+    if ctype == 4:
+        H0 = data.coupl_trafo[cmodes[0]]
+        D = H0.shape[0]
+        AA = torch.zeros((D, D), dtype=Delta.dtype, device=Delta.device)
+        BB = torch.zeros((state.fac[cmodes[0]].shape[0], D), dtype=Delta.dtype,
+                         device=Delta.device)
+        for jj in cmodes:
+            H = data.coupl_trafo[jj]
+            r = rhos[jj]
+            AA = AA + r * (H @ H.T)
+            BB = BB + (r * (state.fac[jj] + state.coupling_dual_fac[jj])) @ H.T
+        # Delta AA = BB, solved with the transpose as in the JAX package
+        return solve(AA.T, BB.T).T
+    # type 5: the reference weights every term with rho of the LAST coupled
+    # mode (its leftover loop variable, cmtf_fun_AOADMM.m:1032); kept
+    rhoC = rhos[cmodes[-1]]
+    H20 = data.coupl_trafo2[cmodes[0]]
+    D2 = H20.shape[0]
+    AA = torch.zeros((D2, D2), dtype=Delta.dtype, device=Delta.device)
+    BB = torch.zeros((data.coupl_trafo[cmodes[0]].shape[0], D2),
+                     dtype=Delta.dtype, device=Delta.device)
     for jj in cmodes:
-        H = data.coupl_trafo[jj]
-        r = rhos[jj]
-        AA = AA + r * (H @ H.T)
-        BB = BB + (r * (state.fac[jj] + state.coupling_dual_fac[jj])) @ H.T
-    # Delta AA = BB, solved with the transpose as in the JAX package
+        H, H2 = data.coupl_trafo[jj], data.coupl_trafo2[jj]
+        AA = AA + rhoC * (H2 @ H2.T)
+        BB = BB + rhoC * (H @ state.fac[jj]
+                          + state.coupling_dual_fac[jj]) @ H2.T
     return solve(AA.T, BB.T).T
 
 
 def _dual_update(spec, state, data, m, cid, ctype):
-    _check_ctype(ctype)
     Delta = state.coupling_fac[cid - 1]
     dual = state.coupling_dual_fac[m]
+    H = data.coupl_trafo[m] if data.coupl_trafo else None
     fac = state.fac[m]
     if ctype == 0:
         return dual + fac - Delta
-    return dual + fac - Delta @ data.coupl_trafo[m]
+    if ctype == 1:
+        return dual + H @ fac - Delta
+    if ctype == 2:
+        return dual + fac @ H - Delta
+    if ctype == 3:
+        return dual + fac - H @ Delta
+    if ctype == 4:
+        return dual + fac - Delta @ H
+    return dual + H @ fac - Delta @ data.coupl_trafo2[m]
 
 
 def _coupling_transform(spec, state, data, m, ctype):
-    """transform(fac) whose gap to Delta defines the primal residual: the
-    factor itself for types 0 and 4."""
-    _check_ctype(ctype)
-    return state.fac[m]
+    """transform(fac) whose gap to Delta defines the primal residual."""
+    fac = state.fac[m]
+    if ctype in (0, 3, 4):
+        return fac
+    H = data.coupl_trafo[m]
+    if ctype in (1, 5):
+        return H @ fac
+    return fac @ H
 
 
 def eval_res_coupling(spec, state, data, cmodes, cid, ctype, oldDelta):
     """Relative primal/dual coupling residuals (cmtf_fun_AOADMM.m:1099-1210)."""
-    _check_ctype(ctype)
     Delta = state.coupling_fac[cid - 1]
     pr = 0.0
     dr = 0.0
     for mm in cmodes:
-        fac = _coupling_transform(spec, state, data, mm, ctype)
-        if ctype == 0:
-            gap = fac - Delta
+        t = _coupling_transform(spec, state, data, mm, ctype)
+        if ctype in (0, 1, 2):
+            gap = t - Delta
+            nrm = _fro(t) if ctype in (1, 2) else _fro(state.fac[mm])
             dgap = Delta - oldDelta
-        else:
+        elif ctype == 3:
             H = data.coupl_trafo[mm]
-            gap = fac - Delta @ H
+            gap = state.fac[mm] - H @ Delta
+            nrm = _fro(state.fac[mm])
+            dgap = H @ (Delta - oldDelta)
+        elif ctype == 4:
+            H = data.coupl_trafo[mm]
+            gap = state.fac[mm] - Delta @ H
+            nrm = _fro(state.fac[mm])
             dgap = (Delta - oldDelta) @ H
-        pr = pr + _fro(gap) / _fro(fac)
+        else:  # 5
+            H, H2 = data.coupl_trafo[mm], data.coupl_trafo2[mm]
+            gap = H @ state.fac[mm] - Delta @ H2
+            nrm = _fro(state.fac[mm])
+            dgap = (Delta - oldDelta) @ H2
+        pr = pr + _fro(gap) / nrm
         dr = dr + _safe_div(_fro(dgap), _fro(state.coupling_dual_fac[mm]))
     return pr / len(cmodes), dr / len(cmodes)
 
 
 def admm_coupled(spec: ProblemSpec, state: SolverState, data, cmodes, cid,
                  ctype, As, rhos, options, proxes, solvers):
-    """Coupled-ADMM loop for coupling types 0 and 4
-    (cmtf_fun_AOADMM.m:625-700, 884-983).  As/rhos/solvers: dicts keyed by
-    mode; solvers holds the right solvers prebuilt by make_spd_solver.
+    """Coupled-ADMM loop for coupling types 0-5 (cmtf_fun_AOADMM.m:625-1075)
+    on CP modes.  As/rhos/solvers: dicts keyed by mode; solvers holds the
+    solvers prebuilt once an outer iteration: make_spd_solver's right
+    solvers (types 0, 2, 3, 4) or linalg.sylvester_solver's (types 1, 5).
     Returns (state, inner_iters)."""
     _check_ctype(ctype)
     for mm in cmodes:
-        if spec.mode_role(mm) != "cp" or \
-                spec.datasets[spec.which_p(mm)].loss != "Frobenius":
+        if spec.mode_role(mm) != "cp":
             raise NotImplementedError(
-                "admm_coupled is ported for CP modes with Frobenius loss; "
-                "PARAFAC2 comes with slice 4 and other losses with slice 5")
+                f"coupled mode {mm} is a PARAFAC2 mode: PARAFAC2 (and the "
+                "par2C coupling branches) come with slice 4 (ROADMAP.md)")
+        if spec.datasets[spec.which_p(mm)].loss != "Frobenius":
+            raise NotImplementedError(
+                "admm_coupled is ported for Frobenius loss; other losses come "
+                "with slice 5 (ROADMAP.md)")
     upd = make_update_constraint(spec, proxes)
     constrained_modes = tuple(m for m in cmodes if spec.is_constrained(m))
     it = 1

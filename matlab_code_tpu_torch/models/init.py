@@ -1,6 +1,7 @@
 """Initialization of the solver state (init_coupled_AOADMM_CMTF.m),
 counterpart of the CP part of matlab_code_tpu/models/init.py: random draws
-or spectral ('nvecs') factors, coupling types 0 and 4.
+or spectral ('nvecs') factors, constraint auxiliaries through every CP
+prox, coupling Delta and duals for types 0-5.
 
 Draws come from an explicit torch.Generator, in the JAX package's order
 (factors per dataset and mode, then constraint auxiliaries and duals, then
@@ -85,15 +86,57 @@ def cmtf_nvecs(spec: ProblemSpec, data: ProblemData, n: int, r: int
     return top_eigvecs(Y, r)
 
 
+def delta_shape(spec: ProblemSpec, data: ProblemData, cid: int, fac,
+                delta_shapes: dict | None = None) -> tuple:
+    """Shape of coupling cid's Delta (init_coupled_AOADMM_CMTF.m:132-169):
+    fac[m1] for type 0, (rows of H, R) for 1, (I, columns of H) for 2,
+    (columns of H, R) for 3, (I, rows of H) for 4; type 5 has no shape to
+    derive and takes delta_shapes[cid] (ValueError without it)."""
+    cmodes = spec.coupled_modes_of(cid)
+    m1 = cmodes[0]
+    ctype = spec.coupling.coupling_type[cid - 1]
+    _check_ctype(ctype)
+    rows, R = fac[m1].shape
+    H1 = data.coupl_trafo[m1] if data.coupl_trafo else None
+    if ctype == 0:
+        return (rows, R)
+    if ctype == 1:
+        return (H1.shape[0], R)
+    if ctype == 2:
+        return (rows, H1.shape[1])
+    if ctype == 3:
+        return (H1.shape[1], R)
+    if ctype == 4:
+        return (rows, H1.shape[0])
+    if delta_shapes is None or cid not in delta_shapes:
+        raise ValueError(
+            "coupling type 5 requires delta_shapes={cid: (rows, cols)}")
+    return tuple(delta_shapes[cid])
+
+
+def dual_shape(spec: ProblemSpec, cid: int, m: int, fac, dshape: tuple
+               ) -> tuple:
+    """Shape of mode m's coupling dual: Delta's for types 0, 1 and 2 (type
+    0: fac[m1]'s), fac[m]'s for 3 and 4, (rows of Delta, R_m) for 5."""
+    ctype = spec.coupling.coupling_type[cid - 1]
+    if ctype in (0, 1, 2):
+        return dshape
+    if ctype in (3, 4):
+        return tuple(fac[m].shape)
+    return (dshape[0], fac[m].shape[-1])
+
+
 def init_coupled(spec: ProblemSpec, data: ProblemData,
                  init_options: InitOptions, generator: torch.Generator | None = None,
-                 seed: int = 0) -> SolverState:
+                 seed: int = 0, delta_shapes: dict | None = None) -> SolverState:
     """Build a full initial SolverState (factors, constraint auxiliaries and
     duals, coupling Delta and duals) — init_coupled_AOADMM_CMTF.m:37-169.
 
     generator: the source of every draw; when None, one is seeded with
-    `seed`.  The state takes the dtype and device of the first data object
-    (of its values, for a SparseTensor)."""
+    `seed`.  delta_shapes: {cid: (rows, cols)}, the Delta shape of each
+    type-5 coupling (the reference passes the true Delta; ValueError
+    without it).  The state takes the dtype and device of the first data
+    object (of its values, for a SparseTensor)."""
     dt = data.objects[0].dtype
     dev = data.objects[0].device
     if generator is None:
@@ -149,19 +192,10 @@ def init_coupled(spec: ProblemSpec, data: ProblemData,
     coupling_fac = [None] * ncpl
     coupling_dual = [None] * nb
     for cid in range(1, ncpl + 1):
-        cmodes = spec.coupled_modes_of(cid)
-        m1 = cmodes[0]
-        ctype = spec.coupling.coupling_type[cid - 1]
-        _check_ctype(ctype)
-        if ctype == 0:
-            coupling_fac[cid - 1] = rand(fac[m1].shape)
-            for m in cmodes:
-                coupling_dual[m] = rand(fac[m1].shape)
-        else:
-            H1 = data.coupl_trafo[m1]
-            coupling_fac[cid - 1] = rand((fac[m1].shape[0], H1.shape[0]))
-            for m in cmodes:
-                coupling_dual[m] = rand(fac[m].shape)
+        dshape = delta_shape(spec, data, cid, fac, delta_shapes)
+        coupling_fac[cid - 1] = rand(dshape)
+        for m in spec.coupled_modes_of(cid):
+            coupling_dual[m] = rand(dual_shape(spec, cid, m, fac, dshape))
 
     return SolverState(
         fac=tuple(fac), constraint_fac=tuple(constraint_fac),

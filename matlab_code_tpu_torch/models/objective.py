@@ -1,6 +1,8 @@
 """Objective / residual-stream evaluation (CMTF_AOADMM_func_eval,
 cmtf_fun_AOADMM.m:1213-1363), counterpart of the CP-Frobenius part of
-matlab_code_tpu/models/objective.py.
+matlab_code_tpu/models/objective.py: data terms, the constraints'
+regularizer terms (ops/prox.make_prox's reg), ridge, and the coupling
+gaps of types 0-5.
 
 Returns the four streams (f_tensors, f_couplings, f_constraints,
 f_PAR2_couplings) as 0-d tensors.  The data term reads the cached MTTKRP
@@ -84,8 +86,19 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
         acc = zero
         for mm in spec.coupled_modes_of(cid):
             fac = state.fac[mm]
-            target = Delta if ctype == 0 else Delta @ data.coupl_trafo[mm]
-            acc = acc + _fro(fac - target) / _fro(fac)
+            H = data.coupl_trafo[mm] if data.coupl_trafo else None
+            if ctype == 0:
+                acc = acc + _fro(fac - Delta) / _fro(fac)
+            elif ctype in (1, 2):
+                t = H @ fac if ctype == 1 else fac @ H
+                acc = acc + _fro(t - Delta) / _fro(t)
+            elif ctype == 3:
+                acc = acc + _fro(fac - H @ Delta) / _fro(fac)
+            elif ctype == 4:
+                acc = acc + _fro(fac - Delta @ H) / _fro(fac)
+            else:
+                t = H @ fac
+                acc = acc + _fro(t - Delta @ data.coupl_trafo2[mm]) / _fro(t)
         cps.append(acc)
     f_couplings = _mean_nonzero(cps) if cps else zero
 

@@ -25,7 +25,7 @@ from matlab_code_tpu_torch.models.admm import (
 from matlab_code_tpu_torch.models.objective import func_eval
 from matlab_code_tpu_torch.models.updates import cp_mode_precompute, refresh_gram
 from matlab_code_tpu_torch.ops import losses
-from matlab_code_tpu_torch.ops.linalg import chol_lower, rsolve
+from matlab_code_tpu_torch.ops.linalg import chol_lower, rsolve, sylvester_solver
 from matlab_code_tpu_torch.ops.prox import make_prox
 from matlab_code_tpu_torch.ops.tensor import gram
 from matlab_code_tpu_torch.options import AlgOptions, apply_matmul_precision
@@ -50,12 +50,13 @@ def _check_ported(spec: ProblemSpec) -> None:
 
 
 def build_proxes(spec: ProblemSpec):
+    """(prox, reg) of every constrained mode (ops/prox.make_prox)."""
     prox_fns = [None] * spec.nb_modes
     reg_fns = [None] * spec.nb_modes
     for m in range(spec.nb_modes):
         if spec.is_constrained(m):
-            prox_fns[m], reg_fns[m] = make_prox(spec.constraints[m],
-                                                spec.mode_sizes[m])
+            prox_fns[m], reg_fns[m] = make_prox(
+                spec.constraints[m], spec.mode_sizes[m])
     return tuple(prox_fns), tuple(reg_fns)
 
 
@@ -193,10 +194,25 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns):
                 for m in cmodes:
                     pre = pres[m]
                     As[m], rhos[m] = pre.A, pre.rho
+                    constrained = spec.is_constrained(m)
+                    H = data.coupl_trafo[m] if data.coupl_trafo else None
                     eye = torch.eye(spec.mode_rank(m), dtype=pre.A.dtype,
                                     device=pre.A.device)
-                    B = pre.B + 0.5 * pre.rho * eye
-                    if spec.is_constrained(m):
+                    if ctype in (1, 5):
+                        # the Sylvester pair (cmtf_fun_AOADMM.m:724-728),
+                        # decomposed once for the inner loop
+                        B2 = 0.5 * pre.rho * (H.T @ H)
+                        if constrained:
+                            B2 = B2 + 0.5 * pre.rho * torch.eye(
+                                H.shape[1], dtype=pre.A.dtype,
+                                device=pre.A.device)
+                        solvers[m] = sylvester_solver(B2, pre.B)
+                        continue
+                    if ctype == 2:
+                        B = pre.B + 0.5 * pre.rho * (H @ H.T)
+                    else:  # 0, 3, 4
+                        B = pre.B + 0.5 * pre.rho * eye
+                    if constrained:
                         B = B + 0.5 * pre.rho * eye
                     solvers[m] = spd_checked(B)
                 state, nin = admm_coupled(

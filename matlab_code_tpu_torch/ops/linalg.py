@@ -1,6 +1,8 @@
 """Small dense linear algebra of the ADMM updates and of nvecs init
-(counterpart of the main-path part of matlab_code_tpu/ops/linalg.py).  All
-systems are R x R.
+(counterpart of the CP part of matlab_code_tpu/ops/linalg.py).  The
+systems are R x R, or mode-sized for the Sylvester solve of coupling types
+1 and 5.  block_diag and the Newton / polar solvers come with PARAFAC2
+(slice 4).
 
 chol_lower returns NaNs for a matrix that is not positive definite, as
 jnp.linalg.cholesky does, instead of raising like torch.linalg.cholesky:
@@ -67,3 +69,23 @@ def top_eigvecs(Y: torch.Tensor, r: int) -> torch.Tensor:
     signs = torch.sign(V[idx, torch.arange(r, device=V.device)])
     signs = torch.where(signs == 0, torch.ones_like(signs), signs)
     return V * signs[None, :]
+
+
+def sylvester_solver(B2: torch.Tensor, B: torch.Tensor):
+    """Solver of B2 X + X B = C for SYMMETRIC B2 (n x n) and B (R x R),
+    MATLAB's sylvester(B2, B, C) at cmtf_fun_AOADMM.m:728 (coupling types 1
+    and 5: B2 = rho/2 H^T H [+ rho/2 I], B = the weighted Gram), solved
+    spectrally as the JAX package's sylvester_sym does: B2 = U1 S1 U1^T,
+    B = U2 S2 U2^T, X = U1 [(U1^T C U2) / (s1_i + s2_j)] U2^T.  The two
+    eigendecompositions are taken once, here; each call of the returned
+    function does the arithmetic of one sylvester_sym."""
+    s1, U1 = torch.linalg.eigh(B2)
+    s2, U2 = torch.linalg.eigh(B)
+    denom = s1[:, None] + s2[None, :]
+    return lambda C: U1 @ ((U1.T @ C @ U2) / denom) @ U2.T
+
+
+def sylvester_sym(B2: torch.Tensor, B: torch.Tensor, C: torch.Tensor
+                  ) -> torch.Tensor:
+    """Solve B2 X + X B = C for symmetric B2 and B (sylvester_solver)."""
+    return sylvester_solver(B2, B)(C)

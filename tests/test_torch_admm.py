@@ -196,20 +196,21 @@ def test_torch_prox_matches_jax(kind, params):
 
 
 def test_torch_unported_parts_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tprox.make_prox(tprox.ConstraintSpec("l1 regularization", (0.1,)), 5)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        tprox.make_prox(tprox.ConstraintSpec("tPARAFAC2", (1.0,)), 5)
     with pytest.raises(ValueError):
         tprox.ConstraintSpec("no such constraint")
     spec = tp.ProblemSpec(
         mode_sizes=(4, 5, 4, 6),
-        datasets=(tp.DatasetSpec("CP", (0, 1), 2), tp.DatasetSpec("CP", (2, 3), 2)),
+        datasets=(tp.DatasetSpec("CP", (0, 1), 2),
+                  tp.DatasetSpec("CP", (2, 3), 2, loss="KL")),
         coupling=tp.CouplingSpec((1, 0, 1, 0), (3,)))
     X = torch.ones((4, 5), dtype=torch.float64)
     data = tp.ProblemData(objects=(X, torch.ones((4, 6), dtype=torch.float64)),
                           coupl_trafo=(torch.eye(4, dtype=torch.float64), None,
                                        torch.eye(4, dtype=torch.float64), None))
     state = tp.SolverState.empty(4, 1, 2)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="slice 5"):
         tp.fit(spec, data, state, tp.AlgOptions())
     with pytest.raises(NotImplementedError, match="slice 4"):
         tp.fit(tp.ProblemSpec(mode_sizes=(4, (5, 5), 2),

@@ -1,0 +1,164 @@
+"""Coupling types 1, 2, 3 and 5 in the port against the JAX package, on
+the CPU in float64: the Sylvester solve, the init shapes of every type, and
+the CP surface workload (matlab_code_tpu_torch/utils/surface.py, shrunk)
+run through both fits from one init state.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from matlab_code_tpu import (
+    AlgOptions, ConstraintSpec, CouplingSpec, DatasetSpec, InitOptions,
+    ProblemData, ProblemSpec)
+from matlab_code_tpu.models.init import init_coupled as jinit_coupled
+from matlab_code_tpu.models.solver import fit as jfit
+from matlab_code_tpu.ops.linalg import sylvester_sym as jsylvester
+
+import matlab_code_tpu_torch as tp
+from matlab_code_tpu_torch.convert import (
+    data_from_numpy, options_from_reference, state_from_numpy, state_to_numpy)
+from matlab_code_tpu_torch.models.init import init_coupled
+from matlab_code_tpu_torch.models.solver import fit as tfit
+from matlab_code_tpu_torch.ops.linalg import sylvester_sym
+from matlab_code_tpu_torch.utils import surface
+
+SCALE = 8   # the surface workload's mode sizes / 8
+
+
+def test_torch_sylvester_sym_matches_jax():
+    rng = np.random.default_rng(2)
+    M = rng.standard_normal((9, 9))
+    B2 = M @ M.T + np.eye(9)
+    G = rng.standard_normal((4, 4))
+    B = G @ G.T
+    C = rng.standard_normal((9, 4))
+    got = sylvester_sym(torch.tensor(B2), torch.tensor(B), torch.tensor(C))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jsylvester(
+        jnp.asarray(B2), jnp.asarray(B), jnp.asarray(C))), rtol=1e-12,
+        atol=1e-14)
+    np.testing.assert_allclose((torch.tensor(B2) @ got + got @ torch.tensor(B)
+                                ).numpy(), C, atol=1e-12)
+
+
+def _pair(ctype):
+    """A 3-way CP + CP pair coupled on modes 0/3 at type ctype, with the H
+    (and H2) matrices the type takes."""
+    n0, n3 = (20, 10) if ctype in (1, 5) else (10, 10)
+    R = (3, 2) if ctype in (4, 5) else (2, 2)
+    spec = ProblemSpec(
+        mode_sizes=(n0, 6, 7, n3, 8),
+        datasets=(DatasetSpec(model="CP", modes=(0, 1, 2), rank=R[0]),
+                  DatasetSpec(model="CP", modes=(3, 4), rank=R[1])),
+        coupling=CouplingSpec(lin_coupled_modes=(1, 0, 0, 1, 0),
+                              coupling_type=(ctype,)),
+        constraints=(ConstraintSpec("non-negativity"),) + (None,) * 4)
+    rng = np.random.default_rng(ctype)
+    H = H2 = (None,) * 5
+    if ctype in (1, 5):
+        sel = np.zeros((10, 20))
+        sel[np.arange(10), 2 * np.arange(10)] = 1.0
+        H = (sel, None, None, np.eye(10), None)
+    elif ctype == 2:
+        H = (rng.standard_normal((2, 2)), None, None,
+             rng.standard_normal((2, 2)), None)
+    elif ctype == 3:
+        H = (rng.standard_normal((10, 4)), None, None,
+             rng.standard_normal((10, 4)), None)
+    elif ctype == 4:
+        H = (np.eye(3), None, None, np.vstack([np.eye(2), np.zeros((1, 2))]),
+             None)
+    if ctype == 5:
+        H2 = (np.eye(3), None, None, np.vstack([np.eye(2), np.zeros((1, 2))]),
+              None)
+    objects = (rng.uniform(size=(n0, 6, 7)), rng.uniform(size=(n3, 8)))
+    return spec, objects, H, H2
+
+
+@pytest.mark.parametrize("ctype", [0, 1, 2, 3, 4, 5])
+def test_torch_init_shapes_match_jax(ctype):
+    """Every field of the port's init state has the JAX package's shape
+    for each coupling type; type 5 takes its Delta shape from
+    delta_shapes and raises ValueError without it, in both packages."""
+    spec, objects, H, H2 = _pair(ctype)
+    init = InitOptions(distr=("rand",) * 5, normalize=True)
+    ds = {1: (10, 3)} if ctype == 5 else None
+    jdata = ProblemData(objects=tuple(map(jnp.asarray, objects)),
+                        coupl_trafo=tuple(None if h is None else jnp.asarray(h)
+                                          for h in H),
+                        coupl_trafo2=tuple(None if h is None else jnp.asarray(h)
+                                           for h in H2))
+    want = jinit_coupled(spec, jdata, init, key=1, delta_shapes=ds)
+    tspec = tp.ProblemSpec(
+        mode_sizes=spec.mode_sizes,
+        datasets=tuple(tp.DatasetSpec(d.model, d.modes, d.rank)
+                       for d in spec.datasets),
+        coupling=tp.CouplingSpec(spec.coupling.lin_coupled_modes,
+                                 spec.coupling.coupling_type),
+        constraints=(tp.ConstraintSpec("non-negativity"),) + (None,) * 4)
+    tdata = data_from_numpy(objects, H, H2, device="cpu")
+    tp.check_data_input(tspec, tdata)
+    got = state_to_numpy(init_coupled(tspec, tdata, tp.InitOptions(
+        distr=("rand",) * 5, normalize=True), seed=1, delta_shapes=ds))
+    for field in ("fac", "constraint_fac", "constraint_dual_fac",
+                  "coupling_fac", "coupling_dual_fac"):
+        assert [None if a is None else a.shape for a in got[field]] == [
+            None if a is None else tuple(a.shape)
+            for a in getattr(want, field)], field
+    if ctype == 5:
+        with pytest.raises(ValueError, match="delta_shapes"):
+            init_coupled(tspec, tdata, tp.InitOptions(distr=("rand",) * 5),
+                         seed=1)
+        with pytest.raises(ValueError, match="delta_shapes"):
+            jinit_coupled(spec, jdata, init, key=1)
+        with pytest.raises(ValueError, match="delta_shapes"):
+            tp.cmtf_aoadmm(tspec, tdata, tp.AlgOptions(MaxOuterIters=1),
+                           init_options=tp.InitOptions(distr=("rand",) * 5))
+
+
+def _jax_side(tspec, tdata):
+    """The JAX package's spec and data of a port problem (numpy between)."""
+    arr = lambda t: None if t is None else jnp.asarray(t.numpy())
+    spec = ProblemSpec(
+        mode_sizes=tspec.mode_sizes,
+        datasets=tuple(DatasetSpec(model=d.model, modes=d.modes, rank=d.rank,
+                                   weight=d.weight) for d in tspec.datasets),
+        coupling=CouplingSpec(tspec.coupling.lin_coupled_modes,
+                              tspec.coupling.coupling_type),
+        constraints=tuple(ConstraintSpec(c.kind, c.params)
+                          for c in tspec.constraints))
+    data = ProblemData(objects=tuple(map(arr, tdata.objects)),
+                       coupl_trafo=tuple(map(arr, tdata.coupl_trafo)),
+                       coupl_trafo2=tuple(map(arr, tdata.coupl_trafo2)))
+    return spec, data
+
+
+@pytest.mark.parametrize("ctype", surface.CTYPES)
+def test_torch_surface_workload_matches_jax(ctype):
+    """utils/surface.py's problem (mode sizes / 8, float64 on the CPU):
+    the port and the JAX fit from one init state, 3 outer iterations, the
+    four objective streams and the factors at rtol 1e-8.  The path runs the
+    coupled inner loop of the type, the plain unimodal and TV walks, GL
+    smoothness, the column simplex and the l1 prox."""
+    tspec, tdata, ds = surface.build_problem(ctype, "cpu", torch.float64,
+                                             scale=SCALE)
+    assert tspec.mode_sizes == surface.mode_sizes(ctype, SCALE)
+    tp.check_data_input(tspec, tdata)
+    spec, data = _jax_side(tspec, tdata)
+    init = InitOptions(distr=("rand",) * 8, normalize=True)
+    state0 = jinit_coupled(spec, data, init, key=3, delta_shapes=ds)
+    opts = AlgOptions(MaxOuterIters=3, MaxInnerIters=5, AbsFuncTol=0.0,
+                      OuterRelTol=0.0)
+    st_ref, out_ref = jfit(spec, data, state0, opts)
+    st, out = tfit(tspec, tdata, state_from_numpy(state0, device="cpu"),
+                   options_from_reference(opts))
+    for a, b in [(out.func_val_conv, out_ref.func_val_conv),
+                 (out.func_coupl_conv, out_ref.func_coupl_conv),
+                 (out.func_constr_conv, out_ref.func_constr_conv),
+                 (out.func_PAR2_coupl, out_ref.func_PAR2_coupl)]:
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-14)
+    np.testing.assert_array_equal(out.innerIters, out_ref.innerIters)
+    got = state_to_numpy(st)
+    for m in range(spec.nb_modes):
+        np.testing.assert_allclose(got["fac"][m], np.asarray(st_ref.fac[m]),
+                                   rtol=1e-8, atol=1e-10)

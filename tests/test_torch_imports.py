@@ -22,6 +22,8 @@ PORT_MODULES = [
     "matlab_code_tpu_torch.utils.flagship",
     "matlab_code_tpu_torch.ops.sparse_cuda",
     "matlab_code_tpu_torch.utils.sparse_workload",
+    "matlab_code_tpu_torch.ops.isotonic", "matlab_code_tpu_torch.ops.tv",
+    "matlab_code_tpu_torch.ops.prox_cuda", "matlab_code_tpu_torch.utils.surface",
 ]
 
 
@@ -48,12 +50,13 @@ def test_torch_port_never_imports_jax():
 def test_torch_port_builds_nothing_at_import():
     code = ("import matlab_code_tpu_torch.ops.mttkrp_cuda as k, "
             "matlab_code_tpu_torch.ops.sparse_cuda as s, "
+            "matlab_code_tpu_torch.ops.prox_cuda as q, "
             "matlab_code_tpu_torch.ops._build as b\n"
-            "print('STATE', k._LIB is None, s._LIB is None, "
+            "print('STATE', k._LIB is None, s._LIB is None, q._LIB is None, "
             "b.BUILD_LOGS == {})\n")
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
-    assert "STATE True True True" in proc.stdout
+    assert "STATE True True True True" in proc.stdout
 
 
 def _run_smoke(cwd):

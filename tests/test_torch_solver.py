@@ -80,9 +80,33 @@ def _to_port(spec, data, state):
             state_from_numpy(state, device="cpu"))
 
 
-@pytest.mark.parametrize("name", ["cp_nonneg_coupled", "coupled_type4"])
-def test_torch_fit_reproduces_golden(name):
-    spec, data, state0 = _to_port(*_jax_problem(name))
+class _AtFit(Exception):
+    """Raised in place of the JAX fit, carrying its spec, data and state."""
+
+
+def _golden_problem(name, monkeypatch):
+    """The spec, data and init state of a golden of
+    tests/test_golden_trajectories.py, taken from its _run_config where it
+    would call the JAX fit (so the configuration is that file's own)."""
+    import test_golden_trajectories as gt
+
+    def at_fit(spec, data, state0, opts):
+        raise _AtFit(spec, data, state0)
+
+    monkeypatch.setattr(gt, "fit", at_fit)
+    with pytest.raises(_AtFit) as caught:
+        gt._run_config(name)
+    return caught.value.args
+
+
+@pytest.mark.parametrize("name", [
+    "cp_nonneg_coupled", "coupled_type4", "coupled_type1", "coupled_type2",
+    "coupled_type3", "coupled_type5", "cp_tv"])
+def test_torch_fit_reproduces_golden(name, monkeypatch):
+    if name in ("cp_nonneg_coupled", "coupled_type4"):
+        spec, data, state0 = _to_port(*_jax_problem(name))
+    else:
+        spec, data, state0 = _to_port(*_golden_problem(name, monkeypatch))
     opts = tp.AlgOptions(MaxOuterIters=40, AbsFuncTol=0.0, OuterRelTol=0.0)
     _, out = tfit(spec, data, state0, opts)
     traj = np.stack([out.func_val_conv, out.func_coupl_conv,
@@ -185,11 +209,16 @@ def test_torch_cmtf_aoadmm_from_its_own_init():
 
 @pytest.mark.parametrize("mod,noise_fms", [
     ("script06_three_datasets", 0.99),
-    ("script03_matrix_cp_partialcoupling", 0.99)])
+    ("script03_matrix_cp_partialcoupling", 0.99),
+    ("script05_cp_cp_doublesampling_simplex", 0.99),
+    ("script10_cp_tv", 0.99),
+    ("script13_cp_cp_type5", 0.999)])
 def test_torch_reference_seeded_replays(mod, noise_fms, monkeypatch):
     """The MATLAB-seeded replays of example scripts 6 (type 0, three
-    datasets) and 3 (type 4, partial coupling) with the port doing the
-    fit: the data and init come from the reference's exact twister stream
+    datasets), 3 (type 4, partial coupling), 5 (type 1, double sampling
+    rate, column-wise simplex), 10 (TV and l2-ball) and 13 (type 5) with
+    the port doing the fit: the data and init come from the reference's
+    exact twister stream
     (examples/common.run_reference_seeded), the port's cmtf_aoadmm stands
     in for the JAX package's, and the result must recover the truth and
     reproduce the pinned golden (tests/test_fixture_parity.py's tolerance)."""
@@ -267,3 +296,38 @@ def test_torch_fit_pairwise_perturbation_without_eligible_dataset():
                  (out.func_constr_conv, out_ref.func_constr_conv)]:
         np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-14)
     assert out.OuterIterations == out_ref.OuterIterations == 8
+
+
+@pytest.mark.parametrize("ridge,bsum", [((0.05, 0.0, 0.02), False),
+                                        (None, True), (None, False)])
+def test_torch_fit_matches_jax_ridge_bsum(ridge, bsum):
+    """Ridge on two modes (one of them unconstrained) and BSUM, each alone,
+    and neither: test_oracle_parity_ridge_bsum's problem through the port
+    and the JAX fit from one init state, 12 outer iterations."""
+    spec = ProblemSpec(
+        mode_sizes=(8, 9, 10),
+        datasets=(DatasetSpec(model="CP", modes=(0, 1, 2), rank=2),),
+        coupling=CouplingSpec(lin_coupled_modes=(0, 0, 0), coupling_type=()),
+        constraints=(ConstraintSpec("non-negativity"), None,
+                     ConstraintSpec("non-negativity")),
+        ridge=ridge)
+    data, _, _, _ = create_coupled_data(
+        spec, lambdas=[[1, 1]], noise=0.05, distr=["rand", "randn", "rand"],
+        rng=6)
+    data, _ = normalize_data(spec, data)
+    init = InitOptions(distr=("rand", "randn", "rand"), normalize=True,
+                       lambdas_init=((1, 1),))
+    state0 = init_coupled(spec, data, init, key=5)
+    opts = AlgOptions(MaxOuterIters=12, AbsFuncTol=0.0, OuterRelTol=0.0,
+                      bsum=bsum, bsum_weight=1e-3)
+    st_ref, out_ref = fit(spec, data, state0, opts)
+    tspec, tdata, tstate0 = _to_port(spec, data, state0)
+    assert tspec.ridge == ridge
+    st, out = tfit(tspec, tdata, tstate0, options_from_reference(opts))
+    for a, b in [(out.func_val_conv, out_ref.func_val_conv),
+                 (out.func_constr_conv, out_ref.func_constr_conv)]:
+        np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-14)
+    got = state_to_numpy(st)
+    for m in range(3):
+        np.testing.assert_allclose(got["fac"][m], np.asarray(st_ref.fac[m]),
+                                   rtol=1e-9, atol=1e-12)

@@ -6,7 +6,7 @@ NVIDIA GPU.  Usage, from the root of a checkout:
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
 started together, into the git-ignored matlab_code_tpu_torch/_build/) and
-runs eight phases, each printing its seconds; any failure raises and exits
+runs ten phases, each printing its seconds; any failure raises and exits
 non-zero:
 
   1. device and precision: the card, its power limit, the TF32 switches;
@@ -47,18 +47,23 @@ non-zero:
      4096} and R in {1, 16, 20, 40}, float32 and float64, with constant
      columns, ties, all-negative columns, lam = 0 and lam above each
      column's TV, against the plain version in float64 (float64 rtol 1e-12,
-     float32 rtol 1e-5).  The plain version reads every value on the host
+     float32 rtol 1e-5); these take each kernel's shared route (its state
+     in shared memory), and one case past each shared route's limit (A at
+     8192x3, B at 20480x2) its global route (the same kernel, its state in
+     device memory).  The plain version reads every value on the host
      and syncs on every step, so it runs on the CPU (its time, on the
-     host clock, is the kernels line's plain_ms).  Times both kernels at
-     512x16, 256x16 and 4096x20 beside their bound (a column's n
-     dependent steps at one a clock of the card's maximum SM clock, or
-     the bytes at 3.35 TB/s), and runs every other new prox kind on a
-     4096x20 card tensor against the CPU in float64;
+     host clock, is the kernels line's plain_ms).  Times both kernels'
+     two routes in turns (global, shared, shared, global; the same bits
+     from both) at 512x16, 256x16 and 4096x20 beside their bound (a
+     column's n dependent steps at one a clock of the card's maximum SM
+     clock, or the bytes at 3.35 TB/s), and runs every other new prox
+     kind on a 4096x20 card tensor against the CPU in float64;
  10. the CP surface at full size (utils/surface.py: the flagship's three
      datasets under coupling types 1, 2, 3 and 5, with unimodal, TV, GL
      smoothness, simplex and l1 constraints): for each type 20 outer
      iterations through cmtf_aoadmm in float32 on the card (ms per
-     iteration, launches of the three kernels, host syncs, peak memory),
+     iteration, launches of the three kernels and of A's and B's routes,
+     host syncs, peak memory),
      3 outer iterations under torch.profiler (device time by kernel, the
      device's busy share), then the first 3 outer iterations from one init
      state on the card and on the CPU in float64, held to rtol 1e-8.
@@ -72,7 +77,6 @@ import functools
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 import time
@@ -112,6 +116,8 @@ PROX_RS = (1, 16, 20, 40)
 # (n, R) the kernels are timed at: X0's 512 and 256 modes at R 16, and
 # the flagship's widest mode at R 20
 PROX_TIMED = ((512, 16), (256, 16), (4096, 20))
+# (n, R) past each shared route's limit: kernel A's global route, kernel B's
+PROX_LONG_A, PROX_LONG_B = (8192, 3), (20480, 2)
 SURFACE_ITERS = 20
 SURFACE_CPU_ITERS = 3
 
@@ -123,37 +129,6 @@ def phase(n, title):
 
 def done(n, t0):
     print(f"phase {n} seconds: {time.perf_counter() - t0:.3f}", flush=True)
-
-
-def power_line():
-    """`name, power.limit` of the card as nvidia-smi reports it."""
-    if shutil.which("nvidia-smi") is None:
-        return "nvidia-smi not found"
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    return proc.stdout.strip().splitlines()[0] if proc.returncode == 0 \
-        else f"nvidia-smi failed: {proc.stderr.strip()}"
-
-
-def time_ms(fn, flush, runs=25, warmup=3):
-    """Median milliseconds of fn() on the card, L2 flushed before each run
-    (the solver finds X cold: the other dataset's tensor passes through
-    the 50 MB L2 in between)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def bound(nbytes, flops):
@@ -275,7 +250,7 @@ def sparse_phases(dev, power):
          torch.tensor(val, device=dev, dtype=torch.float32), R)
         for shape, nnz, R, dup, long_row in SPARSE_RAGGED
         for idx, val, _ in [sparse_coo(shape, nnz, dup, long_row)]]
-    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    flush = l2_flush(dev)
     max_abs_err = ms = plain_ms = bound_ms = chunk_ms = 0.0
     bound_by_ms = {"bytes": 0.0, "operations": 0.0}
     for n_case, (shape, idx, val32, R) in enumerate(cases):
@@ -453,7 +428,7 @@ def check_close(got, want, rtol, label):
     return float(diff.max())
 
 
-def profile_fit(spec, data, state, opts, top=6):
+def profile_fit(spec, data, state, opts, top=8):
     """Run fit under torch.profiler and print the device time by kernel
     (top `top`) and the device's busy share of the wall clock (both under
     the profiler's own overhead)."""
@@ -490,7 +465,7 @@ def prox_phases(dev, power):
     from matlab_code_tpu_torch.models.admm import to_host
     from matlab_code_tpu_torch.models.init import init_coupled
     from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit
-    from matlab_code_tpu_torch.ops import isotonic, prox, tv
+    from matlab_code_tpu_torch.ops import isotonic, prox, prox_cuda, tv
     from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
     from matlab_code_tpu_torch.ops.prox_cuda import (
         project_isotonic_cols, prox_tv_cols)
@@ -504,63 +479,101 @@ def prox_phases(dev, power):
                (isotonic.UNIMODAL, True, "unimodal, non-negative"))
     err_a = err_b = 0.0
     checked = 0
-    for n in PROX_NS:
-        for R in PROX_RS:
-            X = prox_inputs(n, R, 7 * n + R)
-            tv_max = float(np.max(np.sum(np.abs(np.diff(X, axis=0)), axis=0))) \
-                if n > 1 else 0.0
-            for dt, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+    routes = {}      # (kernel, route) -> the (n, R) cases that took it
+    cases = [(n, R, n, R) for n in PROX_NS for R in PROX_RS]
+    cases += [(*PROX_LONG_A, 0, 0), (0, 0, *PROX_LONG_B)]
+    for n_a, R_a, n_b, R_b in cases:
+        for dt, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            if n_a:
+                X = prox_inputs(n_a, R_a, 7 * n_a + R_a)
                 Xd = torch.tensor(X, dtype=dt, device=dev)
                 Xh = Xd.double().cpu()      # the plain version's float64 input
+                route = prox_cuda.plan_isotonic(n_a, R_a, dt)[0]
+                routes.setdefault(("A", route), set()).add((n_a, R_a))
                 for kind, nn, label in kinds_a:
+                    case = f"kernel A {label} {n_a}x{R_a} {dt} ({route} route)"
                     want = isotonic.columns_reference(Xh, kind, nn)
+                    before = project_isotonic_cols.route_launches[route]
                     got = project_isotonic_cols(Xd, kind, nn)
                     again = project_isotonic_cols(Xd, kind, nn)
                     torch.cuda.synchronize()
-                    if got.dtype != dt or not torch.equal(got, again):
-                        raise RuntimeError(f"kernel A {label} {n}x{R} {dt}: "
-                                           f"dtype {got.dtype}, same bits "
-                                           f"{torch.equal(got, again)}")
-                    e = check_close(got, want, rtol, f"kernel A {label} {n}x{R} {dt}")
+                    if got.dtype != dt or not torch.equal(got, again) or \
+                            project_isotonic_cols.route_launches[route] != before + 2:
+                        raise RuntimeError(f"{case}: dtype {got.dtype}, same bits "
+                                           f"{torch.equal(got, again)}, launches "
+                                           f"{project_isotonic_cols.route_launches}")
+                    e = check_close(got, want, rtol, case)
                     if dt == torch.float32:
                         err_a = max(err_a, e)
                     if nn and float(got.min()) < 0:
-                        raise RuntimeError("kernel A: negative non-negative unimodal")
+                        raise RuntimeError(f"{case}: negative non-negative unimodal")
+            if n_b:
+                X = prox_inputs(n_b, R_b, 7 * n_b + R_b)
+                tv_max = float(np.max(np.sum(np.abs(np.diff(X, axis=0)), axis=0))) \
+                    if n_b > 1 else 0.0
+                Xd = torch.tensor(X, dtype=dt, device=dev)
+                Xh = Xd.double().cpu()
+                route = prox_cuda.plan_tv(n_b, R_b, dt)[0]
+                routes.setdefault(("B", route), set()).add((n_b, R_b))
                 for lam in (0.0, 0.05, tv_max + 1.0):
+                    case = f"kernel B {n_b}x{R_b} {dt} lam {lam} ({route} route)"
                     want = tv.columns_reference(Xh, lam)
                     lam_d = torch.tensor(lam, dtype=torch.float64, device=dev)
+                    before = prox_tv_cols.route_launches[route]
                     got = prox_tv_cols(Xd, lam_d)
                     again = prox_tv_cols(Xd, lam)
                     torch.cuda.synchronize()
-                    if got.dtype != dt or not torch.equal(got, again):
-                        raise RuntimeError(f"kernel B {n}x{R} {dt} lam {lam}: "
-                                           f"same bits {torch.equal(got, again)}")
-                    e = check_close(got, want, rtol, f"kernel B {n}x{R} {dt} lam {lam}")
+                    if got.dtype != dt or not torch.equal(got, again) or \
+                            prox_tv_cols.route_launches[route] != before + 2:
+                        raise RuntimeError(f"{case}: same bits "
+                                           f"{torch.equal(got, again)}, launches "
+                                           f"{prox_tv_cols.route_launches}")
+                    e = check_close(got, want, rtol, case)
                     if dt == torch.float32:
                         err_b = max(err_b, e)
-                checked += 1
+            checked += 1
+    for (name, route), shapes in sorted(routes.items()):
+        print(f"  kernel {name}, {route} route: {len(shapes)} (n, R) cases, n "
+              f"{sorted({n for n, _ in shapes})}")
+    if {k for k in routes} != {("A", "shared"), ("A", "global"),
+                                ("B", "shared"), ("B", "global")}:
+        raise RuntimeError(f"phase 9 did not check every route: {sorted(routes)}")
     print(f"kernels A and B held to the float64 plain version at {checked} "
           f"(n, R, dtype) cases x 4 kinds / 3 lam (float64 rtol 1e-12, float32 "
           f"rtol 1e-5 elementwise; same bits on repeat); float32 max abs diff "
           f"A {err_a:.3e}, B {err_b:.3e}")
     clock = sm_clock_hz()
-    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    flush = l2_flush(dev)
     timed = {}
     for n, R in PROX_TIMED:
         X = torch.tensor(prox_inputs(n, R, 3), dtype=torch.float32, device=dev)
         Xh = X.double().cpu()
+        lam_d = torch.tensor(1e-3, dtype=torch.float64, device=dev)
         for name in ("A", "B"):
             steps = []
             tc = time.perf_counter()
             if name == "A":
                 isotonic.columns_reference(Xh, isotonic.UNIMODAL, True, steps)
-                fn = lambda: project_isotonic_cols(X, isotonic.UNIMODAL, True)
+                route = prox_cuda.plan_isotonic(n, R, X.dtype)[0]
+                fn = functools.partial(project_isotonic_cols, X,
+                                       isotonic.UNIMODAL, True)
+                glob = functools.partial(prox_cuda._isotonic, X,
+                                         isotonic.UNIMODAL, True, prox_cuda.GLOBAL)
             else:
                 tv.columns_reference(Xh, 1e-3, steps)
-                lam_d = torch.tensor(1e-3, dtype=torch.float64, device=dev)
-                fn = lambda: prox_tv_cols(X, lam_d)
+                route = prox_cuda.plan_tv(n, R, X.dtype)[0]
+                fn = functools.partial(prox_tv_cols, X, lam_d)
+                glob = functools.partial(prox_cuda._tv, X, lam_d, prox_cuda.GLOBAL)
             t_plain = (time.perf_counter() - tc) * 1e3
-            t_k = time_ms(fn, flush, runs=25)
+            if route != "shared" or not torch.equal(fn(), glob()):
+                raise RuntimeError(f"kernel {name} {n}x{R}: route {route}, or "
+                                   "the two routes' bits differ")
+            # the two routes in turns: global, shared, shared, global
+            t_g1 = time_ms(glob, flush)
+            t_s1 = time_ms(fn, flush)
+            t_s2 = time_ms(fn, flush)
+            t_g2 = time_ms(glob, flush)
+            t_k, t_g = (t_s1 + t_s2) / 2, (t_g1 + t_g2) / 2
             t_bytes = 2 * X.numel() * 4 / HBM_BYTES_S * 1e3
             # each output row depends on the rows before it: n dependent
             # steps, one a clock; the plain walk's longest chain (a scan's
@@ -569,13 +582,16 @@ def prox_phases(dev, power):
             t_steps = chain / clock * 1e3
             t_b = max(t_bytes, t_steps)
             timed[(name, n, R)] = (t_k, t_plain, t_b,
-                                   "operations" if t_steps >= t_bytes else "bytes")
+                                   "operations" if t_steps >= t_bytes else "bytes",
+                                   t_g)
             print(f"  kernel {name} ({'unimodal, non-negative' if name == 'A' else 'TV, lam 1e-3'}"
-                  f") {n}x{R} float32: {t_k * 1e3:.1f} us | bound "
+                  f") {n}x{R} float32: shared route {t_k * 1e3:.1f} us ({t_s1 * 1e3:.1f}, "
+                  f"{t_s2 * 1e3:.1f}) | global route {t_g * 1e3:.1f} us ({t_g1 * 1e3:.1f}, "
+                  f"{t_g2 * 1e3:.1f}): {t_g / t_k:.2f}x | bound "
                   f"{t_b * 1e3:.3f} us ({chain} dependent steps at "
                   f"{clock / 1e9:.2f} GHz: {t_steps * 1e3:.3f} us; bytes "
-                  f"{t_bytes * 1e3:.3f} us) = {t_b / t_k:.2%}; the plain "
-                  f"walk's longest chain {max(steps)} steps | plain (CPU, "
+                  f"{t_bytes * 1e3:.3f} us) = {t_b / t_k:.2%} of the shared route; "
+                  f"the plain walk's longest chain {max(steps)} steps | plain (CPU, "
                   f"host clock) {t_plain:.1f} ms  [{power}]")
     del flush
     # every other new prox kind on a card tensor, against the CPU in float64
@@ -618,6 +634,8 @@ def prox_phases(dev, power):
     t0 = phase(10, f"CP surface, coupling types {surface.CTYPES}, "
                    f"{SURFACE_ITERS} outer iterations, float32")
     launches = {"A": 0, "B": 0}
+    route_launches = {"A": {"shared": 0, "global": 0},
+                      "B": {"shared": 0, "global": 0}}
     for ctype in surface.CTYPES:
         tc = time.perf_counter()
         spec, data, ds = surface.build_problem(ctype, dev, torch.float32)
@@ -631,12 +649,22 @@ def prox_phases(dev, power):
         torch.cuda.reset_peak_memory_stats()
         mttkrp3.launches = project_isotonic_cols.launches = 0
         prox_tv_cols.launches = to_host.calls = 0
+        for fn in (project_isotonic_cols, prox_tv_cols):
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
         zhat, _, _, out = cmtf_aoadmm(spec, data, opts, init=state0)
         n_mk, n_a, n_b = (mttkrp3.launches, project_isotonic_cols.launches,
                           prox_tv_cols.launches)
+        routes_a = dict(project_isotonic_cols.route_launches)
+        routes_b = dict(prox_tv_cols.route_launches)
         syncs = to_host.calls
         launches["A"] += n_a
         launches["B"] += n_b
+        for name, r in (("A", routes_a), ("B", routes_b)):
+            for k, v in r.items():
+                route_launches[name][k] += v
+        if routes_a["shared"] != n_a or routes_b["shared"] != n_b:
+            raise RuntimeError(f"surface type {ctype}: kernel A routes {routes_a}, "
+                               f"kernel B routes {routes_b}")
         streams = np.stack([out.func_val_conv, out.func_coupl_conv,
                             out.func_constr_conv, out.func_PAR2_coupl])
         if out.OuterIterations != SURFACE_ITERS or not np.all(np.isfinite(streams)):
@@ -656,7 +684,8 @@ def prox_phases(dev, power):
         print(f"  median ms per outer iteration {np.median(dts) * 1e3:.3f} (min "
               f"{dts.min() * 1e3:.3f}, max {dts.max() * 1e3:.3f}); launches per "
               f"outer iteration: mttkrp3 {n_mk / SURFACE_ITERS:.2f}, kernel A "
-              f"{n_a / SURFACE_ITERS:.2f}, kernel B {n_b / SURFACE_ITERS:.2f}; "
+              f"{n_a / SURFACE_ITERS:.2f} (routes {routes_a}), kernel B "
+              f"{n_b / SURFACE_ITERS:.2f} (routes {routes_b}); "
               f"host syncs {syncs / SURFACE_ITERS:.2f}; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB  [{power}]")
         opts3 = surface.surface_options(SURFACE_CPU_ITERS, AbsFuncTol=0.0,
@@ -699,13 +728,16 @@ def prox_phases(dev, power):
     for name, fn, main, replaces in (
             ("A", "project_isotonic_cols", (512, 16), ISOTONIC_REPLACES),
             ("B", "prox_tv_cols", (256, 16), TV_REPLACES)):
-        t_k, t_p, t_b, by = timed[(name, *main)]
+        t_k, t_p, t_b, by, t_g = timed[(name, *main)]
         entries.append({
             "name": fn, "route": "cuda", "source": PROX_SOURCE,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err_a if name == "A" else err_b, "ms": t_k,
             "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
-            "library_ms": None})
+            "library_ms": None,
+            # the kernel's own routes: their launches on the surface, and
+            # the global route's time at the same shape ("ms" is the shared's)
+            "kernel_routes": route_launches[name], "global_route_ms": t_g})
     return entries
 
 
@@ -823,6 +855,8 @@ def main():
     from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3, mttkrp3_reference
     from matlab_code_tpu_torch.options import apply_matmul_precision
     from matlab_code_tpu_torch.utils import flagship
+    global l2_flush, power_line, time_ms     # the timer every phase uses
+    from matlab_code_tpu_torch.utils.timing import l2_flush, power_line, time_ms
     assert "jax" not in sys.modules, "the port must not load jax"
 
     dev = torch.device("cuda")
@@ -862,7 +896,7 @@ def main():
     max_abs_err = 0.0
     ms = plain_ms = lib_ms = bound_ms = 0.0
     bound_by_ms = {"bytes": 0.0, "operations": 0.0}
-    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    flush = l2_flush(dev)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for shape, R in FLAGSHIP_SHAPES + RAGGED_SHAPES + (HBM_SHAPE,):
         X32 = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(

@@ -3,13 +3,13 @@
 // Two kernels, bound by matlab_code_tpu_torch/ops/prox_cuda.py (plain C
 // entries, ctypes):
 //
-//   project_isotonic_cols (kernel A): isotonic regression of each column,
-//     non-decreasing or non-increasing, and unimodal regression with or
-//     without non-negativity.  Replaces the lax loops of
+//   kernel A: isotonic regression of each column, non-decreasing or
+//     non-increasing, and unimodal regression with or without
+//     non-negativity.  Replaces the lax loops of
 //     matlab_code_tpu/ops/isotonic.py:23-147 (_prefix_isotonic,
 //     _reconstruct, isotonic_vector, unimodal_vector under vmap).
-//   prox_tv_cols (kernel B): the exact 1-D total-variation prox of each
-//     column, Condat's direct algorithm.  Replaces the lax loop of
+//   kernel B: the exact 1-D total-variation prox of each column, Condat's
+//     direct algorithm.  Replaces the lax loop of
 //     matlab_code_tpu/ops/tv.py:23-126.
 //
 // The factor is an (n, R) row-major matrix (a column has stride R), float
@@ -22,68 +22,116 @@
 // the plain versions do not have.
 //
 // What bounds them: each column is a chain of dependent steps (a slot of
-// the scan and each merge, or a state of Condat's machine), one thread a
-// column, so a call takes at least the longest column's steps at one step a
-// clock; the bytes (the matrix read once and written once) are far below
-// that.  The design is the simple one: one thread walks a column's
-// recurrence, a second thread the flipped scan of a unimodal column, the
-// scan's per-slot state in a workspace in device memory that the wrapper
-// allocates; each thread first prefetches its column into L1, so the
-// walk's loads of y do not wait on device memory one at a time.  A merge
-// reloads workspace slots the same thread has just stored, one load
-// waiting on the next, and no run has shown where those loads are served
-// from.  No atomics; the same inputs give the same bits.
+// the scan and each merge, or a state of Condat's machine), so a call takes
+// at least a column's n steps at one step a clock; the bytes (the matrix
+// read once and written once) are far below that.  So the design shortens
+// each step of the chain, and does everything that is not the chain with
+// all the threads of a block.  One block of kThreads threads takes a scan
+// side of a column: the threads stage the column as doubles, one thread
+// walks the recurrence, and the threads then write the output in parallel.
+// Kernel A keeps sumwy, sumwy2, level, err (double) and idxr (int32) for
+// slots 0..n, 36 bytes a slot, the column staged in the sumwy slots (the
+// walk reads slot i's y just before it overwrites it).  A unimodal column
+// is a 2-block thread-block cluster, the forward scan in rank 0 and the
+// flipped scan in rank 1; after the scans each block reads its partner's
+// err and reduces err_L(i) + err_R(n - i + 1) over i with all its threads
+// to the same peak (the first NaN, else the first minimum: jnp.argmin's
+// rule); each block then writes its half of the fit.  Kernel B stages y as
+// doubles and the output column in the storage type, 8 + sizeof(T) bytes a
+// row.
+//
+// Where a block keeps that state is the only difference between the two
+// routes, which the wrapper chooses from n and the dtype before the launch
+// (prox_cuda.plan_isotonic, plan_tv): the shared route (InShared) carves it
+// from dynamic shared memory (~30 clocks a load), as far as the 227 KB a
+// block may hold; the global route, for longer columns, from the block's
+// own slice of a workspace in device memory that the wrapper allocates.
+// Both instantiate the same kernel bodies, so they give the same bits.  No
+// atomics; the same inputs give the same bits.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCols = 32;   // columns a block (one warp a scan side)
+constexpr int kThreads = 256;  // threads a block (a scan side of a column)
 
 template <typename T>
 __device__ __forceinline__ double ld(const T* p) { return static_cast<double>(*p); }
 
-// Ask for rows 0..n-1 of a column (stride R) to be brought into L1 ahead of
-// the walk: n prefetches in flight at once instead of one miss a step of
-// the dependent chain.
-template <typename T>
-__device__ __forceinline__ void prefetch_column(const T* y, long R, int n) {
-  for (int i = 0; i < n; ++i)
-    asm volatile("prefetch.global.L1 [%0];" ::"l"(y + static_cast<long>(i) * R));
+// The bytes of a block's state: kernel A's scan side, kernel B's column.
+constexpr long isotonic_state_bytes(int n) { return 36L * (n + 1); }
+constexpr long tv_state_bytes(int n, int itemsize) {
+  return static_cast<long>(8 + itemsize) * n;
 }
 
-// One prefix-isotonic scan's state, slot i (0..n) of this column at
-// [i * stride]: the summed y and y^2 of slot i's level set, its level
-// (mean), the fit's total squared error, and the set's leftmost slot.
+// Block `block`'s state: dynamic shared memory on the shared route, its
+// `stride`-byte slice of the workspace on the global route.
+template <bool InShared>
+__device__ __forceinline__ unsigned char* block_state(unsigned char* smem,
+                                                      unsigned char* ws,
+                                                      long stride, long block) {
+  return InShared ? smem : ws + block * stride;
+}
+
+// Kernel A's scan state, slots 0..n: the summed y and y^2 of slot i's level
+// set, its level (mean), the fit's total squared error, and the set's
+// leftmost slot.
 struct Scan {
   double* sumwy;
   double* sumwy2;
   double* level;
   double* err;
   int* idxr;
-  long stride;
 };
 
-// Prefix isotonic regression of column y (n values, stride R), read
-// forwards or flipped and multiplied by sign (project_unimodal_vector.m
-// :43-88; matlab_code_tpu/ops/isotonic.py::_prefix_isotonic).  Slot 0 is a
-// sentinel at level -inf.  Levels that are negative are set to 0 at the
-// end where nonneg (their error is the sum of squares before the slot).
+__device__ __forceinline__ Scan carve(unsigned char* base, int n) {
+  Scan w;
+  double* d = reinterpret_cast<double*>(base);
+  w.sumwy = d;
+  w.sumwy2 = d + (n + 1);
+  w.level = d + 2 * (n + 1);
+  w.err = d + 3 * (n + 1);
+  w.idxr = reinterpret_cast<int*>(d + 4 * (n + 1));
+  return w;
+}
+
+// Slot i (1..n) of `slots` = sign * y at row i - 1, or n - i where the scan
+// runs flipped: the column in the walk's order, loaded by every thread.
 template <typename T>
-__device__ void prefix_isotonic(const T* y, long R, int n, bool flip,
-                                double sign, bool nonneg, const Scan& w) {
-  const long s = w.stride;
-  w.sumwy[0] = 0.0;
-  w.sumwy2[0] = 0.0;
-  w.level[0] = -INFINITY;
-  w.err[0] = 0.0;
-  w.idxr[0] = 0;
+__device__ __forceinline__ void stage_scan(const T* y, long R, int n, bool flip,
+                                           double sign, double* slots) {
+  for (int i = threadIdx.x + 1; i <= n; i += blockDim.x)
+    slots[i] = sign * ld(y + static_cast<long>(flip ? n - i : i - 1) * R);
+}
+
+// Prefix isotonic regression of the staged column (project_unimodal_vector.m
+// :43-88; matlab_code_tpu/ops/isotonic.py::_prefix_isotonic), by one
+// thread.  Slot 0 is a sentinel whose level is NaN: `lev <= NaN` is false,
+// so no merge reaches past slot 0 (the plain walk stops there too) and a
+// column holding -inf ends.  The levels are left unclamped: where nonneg, a
+// negative level's error is the sum of squares before the slot, and
+// fill_fit writes it as 0.
+__device__ __forceinline__ void scan_walk(int n, bool nonneg, const Scan& w) {
+  double* __restrict__ sumwy = w.sumwy;
+  double* __restrict__ sumwy2 = w.sumwy2;
+  double* __restrict__ level = w.level;
+  double* __restrict__ err = w.err;
+  int* __restrict__ idxr = w.idxr;
+  sumwy[0] = 0.0;
+  sumwy2[0] = 0.0;
+  level[0] = NAN;
+  err[0] = 0.0;
+  idxr[0] = 0;
   double cum = 0.0;        // sum of y^2 over the slots before i
-  double top = -INFINITY;  // level of slot i - 1
+  double top = NAN;        // level of slot i - 1
   double top_err = 0.0;    // err of slot i - 1
   for (int i = 1; i <= n; ++i) {
-    const double yi = sign * ld(y + static_cast<long>(flip ? n - i : i - 1) * R);
+    const double yi = sumwy[i];   // the staged y, overwritten below
     double swy = yi;
     double swy2 = __dmul_rn(yi, yi);
     double sw = 1.0;
@@ -92,142 +140,181 @@ __device__ void prefix_isotonic(const T* y, long R, int n, bool flip,
     double prev = top;
     while (lev <= prev) {
       const int mg = left - 1;
-      swy += w.sumwy[mg * s];
-      swy2 += w.sumwy2[mg * s];
-      sw += static_cast<double>(mg - w.idxr[mg * s] + 1);
+      const int mg_left = idxr[mg];
+      swy += sumwy[mg];
+      swy2 += sumwy2[mg];
+      sw += static_cast<double>(mg - mg_left + 1);
       lev = swy / sw;
-      left = w.idxr[mg * s];
-      prev = w.level[(left - 1) * s];
+      left = mg_left;
+      prev = level[left - 1];
     }
-    w.sumwy[i * s] = swy;
-    w.sumwy2[i * s] = swy2;
-    w.level[i * s] = lev;
-    w.idxr[i * s] = left;
+    sumwy[i] = swy;
+    sumwy2[i] = swy2;
+    level[i] = lev;
+    idxr[i] = left;
     const double levelerror = swy2 - __dmul_rn(swy, swy) / sw;
-    const double below = left == i ? top_err : w.err[(left - 1) * s];
+    const double below = left == i ? top_err : err[left - 1];
     top_err = (nonneg && lev < 0.0) ? cum : levelerror + below;
-    w.err[i * s] = top_err;
+    err[i] = top_err;
     cum += __dmul_rn(yi, yi);
     top = lev;
   }
-  if (nonneg)
-    for (int i = 1; i <= n; ++i)
-      if (w.level[i * s] < 0.0) w.level[i * s] = 0.0;
 }
 
-// Write the fit of the prefix of length mode_idx by walking the level-set
-// pointers (project_unimodal_vector.m:34-41), times sign, into out (stride
-// R), at slot j's row j - 1, or n - j where the scan ran flipped.
+// Write the fit of the prefix of length m (project_unimodal_vector.m
+// :34-41), times sign, into out (stride R), slot j at row j - 1, or n - j
+// where the scan ran flipped.  One thread walks the level-set pointers from
+// m, a step a set, and lists the sets' right ends (descending) in `ends`;
+// then every thread takes rows and finds its row's set by a binary search.
+// Reads level and idxr; `ends` may alias sumwy (no longer read).
 template <typename T>
-__device__ void reconstruct(T* out, long R, int n, int mode_idx, bool flip,
-                            double sign, const Scan& w) {
-  const long s = w.stride;
-  int idx = mode_idx;
-  while (idx >= 1) {
-    const int left = w.idxr[idx * s];
-    const T v = static_cast<T>(sign * w.level[idx * s]);
-    for (int j = left; j <= idx; ++j)
-      out[static_cast<long>(flip ? n - j : j - 1) * R] = v;
-    idx = left - 1;
+__device__ __forceinline__ void fill_fit(T* out, long R, int n, int m, bool flip,
+                                         double sign, bool nonneg, const Scan& w,
+                                         int* ends, int* n_sets) {
+  if (threadIdx.x == 0) {
+    int k = 0;
+    for (int idx = m; idx >= 1; idx = w.idxr[idx] - 1) ends[k++] = idx;
+    *n_sets = k;
   }
-}
-
-// kind 0 non-decreasing, 1 non-increasing (negated in and out), 2 unimodal.
-// A block holds kCols columns; unimodal blocks have a second warp for the
-// flipped scan.  ws_d: 4 * sides * (n + 1) * R doubles, ws_i: sides * (n +
-// 1) * R ints, slot i of column c at i * R + c.
-template <typename T>
-__global__ void __launch_bounds__(2 * kCols)
-project_isotonic_cols(const T* __restrict__ Y, T* __restrict__ X, int n, int R,
-                      int kind, int nonneg, double* ws_d, int* ws_i) {
-  const int side = threadIdx.x / kCols;
-  const int c = blockIdx.x * kCols + threadIdx.x % kCols;
-  const bool active = c < R;
-  const int sides = kind == 2 ? 2 : 1;
-  const long plane = static_cast<long>(n + 1) * R;
-  Scan w;
-  w.stride = R;
-  w.sumwy = ws_d + (0 * sides + side) * plane + c;
-  w.sumwy2 = ws_d + (1 * sides + side) * plane + c;
-  w.level = ws_d + (2 * sides + side) * plane + c;
-  w.err = ws_d + (3 * sides + side) * plane + c;
-  w.idxr = ws_i + side * plane + c;
-  const T* y = Y + c;
-  T* x = X + c;
-  if (active && side == 0) prefetch_column(y, R, n);
-  if (kind != 2) {
-    if (!active) return;
-    const double sign = kind == 1 ? -1.0 : 1.0;
-    prefix_isotonic(y, R, n, false, sign, false, w);
-    reconstruct(x, R, n, n, false, sign, w);
-    return;
-  }
-  if (active) prefix_isotonic(y, R, n, side == 1, 1.0, nonneg != 0, w);
   __syncthreads();
-  if (!active) return;
-  // the peak: the first minimum (or the first NaN, as jnp.argmin) of
-  // err_left(i) + err_right(n - i + 1), i = 1..n; both sides find it
-  const double* errL = ws_d + (3 * sides + 0) * plane + c;
-  const double* errR = ws_d + (3 * sides + 1) * plane + c;
-  int best = 1;
-  double be = errL[1L * R] + errR[static_cast<long>(n) * R];
-  if (!isnan(be)) {
-    for (int i = 2; i <= n; ++i) {
-      const double e = errL[static_cast<long>(i) * R] + errR[static_cast<long>(n - i + 1) * R];
-      if (isnan(e)) { best = i; break; }
-      if (e < be) { be = e; best = i; }
+  const int sets = *n_sets;
+  for (int j = threadIdx.x + 1; j <= m; j += blockDim.x) {
+    int lo = 0, hi = sets - 1;   // the last set whose right end is >= j
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (ends[mid] >= j) lo = mid; else hi = mid - 1;
     }
+    double v = w.level[ends[lo]];
+    if (nonneg && v < 0.0) v = 0.0;
+    out[static_cast<long>(flip ? n - j : j - 1) * R] = static_cast<T>(sign * v);
   }
-  if (side == 0)
-    reconstruct(x, R, n, best, false, 1.0, w);       // rows 0 .. best - 1
-  else
-    reconstruct(x, R, n, n - best, true, 1.0, w);    // rows best .. n - 1
 }
 
-// Condat's direct algorithm on each column (matlab_code_tpu/ops/tv.py
-// :23-126, the same states: 1-based k, `fresh` after a jump).  lam is read
-// from the device (eta / rho, never copied to the host); lam <= 0, a NaN
-// lam and n == 1 copy the column.
+// Kernel A, kinds 0 and 1: one block a column.
+template <typename T, bool InShared>
+__global__ void __launch_bounds__(kThreads)
+isotonic_cols(const T* __restrict__ Y, T* __restrict__ X, int n, int R,
+              double sign, unsigned char* ws, long stride) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int n_sets;
+  const Scan w = carve(block_state<InShared>(smem, ws, stride, blockIdx.x), n);
+  const long c = blockIdx.x;
+  stage_scan(Y + c, R, n, false, sign, w.sumwy);
+  __syncthreads();
+  if (threadIdx.x == 0) scan_walk(n, false, w);
+  __syncthreads();
+  fill_fit(X + c, R, n, n, false, sign, false, w,
+           reinterpret_cast<int*>(w.sumwy), &n_sets);
+}
+
+// A candidate peak: the entry's value, whether it is NaN, and its index.
+// Order: a NaN before any number, then the smaller value, then the smaller
+// index, so the least candidate of all is jnp.argmin's (the first NaN, else
+// the first minimum) whatever the order of the reduction.  The start value
+// (a number, +inf, INT_MAX) loses to every entry.
+struct Peak {
+  double v;
+  int nan;
+  int i;
+};
+
+__device__ __forceinline__ bool before(const Peak& a, const Peak& b) {
+  if (a.nan != b.nan) return a.nan > b.nan;
+  if (!a.nan && a.v != b.v) return a.v < b.v;
+  return a.i < b.i;
+}
+
+// Kernel A, kind 2: a column is a cluster of two blocks, the forward scan
+// in rank 0 (rows 0 .. best - 1 of the fit) and the flipped scan in rank 1
+// (rows best .. n - 1).  Each reads its partner's err through distributed
+// shared memory on the shared route, in the partner's workspace slice on
+// the global route; cluster.sync() orders both (its arrive releases and its
+// wait acquires at cluster scope, global memory included).
+template <typename T, bool InShared>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads)
+unimodal_cluster(const T* __restrict__ Y, T* __restrict__ X, int n, int R,
+                 int nonneg, unsigned char* ws, long stride) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Peak warp_peak[kThreads / 32];
+  __shared__ int best_s, n_sets;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int side = static_cast<int>(cluster.block_rank());
+  const long c = blockIdx.x / 2;
+  const Scan w = carve(block_state<InShared>(smem, ws, stride, blockIdx.x), n);
+  stage_scan(Y + c, R, n, side == 1, 1.0, w.sumwy);
+  __syncthreads();
+  if (threadIdx.x == 0) scan_walk(n, nonneg != 0, w);
+  // both scans' err complete, and visible to the partner block
+  cluster.sync();
+  const double* other =
+      InShared ? cluster.map_shared_rank(w.err, side ^ 1)
+               : carve(block_state<InShared>(smem, ws, stride, blockIdx.x ^ 1), n).err;
+  const double* errL = side == 0 ? w.err : other;
+  const double* errR = side == 1 ? w.err : other;
+  Peak p{INFINITY, 0, INT_MAX};
+  for (int i = threadIdx.x + 1; i <= n; i += blockDim.x) {
+    const double e = errL[i] + errR[n - i + 1];
+    const Peak q{e, isnan(e) ? 1 : 0, i};
+    if (before(q, p)) p = q;
+  }
+  // the partner's state is read no more: either block may go on to
+  // overwrite its own and exit
+  cluster.sync();
+  for (int off = 16; off >= 1; off >>= 1) {
+    const Peak q{__shfl_down_sync(0xffffffffu, p.v, off),
+                 __shfl_down_sync(0xffffffffu, p.nan, off),
+                 __shfl_down_sync(0xffffffffu, p.i, off)};
+    if (before(q, p)) p = q;
+  }
+  if ((threadIdx.x & 31) == 0) warp_peak[threadIdx.x >> 5] = p;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    Peak b = warp_peak[0];
+    for (int k = 1; k < kThreads / 32; ++k)
+      if (before(warp_peak[k], b)) b = warp_peak[k];
+    best_s = b.i;
+  }
+  __syncthreads();
+  const int best = best_s;
+  int* ends = reinterpret_cast<int*>(w.sumwy);
+  if (side == 0)
+    fill_fit(X + c, R, n, best, false, 1.0, nonneg != 0, w, ends, &n_sets);
+  else
+    fill_fit(X + c, R, n, n - best, true, 1.0, nonneg != 0, w, ends, &n_sets);
+}
+
+// Condat's direct algorithm on a staged column ys (matlab_code_tpu/ops/tv.py
+// :23-126, the same states: 1-based k, `fresh` after a jump), by one
+// thread, the output into xs.
 template <typename T>
-__global__ void __launch_bounds__(kCols)
-prox_tv_cols(const T* __restrict__ Y, T* __restrict__ X, int n, int R,
-             const double* __restrict__ lam_p) {
-  const int c = blockIdx.x * kCols + threadIdx.x;
-  if (c >= R) return;
-  const double lam = *lam_p;
-  const T* y = Y + c;
-  T* x = X + c;
-  auto yk = [&](int k) { return ld(y + static_cast<long>(k - 1) * R); };
+__device__ __forceinline__ void condat_walk(const double* __restrict__ ys,
+                                            T* __restrict__ xs, int n,
+                                            double lam) {
   auto seg = [&](int lo, int hi, double v) {
     const T t = static_cast<T>(v);
-    for (int i = lo; i <= hi; ++i) x[static_cast<long>(i - 1) * R] = t;
+    for (int i = lo; i <= hi; ++i) xs[i - 1] = t;
   };
-  if (n == 1 || !(lam > 0.0)) {
-    for (int i = 0; i < n; ++i) x[static_cast<long>(i) * R] = y[static_cast<long>(i) * R];
-    return;
-  }
-  prefetch_column(y, R, n);
   int k = 1, k0 = 1, km = 1, kp = 1;
-  double vmin = yk(1) - lam, vmax = yk(1) + lam, umin = lam, umax = -lam;
+  double vmin = ys[0] - lam, vmax = ys[0] + lam, umin = lam, umax = -lam;
   bool fresh = true;
   for (;;) {
     if (k == n) {
       if (fresh) {
-        x[static_cast<long>(n - 1) * R] = static_cast<T>(vmin + umin);
+        xs[n - 1] = static_cast<T>(vmin + umin);
         return;
       }
       if (umin < 0.0) {
         seg(k0, km, vmin);
         k = k0 = km = km + 1;
-        vmin = yk(k);
+        vmin = ys[k - 1];
         umin = lam;
-        umax = yk(k) + lam - vmax;
+        umax = ys[k - 1] + lam - vmax;
       } else if (umax > 0.0) {
         seg(k0, kp, vmax);
         k = k0 = kp = kp + 1;
-        vmax = yk(k);
+        vmax = ys[k - 1];
         umax = -lam;
-        umin = yk(k) - lam - vmin;
+        umin = ys[k - 1] - lam - vmin;
       } else {
         seg(k0, k, vmin + umin / static_cast<double>(k - k0 + 1));
         return;
@@ -235,27 +322,27 @@ prox_tv_cols(const T* __restrict__ Y, T* __restrict__ X, int n, int R,
       fresh = true;
       continue;
     }
-    const double ynext = yk(k + 1);
+    const double ynext = ys[k];
     if (ynext + umin < vmin - lam) {           // negative jump
       seg(k0, km, vmin);
       k = k0 = km = kp = km + 1;
-      vmin = yk(k);
-      vmax = yk(k) + 2.0 * lam;
+      vmin = ys[k - 1];
+      vmax = ys[k - 1] + 2.0 * lam;
       umin = lam;
       umax = -lam;
       fresh = true;
     } else if (ynext + umax > vmax + lam) {    // positive jump
       seg(k0, kp, vmax);
       k = k0 = km = kp = kp + 1;
-      vmin = yk(k) - 2.0 * lam;
-      vmax = yk(k);
+      vmin = ys[k - 1] - 2.0 * lam;
+      vmax = ys[k - 1];
       umin = lam;
       umax = -lam;
       fresh = true;
     } else {                                   // extend the segment
       k += 1;
-      umin = umin + yk(k) - vmin;
-      umax = umax + yk(k) - vmax;
+      umin = umin + ynext - vmin;
+      umax = umax + ynext - vmax;
       const double denom = static_cast<double>(k - k0 + 1);
       if (umin >= lam) {
         vmin = vmin + (umin - lam) / denom;
@@ -272,42 +359,123 @@ prox_tv_cols(const T* __restrict__ Y, T* __restrict__ X, int n, int R,
   }
 }
 
-int blocks_for(int R) { return (R + kCols - 1) / kCols; }
+// Kernel B: one block a column; lam read from the device (eta / rho, never
+// copied to the host); lam <= 0, a NaN lam and n == 1 copy the column.
+template <typename T, bool InShared>
+__global__ void __launch_bounds__(kThreads)
+tv_cols(const T* __restrict__ Y, T* __restrict__ X, int n, int R,
+        const double* __restrict__ lam_p, unsigned char* ws, long stride) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* ys = reinterpret_cast<double*>(
+      block_state<InShared>(smem, ws, stride, blockIdx.x));
+  T* xs = reinterpret_cast<T*>(ys + n);
+  const long c = blockIdx.x;
+  const double lam = *lam_p;
+  const T* y = Y + c;
+  T* x = X + c;
+  if (n == 1 || !(lam > 0.0)) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      x[static_cast<long>(i) * R] = y[static_cast<long>(i) * R];
+    return;
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    ys[i] = ld(y + static_cast<long>(i) * R);
+  __syncthreads();
+  if (threadIdx.x == 0) condat_walk(ys, xs, n, lam);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    x[static_cast<long>(i) * R] = xs[i];
+}
 
-}  // namespace
+// Let `kernel` take `bytes` of dynamic shared memory (above the default 48 KB
+// only after this call).  A refusal is returned, and cleared from the
+// runtime's last error so that no later launch reports it.
+template <typename K>
+cudaError_t allow_smem(K* kernel, long bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e != cudaSuccess) cudaGetLastError();
+  return e;
+}
 
-// C entry for ctypes, kernel A.  is_double selects float64 (else float32);
-// kind 0/1/2 as above; ws_d and ws_i as above (sides = 2 for kind 2).
-// Returns the launch's CUDA error.
-extern "C" int project_isotonic_cols_run(int is_double, int kind, int nonneg,
-                                         const void* Y, void* X, int n, int R,
-                                         void* ws_d, void* ws_i, void* stream) {
-  if (n < 1 || R < 1 || kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(blocks_for(R)), block(kind == 2 ? 2 * kCols : kCols);
-  if (is_double)
-    project_isotonic_cols<double><<<grid, block, 0, st>>>(
-        static_cast<const double*>(Y), static_cast<double*>(X), n, R, kind, nonneg,
-        static_cast<double*>(ws_d), static_cast<int*>(ws_i));
-  else
-    project_isotonic_cols<float><<<grid, block, 0, st>>>(
-        static_cast<const float*>(Y), static_cast<float*>(X), n, R, kind, nonneg,
-        static_cast<double*>(ws_d), static_cast<int*>(ws_i));
+template <typename T, bool InShared>
+int isotonic_launch(int kind, int nonneg, const void* Y, void* X, int n, int R,
+                    long smem, unsigned char* ws, long stride, cudaStream_t st) {
+  const T* y = static_cast<const T*>(Y);
+  T* x = static_cast<T*>(X);
+  cudaError_t e;
+  if (kind == 2) {
+    auto* k = unimodal_cluster<T, InShared>;
+    if ((e = allow_smem(k, smem)) != cudaSuccess) return (int)e;
+    k<<<2 * R, kThreads, smem, st>>>(y, x, n, R, nonneg, ws, stride);
+  } else {
+    auto* k = isotonic_cols<T, InShared>;
+    if ((e = allow_smem(k, smem)) != cudaSuccess) return (int)e;
+    k<<<R, kThreads, smem, st>>>(y, x, n, R, kind == 1 ? -1.0 : 1.0, ws, stride);
+  }
   return (int)cudaGetLastError();
 }
 
-// C entry for ctypes, kernel B.  lam: a float64 scalar on the device.
-extern "C" int prox_tv_cols_run(int is_double, const void* Y, void* X, int n,
-                                int R, const void* lam, void* stream) {
-  if (n < 1 || R < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_double)
-    prox_tv_cols<double><<<blocks_for(R), kCols, 0, st>>>(
-        static_cast<const double*>(Y), static_cast<double*>(X), n, R,
-        static_cast<const double*>(lam));
-  else
-    prox_tv_cols<float><<<blocks_for(R), kCols, 0, st>>>(
-        static_cast<const float*>(Y), static_cast<float*>(X), n, R,
-        static_cast<const double*>(lam));
+template <typename T, bool InShared>
+int tv_launch(const void* Y, void* X, int n, int R, const double* lam,
+              long smem, unsigned char* ws, long stride, cudaStream_t st) {
+  cudaError_t e;
+  auto* k = tv_cols<T, InShared>;
+  if ((e = allow_smem(k, smem)) != cudaSuccess) return (int)e;
+  k<<<R, kThreads, smem, st>>>(static_cast<const T*>(Y), static_cast<T*>(X),
+                               n, R, lam, ws, stride);
   return (int)cudaGetLastError();
+}
+
+// Whether a launch's state fits where it is asked to go: `smem` bytes of
+// shared memory a block (ws null), or a workspace of `stride` bytes a block
+// (a multiple of 16, so the doubles of every slice stay aligned).
+bool state_fits(long bytes, long smem, const void* ws, long stride) {
+  return ws == nullptr ? smem >= bytes : (stride >= bytes && stride % 16 == 0);
+}
+
+}  // namespace
+
+// C entries for ctypes.  is_double selects float64 (else float32).  ws null
+// takes the shared route with `smem` bytes of dynamic shared memory a block
+// (prox_cuda.plan_isotonic, plan_tv); else the global route, block b's state
+// at ws + b * stride (R blocks, 2R for a unimodal kernel A).  Each returns
+// the launch's CUDA error.
+
+// Kernel A: kind 0 non-decreasing, 1 non-increasing, 2 unimodal.  A block's
+// state is 36 * (n + 1) bytes.
+extern "C" int isotonic_run(int is_double, int kind, int nonneg, const void* Y,
+                            void* X, int n, int R, long smem, void* ws,
+                            long stride, void* stream) {
+  if (n < 1 || R < 1 || kind < 0 || kind > 2 ||
+      !state_fits(isotonic_state_bytes(n), smem, ws, stride))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned char* w = static_cast<unsigned char*>(ws);
+  if (w == nullptr)
+    return is_double
+        ? isotonic_launch<double, true>(kind, nonneg, Y, X, n, R, smem, w, 0, st)
+        : isotonic_launch<float, true>(kind, nonneg, Y, X, n, R, smem, w, 0, st);
+  return is_double
+      ? isotonic_launch<double, false>(kind, nonneg, Y, X, n, R, 0, w, stride, st)
+      : isotonic_launch<float, false>(kind, nonneg, Y, X, n, R, 0, w, stride, st);
+}
+
+// Kernel B.  lam: a float64 scalar on the device.  A block's state is
+// (8 + itemsize) * n bytes.
+extern "C" int tv_run(int is_double, const void* Y, void* X, int n, int R,
+                      const void* lam, long smem, void* ws, long stride,
+                      void* stream) {
+  if (n < 1 || R < 1 ||
+      !state_fits(tv_state_bytes(n, is_double ? 8 : 4), smem, ws, stride))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const double* l = static_cast<const double*>(lam);
+  unsigned char* w = static_cast<unsigned char*>(ws);
+  if (w == nullptr)
+    return is_double ? tv_launch<double, true>(Y, X, n, R, l, smem, w, 0, st)
+                     : tv_launch<float, true>(Y, X, n, R, l, smem, w, 0, st);
+  return is_double ? tv_launch<double, false>(Y, X, n, R, l, 0, w, stride, st)
+                   : tv_launch<float, false>(Y, X, n, R, l, 0, w, stride, st);
 }

@@ -5,7 +5,9 @@ Repository's project_monotone, dispatched at constraints_to_prox.m:25-31).
 
 The merge loop is sequential and data-dependent.  A CUDA tensor goes to the
 hand-written kernel `project_isotonic_cols` (csrc/prox_seq.cu, bound in
-ops/prox_cuda.py): one thread a column walks the same recurrence.  A CPU
+ops/prox_cuda.py): a block a scan side of a column (a unimodal column is
+a cluster of two), one thread walking the same recurrence with its state
+in shared memory (in device memory for columns too long for it).  A CPU
 tensor takes the plain version below: a Python walk of each column in the
 JAX module's order of merges and arithmetic, in float64 whatever the
 tensor's dtype (the kernel also computes in float64), so float64 results
@@ -42,7 +44,9 @@ def _prefix_isotonic(y: list, nonneg: bool, steps: list | None = None):
     for i in range(1, n + 1):
         level[i] = y[i - 1]
         idxr[i] = i
-        while level[i] <= level[idxr[i] - 1]:
+        # never past slot 0 (the kernel's sentinel level is NaN): a column
+        # holding -inf would merge into it and walk off the list
+        while idxr[i] > 1 and level[i] <= level[idxr[i] - 1]:
             merger = idxr[i] - 1
             sumwy[i] += sumwy[merger]
             sumwy2[i] += sumwy2[merger]

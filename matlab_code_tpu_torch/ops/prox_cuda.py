@@ -8,11 +8,23 @@
       replaces the lax loop of matlab_code_tpu/ops/tv.py
 
 Each takes a contiguous (n, R) float32 or float64 CUDA matrix and returns a
-new one; one thread walks a column, as the plain versions
-(ops/isotonic.columns_reference, ops/tv.columns_reference) do on the host.
-Kernel A's per-slot scan state lives in a workspace allocated here.  Each
-launch is counted in the wrapper's `launches`.  Nothing is built at import:
-the first call builds the library (ops/_build.py).
+new one, walking each column's recurrence in float64 in the order of the
+plain versions (ops/isotonic.columns_reference, ops/tv.columns_reference):
+a block of THREADS threads a column (kernel A: a scan side; a unimodal
+column is a cluster of two blocks), one thread walking the recurrence and
+all threads staging the column, searching the unimodal peak and writing
+the output.  Where a block keeps its column and the walk's state is the
+only difference between the two routes, chosen here from n and the dtype
+before the launch (plan_isotonic, plan_tv):
+
+  "shared"  dynamic shared memory, as far as a block's 227 KB;
+  "global"  longer columns: the block's slice of a workspace in device
+            memory allocated here.
+
+A build or launch error raises on either route; nothing falls back to the
+plain version.  Each launch is counted in the wrapper's `launches` and in
+its route's entry of `route_launches`.  Nothing is built at import: the
+first call builds the library (ops/_build.py).
 """
 from __future__ import annotations
 
@@ -22,6 +34,12 @@ import torch
 
 _LIB = None
 KERNEL_DTYPES = (torch.float32, torch.float64)
+SHARED, GLOBAL = "shared", "global"
+THREADS = 256            # threads a block (kThreads)
+# dynamic shared memory a block of the shared route may take: the 227 KB
+# (232,448 bytes) a Hopper block may opt into, less 1 KB for the kernels'
+# static shared memory
+SMEM_LIMIT = 232448 - 1024
 
 
 def _lib():
@@ -29,13 +47,53 @@ def _lib():
     if _LIB is None:
         from matlab_code_tpu_torch.ops._build import load_library
         lib = load_library("prox_seq", ["prox_seq.cu"])
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.project_isotonic_cols_run.argtypes = [i, i, i, p, p, i, i, p, p, p]
-        lib.prox_tv_cols_run.argtypes = [i, p, p, i, i, p, p]
-        lib.project_isotonic_cols_run.restype = i
-        lib.prox_tv_cols_run.restype = i
+        p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        lib.isotonic_run.argtypes = [i, i, i, p, p, i, i, l, p, l, p]
+        lib.tv_run.argtypes = [i, p, p, i, i, p, l, p, l, p]
+        lib.isotonic_run.restype = lib.tv_run.restype = i
         _LIB = lib
     return _LIB
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the sequential-prox kernels take float32 or float64, "
+                         f"got {dtype}")
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _route(state_bytes: int) -> str:
+    return SHARED if state_bytes <= SMEM_LIMIT else GLOBAL
+
+
+def plan_isotonic(n: int, R: int, dtype: torch.dtype) -> tuple[str, int]:
+    """(route, bytes of state a block) of kernel A on an (n, R) matrix: a
+    scan side's state, 36 bytes a slot for slots 0..n (the column is staged
+    in its sumwy slots), whatever the dtype; the shared route while that
+    fits a block's shared memory, the global route after."""
+    _itemsize(dtype)
+    if n < 1 or R < 1:
+        raise ValueError(f"kernel A takes n, R >= 1, got ({n}, {R})")
+    state = 36 * (n + 1)
+    return _route(state), state
+
+
+def plan_tv(n: int, R: int, dtype: torch.dtype) -> tuple[str, int]:
+    """(route, bytes of state a block) of kernel B on an (n, R) matrix: the
+    column as doubles and the output in the storage type, (8 + itemsize)
+    bytes a row; the shared route while that fits, the global route
+    after."""
+    item = _itemsize(dtype)
+    if n < 1 or R < 1:
+        raise ValueError(f"kernel B takes n, R >= 1, got ({n}, {R})")
+    state = (8 + item) * n
+    return _route(state), state
+
+
+def workspace_stride(state_bytes: int) -> int:
+    """Bytes of a block's slice of the global route's workspace: its state
+    rounded up to 128 bytes, a cache line, so no two blocks share one."""
+    return -(-state_bytes // 128) * 128
 
 
 def _check(X: torch.Tensor, name: str) -> None:
@@ -51,49 +109,76 @@ def _stream(X: torch.Tensor) -> int:
     return torch.cuda.current_stream(X.device).cuda_stream
 
 
+def _run(name: str, kernel, X: torch.Tensor, route: str, state: int,
+         blocks: int, args: tuple) -> None:
+    """Launch `kernel` (a C entry) on `route`: with `state` bytes of shared
+    memory a block, or a workspace of `blocks` slices allocated here.
+    args: the entry's arguments before (smem, ws, stride, stream)."""
+    if route == SHARED:
+        err = kernel(*args, state, None, 0, _stream(X))
+    else:
+        stride = workspace_stride(state)
+        ws = torch.empty(blocks * stride, dtype=torch.uint8, device=X.device)
+        err = kernel(*args, 0, ws.data_ptr(), stride, _stream(X))
+    if err != 0:
+        raise RuntimeError(f"{name} ({route} route) launch failed: cudaError "
+                           f"{err} ({'x'.join(map(str, X.shape))} {X.dtype})")
+
+
 def project_isotonic_cols(X: torch.Tensor, kind: int, nonneg: bool = False
                           ) -> torch.Tensor:
     """Kernel A on every column of X: kind 0 non-decreasing, 1
     non-increasing, 2 unimodal (non-negative where nonneg)."""
     _check(X, "project_isotonic_cols")
+    return _isotonic(X, kind, nonneg)
+
+
+def _isotonic(X: torch.Tensor, kind: int, nonneg: bool,
+              route: str | None = None) -> torch.Tensor:
+    """Kernel A on plan_isotonic's route, or on `route` (GLOBAL at any n:
+    the card tests and chip_smoke.py's timing of the two routes)."""
     n, R = X.shape
     out = torch.empty_like(X)
     if X.numel() == 0:
         return out
-    sides = 2 if kind == 2 else 1
-    ws_d = torch.empty(4 * sides * (n + 1) * R, dtype=torch.float64,
-                       device=X.device)
-    ws_i = torch.empty(sides * (n + 1) * R, dtype=torch.int32, device=X.device)
-    err = _lib().project_isotonic_cols_run(
-        int(X.dtype == torch.float64), kind, int(bool(nonneg)), X.data_ptr(),
-        out.data_ptr(), n, R, ws_d.data_ptr(), ws_i.data_ptr(), _stream(X))
-    if err != 0:
-        raise RuntimeError(f"project_isotonic_cols launch failed: cudaError "
-                           f"{err} ({n}x{R} {X.dtype}, kind {kind})")
+    planned, state = plan_isotonic(n, R, X.dtype)
+    route = route or planned
+    _run("project_isotonic_cols", _lib().isotonic_run, X, route, state,
+         2 * R if kind == 2 else R,
+         (int(X.dtype == torch.float64), kind, int(bool(nonneg)), X.data_ptr(),
+          out.data_ptr(), n, R))
     project_isotonic_cols.launches += 1
+    project_isotonic_cols.route_launches[route] += 1
     return out
 
 
 project_isotonic_cols.launches = 0
+project_isotonic_cols.route_launches = {SHARED: 0, GLOBAL: 0}
 
 
 def prox_tv_cols(X: torch.Tensor, lam) -> torch.Tensor:
     """Kernel B on every column of X with strength lam (a number or a 0-d
     tensor; a CUDA tensor is read by the kernel, never by the host)."""
     _check(X, "prox_tv_cols")
+    return _tv(X, lam)
+
+
+def _tv(X: torch.Tensor, lam, route: str | None = None) -> torch.Tensor:
+    """Kernel B on plan_tv's route, or on `route` (GLOBAL at any n)."""
     n, R = X.shape
     out = torch.empty_like(X)
     if X.numel() == 0:
         return out
+    planned, state = plan_tv(n, R, X.dtype)
+    route = route or planned
     lam_t = torch.as_tensor(lam, dtype=torch.float64).to(X.device).reshape(())
-    err = _lib().prox_tv_cols_run(
-        int(X.dtype == torch.float64), X.data_ptr(), out.data_ptr(), n, R,
-        lam_t.data_ptr(), _stream(X))
-    if err != 0:
-        raise RuntimeError(f"prox_tv_cols launch failed: cudaError {err} "
-                           f"({n}x{R} {X.dtype})")
+    _run("prox_tv_cols", _lib().tv_run, X, route, state, R,
+         (int(X.dtype == torch.float64), X.data_ptr(), out.data_ptr(), n, R,
+          lam_t.data_ptr()))
     prox_tv_cols.launches += 1
+    prox_tv_cols.route_launches[route] += 1
     return out
 
 
 prox_tv_cols.launches = 0
+prox_tv_cols.route_launches = {SHARED: 0, GLOBAL: 0}

@@ -5,10 +5,12 @@ prox_TV.m around TV_Condat_v2.m).  For each column y it solves
     min_x 1/2 ||x - y||^2 + lam * sum_i |x[i+1] - x[i]|
 
 A CUDA tensor goes to the hand-written kernel `prox_tv_cols`
-(csrc/prox_seq.cu, bound in ops/prox_cuda.py): one thread a column runs the
-state machine below.  A CPU tensor takes the plain version: a Python walk
-of each column in the JAX module's order of states and arithmetic, in
-float64 whatever the tensor's dtype (the kernel also computes in float64).
+(csrc/prox_seq.cu, bound in ops/prox_cuda.py): a block a column, one
+thread running the state machine below on the column staged in shared
+memory (in device memory for columns too long for it).  A CPU
+tensor takes the plain version: a Python walk of each column in the JAX
+module's order of states and arithmetic, in float64 whatever the tensor's
+dtype (the kernel also computes in float64).
 lam may be a number or a 0-d tensor (eta / rho); lam <= 0 and columns of
 length 1 return y.
 """

@@ -22,8 +22,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import shutil
-import subprocess
 import sys
 
 SHAPES = (((128, 512, 256), 16), ((128, 1024, 64), 20))
@@ -43,7 +41,9 @@ def main() -> None:
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    import numpy as np
+    # the timer beside this file: --root may be a checkout that has none
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from timing import l2_flush, power_line, time_ms
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("time_mttkrp3.py needs a CUDA card")
@@ -53,7 +53,7 @@ def main() -> None:
     if os.path.dirname(pkg) != root:
         raise SystemExit(f"matlab_code_tpu_torch came from {pkg}, not {root}")
     dev = torch.device("cuda")
-    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    flush = l2_flush(dev)
     times = {}
     for (I, J, K0), R in SHAPES:
         for case, off, dk, dtype in CASES:
@@ -64,30 +64,12 @@ def main() -> None:
             X = buf.to(getattr(torch, dtype))[off:].view(shape)
             facs = [torch.randn((m, R), generator=gen, device=dev) for m in shape]
             for mode in range(3):
-                for _ in range(args.warmup):
-                    flush.zero_()
-                    mttkrp3(X, facs, mode)
-                ts = []
-                for _ in range(args.runs):
-                    flush.zero_()
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    mttkrp3(X, facs, mode)
-                    end.record()
-                    torch.cuda.synchronize()
-                    ts.append(start.elapsed_time(end))
                 key = f"{(I, J, K0)} R={R} mode {mode}" + (f" {case}" if case else "")
-                times[key] = float(np.median(ts))
-    power = None
-    if shutil.which("nvidia-smi"):
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True, timeout=60)
-        power = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else None
+                times[key] = time_ms(lambda: mttkrp3(X, facs, mode), flush,
+                                     args.runs, args.warmup)
     print(json.dumps({"label": args.label, "root": root,
                       "device": torch.cuda.get_device_name(0),
-                      "power": power, "ms": times}))
+                      "power": power_line(), "ms": times}))
 
 
 if __name__ == "__main__":

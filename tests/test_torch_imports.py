@@ -24,6 +24,8 @@ PORT_MODULES = [
     "matlab_code_tpu_torch.utils.sparse_workload",
     "matlab_code_tpu_torch.ops.isotonic", "matlab_code_tpu_torch.ops.tv",
     "matlab_code_tpu_torch.ops.prox_cuda", "matlab_code_tpu_torch.utils.surface",
+    "matlab_code_tpu_torch.utils.time_prox_seq",
+    "matlab_code_tpu_torch.utils.time_mttkrp3", "matlab_code_tpu_torch.utils.timing",
 ]
 
 

@@ -1,6 +1,7 @@
 """The sequential-prox kernels (csrc/prox_seq.cu: kernel A, isotonic and
-unimodal; kernel B, TV) on a CUDA card, and coupled fits of types 1 and 5
-on the card against the CPU.
+unimodal; kernel B, TV) on a CUDA card, on both routes (shared memory up
+to prox_cuda.plan_isotonic's / plan_tv's limit, device memory past it),
+and coupled fits of types 1 and 5 on the card against the CPU.
 
 Every test here needs the card and skips without one.  This file imports
 no jax, so it also runs on a machine that has only torch:
@@ -93,6 +94,78 @@ def test_torch_tv_kernel_matches_plain(cuda_device, n, R):
             assert prox_cuda.prox_tv_cols.launches == before + 2
             assert got.dtype == dt and torch.equal(got, got_t)
             _assert_close(got, want, rtol)
+
+
+def test_torch_long_columns_take_the_global_route(cuda_device):
+    """Columns past the shared route's limit (kernel A at n = 8192, kernel
+    B at n = 20480) take the global route, held to the plain version."""
+    A, B = prox_cuda.project_isotonic_cols, prox_cuda.prox_tv_cols
+    for dt, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        Xd = torch.tensor(_inputs(8192, 3), dtype=dt, device=cuda_device)
+        assert prox_cuda.plan_isotonic(8192, 3, dt)[0] == "global"
+        for kind, nn in KINDS_A:
+            before = dict(A.route_launches)
+            got = A(Xd, kind, nn)
+            torch.cuda.synchronize()
+            assert A.route_launches == {**before, "global": before["global"] + 1}
+            _assert_close(got, isotonic.columns_reference(Xd.double().cpu(),
+                                                          kind, nn), rtol)
+        Xd = torch.tensor(_inputs(20480, 2), dtype=dt, device=cuda_device)
+        assert prox_cuda.plan_tv(20480, 2, dt)[0] == "global"
+        before = dict(B.route_launches)
+        got = B(Xd, 0.05)
+        torch.cuda.synchronize()
+        assert B.route_launches == {**before, "global": before["global"] + 1}
+        _assert_close(got, tv.columns_reference(Xd.double().cpu(), 0.05), rtol)
+
+
+@pytest.mark.parametrize("n,R", [(29, 5), (512, 16), (4096, 3)])
+def test_torch_both_routes_give_the_same_bits(cuda_device, n, R):
+    """The shared route (planned) and the global route (named through the
+    private launchers) run the same kernel bodies, their state in shared
+    or in device memory: the same bits, every kind.  The shared route
+    named past its limit is refused by the card, and raises."""
+    A, B = prox_cuda.project_isotonic_cols, prox_cuda.prox_tv_cols
+    for dt in (torch.float64, torch.float32):
+        Xd = torch.tensor(_inputs(n, R, seed=8), dtype=dt, device=cuda_device)
+        for kind, nn in KINDS_A:
+            shared = A.route_launches["shared"]
+            got = A(Xd, kind, nn)
+            assert A.route_launches["shared"] == shared + 1
+            assert torch.equal(got, prox_cuda._isotonic(Xd, kind, nn, "global"))
+        for lam in (0.0, 0.02, 0.5):
+            shared = B.route_launches["shared"]
+            got = B(Xd, lam)
+            assert B.route_launches["shared"] == shared + 1
+            assert torch.equal(got, prox_cuda._tv(Xd, lam, "global"))
+    with pytest.raises(RuntimeError, match="shared route"):
+        prox_cuda._isotonic(torch.zeros(8192, 1, device=cuda_device), 0, False,
+                            "shared")
+    # the refusal is not left behind for the next launch to report
+    assert torch.equal(A(Xd, 0), prox_cuda._isotonic(Xd, 0, False, "global"))
+
+
+def test_torch_kernels_match_plain_on_nonfinite_columns(cuda_device):
+    """NaN and +-1e200 (whose square is inf) in a column: both routes
+    follow the plain walk (the unimodal peak at the first NaN of the
+    summed errors, or among infinite errors).  Kernel A on columns holding
+    -inf or +inf, which would merge past slot 0 without its NaN sentinel,
+    ends and follows the plain walk."""
+    X = _inputs(40, 5, seed=4)
+    X[10, 0], X[3, 1], X[30, 2], X[0, 4] = np.nan, -1e200, 1e200, np.nan
+    Xd = torch.tensor(X, device=cuda_device)
+    Y = _inputs(40, 4, seed=5)
+    Y[0, 0], Y[7, 1], Y[8, 1], Y[39, 2] = -np.inf, -np.inf, -np.inf, -np.inf
+    Y[5, 3], Y[0, 2] = np.inf, np.inf
+    Yd = torch.tensor(Y, device=cuda_device)
+    for route in ("shared", "global"):
+        for M in (Xd, Yd):
+            for kind, nn in KINDS_A:
+                got = prox_cuda._isotonic(M, kind, nn, route)
+                _assert_close(got, isotonic.columns_reference(M.cpu(), kind, nn),
+                              1e-12)
+        got = prox_cuda._tv(Xd, 0.1, route)
+        _assert_close(got, tv.columns_reference(Xd.cpu(), 0.1), 1e-12)
 
 
 def test_torch_sequential_proxes_dispatch_to_the_kernels(cuda_device):

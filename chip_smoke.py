@@ -6,8 +6,8 @@ NVIDIA GPU.  Usage, from the root of a checkout:
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
 started together, into the git-ignored matlab_code_tpu_torch/_build/) and
-runs ten phases, each printing its seconds; any failure raises and exits
-non-zero:
+runs thirteen phases, each printing its seconds; any failure raises and
+exits non-zero:
 
   1. device and precision: the card, its power limit, the TF32 switches;
   2. dense kernel vs plain: the MTTKRP kernels (the rows-stream kernel of
@@ -68,7 +68,31 @@ non-zero:
      device's busy share), then the first 3 outer iterations from one init
      state on the card and on the CPU in float64, held to rtol 1e-8.
 
-It then prints one JSON line describing the four kernels, the card's name
+ 11. the slice-wise kernels vs plain: kernels A and B on (K, n, R) stacks
+     of PARAFAC2 slices (one launch for every slice; B with one lam a
+     slice, 0 among them) at the PAR2 workload's (512, 256, 32), at K in
+     {1, 2, 3} and in the ragged buckets of prox_slicewise_ragged, and
+     kernel C (csrc/t_smooth.cu, the tPARAFAC2 prox; both routes: a tile
+     staged in shared memory, or r' streamed through the output) at (512,
+     256, 32) and K in {1, 2, 3}, against their plain versions (float64:
+     the same bits; float32 rtol 1e-5, kernel C the same bits), each timed
+     after the L2 flush beside its bound (kernel C's routes in turns);
+ 12. the PAR2 K=512 workload (bench.py:235-263, utils/par2_workload.py:
+     512 slices of 256 x 256, rank 32, non-negative A and C) through
+     cmtf_aoadmm for 100 outer iterations in float32 (ms per iteration,
+     median and p90, peak memory, host syncs and launches an iteration, the
+     device's busy share under torch.profiler), one outer sweep timed under
+     each par2_polar ('svd', 'ns') and inner_solve ('chol', 'inverse',
+     'newton'), and the first 3 iterations on the card and on the CPU in
+     float64 at K = PAR2_CPU_K, held to rtol 1e-8;
+ 13. the PARAFAC2 surface (utils/par2_surface.py: unimodal Bk switched on at
+     iteration 10, TV Bk, tPARAFAC2 Bk, ragged unimodal Bk, and the PAR2
+     dataset coupled with a CP tensor by types 0 and 1), 20 outer
+     iterations each in float32 (ms per iteration, the launches of kernels
+     A, B, C and mttkrp3), then the first 3 iterations on the card and on
+     the CPU in float64 at K = PAR2_CPU_K, held to rtol 1e-8.
+
+It then prints one JSON line describing the five kernels, the card's name
 and power limit, and as its last line {"ok": true, "device": {...}}.  It
 imports nothing of JAX, and it fails without a CUDA card or without the
 package beside it.
@@ -120,6 +144,13 @@ PROX_TIMED = ((512, 16), (256, 16), (4096, 20))
 PROX_LONG_A, PROX_LONG_B = (8192, 3), (20480, 2)
 SURFACE_ITERS = 20
 SURFACE_CPU_ITERS = 3
+T_SMOOTH_SOURCE = "matlab_code_tpu_torch/csrc/t_smooth.cu"
+T_SMOOTH_REPLACES = ("matlab_code_tpu/ops/prox.py:144-188 (two lax.scans, "
+                     "no pallas_call)")
+PAR2_SHAPE = (512, 256, 32)     # (K, J, R) of the PAR2 K=512 workload
+PAR2_ITERS = 100
+PAR2_CPU_K = 16                 # slices of the card-vs-CPU float64 runs
+PAR2_CPU_ITERS = 3
 
 
 def phase(n, title):
@@ -741,6 +772,354 @@ def prox_phases(dev, power):
     return entries
 
 
+def slice_stack(K, n, R, seed):
+    """A (K, n, R) stack of float32-representable normal values, slice 0
+    holding prox_inputs' special columns (constant, ties, all-negative, a
+    plateau)."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((K, n, R))
+    X[0] = prox_inputs(n, R, seed)
+    return X.astype(np.float32).astype(np.float64)
+
+
+def fit_times(out):
+    """(median, p90) ms of the outer iterations of a fit."""
+    dts = np.diff(out.time_at_it) * 1e3
+    return float(np.median(dts)), float(np.percentile(dts, 90))
+
+
+def hold_streams(out_gpu, out_cpu, label):
+    """The card's four float64 streams against the CPU's at rtol 1e-8."""
+    for name, a, b in [
+            ("f_tensors", out_gpu.func_val_conv, out_cpu.func_val_conv),
+            ("f_couplings", out_gpu.func_coupl_conv, out_cpu.func_coupl_conv),
+            ("f_constraints", out_gpu.func_constr_conv, out_cpu.func_constr_conv),
+            ("f_PAR2_couplings", out_gpu.func_PAR2_coupl, out_cpu.func_PAR2_coupl)]:
+        rel = np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300))
+        print(f"  {label} {name}: card float64 {a[-1]:.12e} cpu float64 "
+              f"{b[-1]:.12e} max rel diff {rel:.3e} (bound 1e-8)")
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=0,
+                                   err_msg=f"{label} {name}")
+
+
+def par2_phases(dev, power):
+    """Phases 11-13: the slice-wise kernels, the PAR2 K=512 workload and
+    the PARAFAC2 surface.  Returns the kernels line's additions: kernel C's
+    entry, the batched measurements of kernels A and B, and mttkrp3's
+    launches on the coupled configuration."""
+    import dataclasses
+    import torch
+    from matlab_code_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from matlab_code_tpu_torch.models import admm
+    from matlab_code_tpu_torch.models.admm import (
+        prox_slicewise_ragged, to_host)
+    from matlab_code_tpu_torch.models.init import init_coupled
+    from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit
+    from matlab_code_tpu_torch.ops import isotonic, prox, prox_cuda, tv
+    from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
+    from matlab_code_tpu_torch.ops.prox_cuda import (
+        project_isotonic_cols, prox_tv_cols, t_smooth_cols)
+    from matlab_code_tpu_torch.utils import par2_surface, par2_workload
+
+    counters = {"A": project_isotonic_cols, "B": prox_tv_cols,
+                "C": t_smooth_cols, "mttkrp3": mttkrp3}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+        t_smooth_cols.route_launches = dict.fromkeys(
+            t_smooth_cols.route_launches, 0)
+        to_host.calls = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    # ---- 11. slice-wise kernels vs plain -------------------------------------
+    t0 = phase(11, "slice-wise kernels (A, B batched over slices; C: tPARAFAC2) "
+                   "vs plain")
+    kinds_a = ((isotonic.UNIMODAL, True), (isotonic.UNIMODAL, False),
+               (isotonic.INCREASING, False), (isotonic.DECREASING, False))
+    err = {"A": 0.0, "B": 0.0, "C": 0.0}
+    plain_ms = {}
+    checked = []
+    for shape in (PAR2_SHAPE, (1, 256, 32), (2, 29, 5), (3, 256, 32)):
+        K, n, R = shape
+        full = shape == PAR2_SHAPE
+        X = slice_stack(K, n, R, K + n)
+        Xh = torch.tensor(X)
+        lam = np.linspace(0.0, 0.05, K)
+        if K >= 3:
+            lam[-1] = 1.0 + float(np.max(np.sum(np.abs(np.diff(X, axis=1)),
+                                                axis=1)))
+        for kind, nn in kinds_a[:1] if full else kinds_a:
+            tc = time.perf_counter()
+            want = isotonic.columns_reference(Xh, kind, nn)
+            if full:
+                plain_ms["A"] = (time.perf_counter() - tc) * 1e3
+            for dt in (torch.float64, torch.float32):
+                Xd = torch.tensor(X, dtype=dt, device=dev)
+                before = project_isotonic_cols.launches
+                got = project_isotonic_cols(Xd, kind, nn)
+                torch.cuda.synchronize()
+                if project_isotonic_cols.launches != before + 1:
+                    raise RuntimeError("kernel A: not one launch a stack")
+                label = f"kernel A kind {kind} nonneg {nn} {shape} {dt}"
+                if dt == torch.float64 and not torch.equal(got.cpu(), want):
+                    raise RuntimeError(f"{label}: not the plain walk's bits")
+                e = check_close(got, want, 1e-12 if dt == torch.float64
+                                else 1e-5, label)
+                if dt == torch.float32:
+                    err["A"] = max(err["A"], e)
+        tc = time.perf_counter()
+        want = tv.columns_reference(Xh, torch.tensor(lam))
+        if full:
+            plain_ms["B"] = (time.perf_counter() - tc) * 1e3
+        for dt in (torch.float64, torch.float32):
+            Xd = torch.tensor(X, dtype=dt, device=dev)
+            before = prox_tv_cols.launches
+            got = prox_tv_cols(Xd, torch.tensor(lam, device=dev))
+            torch.cuda.synchronize()
+            label = f"kernel B {shape} {dt}, one lam a slice"
+            if prox_tv_cols.launches != before + 1 or not torch.equal(got[0], Xd[0]):
+                raise RuntimeError(f"{label}: launches or the lam = 0 slice")
+            if dt == torch.float64 and not torch.equal(got.cpu(), want):
+                raise RuntimeError(f"{label}: not the plain walk's bits")
+            e = check_close(got, want, 1e-12 if dt == torch.float64 else 1e-5,
+                            label)
+            if dt == torch.float32:
+                err["B"] = max(err["B"], e)
+        rho = np.random.default_rng(K).uniform(0.2, 3.0, K)
+        for dt in (torch.float64, torch.float32):
+            Bd = torch.tensor(X, dtype=dt, device=dev)
+            rd = torch.tensor(rho, dtype=dt, device=dev)
+            tc = time.perf_counter()
+            want = prox.t_smoothness_reference(Bd.cpu(), rd.cpu(), 1000.0)
+            if full and dt == torch.float32:
+                plain_ms["C"] = (time.perf_counter() - tc) * 1e3
+            got = t_smooth_cols(Bd, rd, 1000.0)
+            stream = prox_cuda._t_smooth(Bd, rd, 1000.0, prox_cuda.STREAM)
+            torch.cuda.synchronize()
+            if not (torch.equal(got.cpu(), want) and torch.equal(stream, got)):
+                raise RuntimeError(f"kernel C {shape} {dt}: a route gives other "
+                                   "bits than the plain version")
+            err["C"] = max(err["C"], float((got.cpu() - want).abs().max()))
+        checked.append(shape)
+    # the ragged buckets: one launch a slice size, padded rows exactly zero
+    sizes = par2_surface.slice_sizes("ragged", 64)
+    X = slice_stack(64, max(sizes), 32, 5)
+    for k, J in enumerate(sizes):
+        X[k, J:] = 0.0
+    rho = torch.tensor(np.random.default_rng(6).uniform(0.5, 2.0, 64))
+    for kind, params, fn in (("unimodality", (True,), project_isotonic_cols),
+                             ("TV regularization", (1e-3,), prox_tv_cols)):
+        pf, _ = prox.make_prox(prox.ConstraintSpec(kind, params), 256)
+        before = fn.launches
+        got = prox_slicewise_ragged(pf, torch.tensor(X, device=dev),
+                                    rho.to(dev), sizes)
+        if fn.launches != before + len(set(sizes)):
+            raise RuntimeError(f"{kind} ragged: {fn.launches - before} launches "
+                               f"for {len(set(sizes))} buckets")
+        want = prox_slicewise_ragged(pf, torch.tensor(X), rho, sizes)
+        if not torch.equal(got.cpu(), want):
+            raise RuntimeError(f"{kind} ragged: not the plain walk's bits")
+        if any(bool(got[k, J:].any()) for k, J in enumerate(sizes)):
+            raise RuntimeError(f"{kind} ragged: a padded row is not zero")
+    print(f"kernels A, B and C (both routes) held to their plain versions on "
+          f"stacks {checked} (A and B: float64 the same bits, float32 rtol "
+          f"1e-5; C the same bits in both) and kernels A and B on "
+          f"64 ragged slices in {len(set(sizes))} size buckets (one launch a "
+          f"bucket, padded rows zero); float32 max abs diff A {err['A']:.3e}, "
+          f"B {err['B']:.3e}, C {err['C']:.3e}")
+    clock = sm_clock_hz()
+    flush = l2_flush(dev)
+    K, n, R = PAR2_SHAPE
+    X = torch.tensor(slice_stack(K, n, R, 1), dtype=torch.float32, device=dev)
+    lam_d = torch.full((K,), 1e-3, dtype=torch.float64, device=dev)
+    rho_d = torch.rand(K, generator=torch.Generator(device=dev).manual_seed(2),
+                       device=dev) + 0.5
+    t_bytes = 2 * X.numel() * 4 / HBM_BYTES_S * 1e3
+    timed = {}
+    for name, fn, chain in (
+            ("A", lambda: project_isotonic_cols(X, isotonic.UNIMODAL, True), n),
+            ("B", lambda: prox_tv_cols(X, lam_d), n),
+            ("C", lambda: t_smooth_cols(X, rho_d, 1000.0), 2 * K)):
+        if name == "C":
+            # the two routes in turns: stream, staged, staged, stream
+            stream = functools.partial(prox_cuda._t_smooth, X, rho_d, 1000.0,
+                                       prox_cuda.STREAM)
+            if prox_cuda.plan_t_smooth(K, n * R, X.dtype)[0] != prox_cuda.STAGED:
+                raise RuntimeError("kernel C: the PAR2 shape is not staged")
+            t_s1 = time_ms(stream, flush)
+            t_k = (time_ms(fn, flush) + time_ms(fn, flush)) / 2
+            t_stream = (t_s1 + time_ms(stream, flush)) / 2
+            print(f"  kernel C, stream route (the first design): "
+                  f"{t_stream * 1e3:.1f} us; staged route {t_k * 1e3:.1f} us: "
+                  f"{t_stream / t_k:.2f}x  [{power}]")
+        else:
+            t_k = time_ms(fn, flush)
+        t_steps = chain / clock * 1e3
+        t_b = max(t_bytes, t_steps)
+        by = "operations" if t_steps > t_bytes else "bytes"
+        timed[name] = (t_k, t_b, by)
+        print(f"  kernel {name} at {PAR2_SHAPE} float32: {t_k * 1e3:.1f} us | "
+              f"bound {t_b * 1e3:.2f} us ({by}: bytes {t_bytes * 1e3:.2f} us, "
+              f"{chain} dependent steps at {clock / 1e9:.2f} GHz "
+              f"{t_steps * 1e3:.2f} us) = {t_b / t_k:.2%} | plain (CPU, host "
+              f"clock) {plain_ms[name]:.1f} ms  [{power}]")
+    del flush, X
+    done(11, t0)
+
+    # ---- 12. the PAR2 K=512 workload -------------------------------------------
+    t0 = phase(12, f"PAR2 K=512 workload, {PAR2_ITERS} outer iterations, float32")
+    spec, data = par2_workload.build_problem(dev, torch.float32)
+    print(f"slices {tuple(data.objects[0].slices.shape)} "
+          f"({data.objects[0].slices.numel() * 4 / 1e6:.0f} MB); inner_solve "
+          f"'auto' on CUDA -> {admm._resolve_inner_solve(par2_workload.par2_options(), torch.device(dev), True)}, "
+          f"par2_polar 'auto' -> {admm._resolve_polar(par2_workload.par2_options(), torch.device(dev))}")
+    opts = par2_workload.par2_options(PAR2_ITERS, AbsFuncTol=0.0, OuterRelTol=0.0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    zhat, _, state0, out = cmtf_aoadmm(
+        spec, data, opts, init_options=par2_workload.par2_init_options(),
+        generator=gen)
+    n_launch, syncs = counts(), to_host.calls
+    streams = np.stack([out.func_val_conv, out.func_coupl_conv,
+                        out.func_constr_conv, out.func_PAR2_coupl])
+    if out.OuterIterations != PAR2_ITERS or not np.all(np.isfinite(streams)) \
+            or not out.func_val_conv[-1] < out.func_val_conv[0]:
+        raise RuntimeError(f"PAR2 workload: {out.OuterIterations} iterations, "
+                           f"finite {np.all(np.isfinite(streams))}")
+    if len(zhat[0]["Bk"]) != spec.par2_K(0) or zhat[0]["A"].shape != (256, 32):
+        raise RuntimeError("PAR2 workload: unexpected factor shapes")
+    med, p90 = fit_times(out)
+    print(f"f_tensors {out.func_val_conv[0]:.6e} -> {out.f_tensors:.6e}; "
+          f"f_constraints {out.f_constraints:.3e}; f_PAR2_couplings "
+          f"{out.f_PAR2_couplings:.3e}")
+    print(f"ms per outer iteration: median {med:.3f}, p90 {p90:.3f}; host syncs "
+          f"{syncs / PAR2_ITERS:.2f} an iteration; launches {n_launch}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB  "
+          f"[{power}]")
+    profile_fit(spec, data, state0,
+                par2_workload.par2_options(3, AbsFuncTol=0.0, OuterRelTol=0.0))
+    sweep = {}
+    for polar in ("svd", "ns"):
+        for solve in ("chol", "inverse", "newton"):
+            o = par2_workload.par2_options(2, AbsFuncTol=0.0, OuterRelTol=0.0,
+                                           par2_polar=polar, inner_solve=solve)
+            _, out_s = fit(spec, data, state0, o)
+            sweep[(polar, solve)] = float(np.diff(out_s.time_at_it)[1] * 1e3)
+    best = min(sweep, key=sweep.get)
+    auto = (admm._resolve_polar(opts, torch.device(dev)),
+            admm._resolve_inner_solve(opts, torch.device(dev), True))
+    print("one outer sweep (the second of a 2-iteration fit, ms) by par2_polar x "
+          "inner_solve: " + ", ".join(f"{p}/{q} {t:.3f}" for (p, q), t in
+                                      sweep.items())
+          + f"; fastest {best[0]}/{best[1]}; 'auto' on CUDA is "
+          f"{auto[0]}/{auto[1]} ({sweep[auto]:.3f} ms)  [{power}]")
+    del data, zhat
+    tc = time.perf_counter()
+    spec_c, data_c = par2_workload.build_problem("cpu", torch.float64, K=PAR2_CPU_K)
+    init_np = state_to_numpy(init_coupled(spec_c, data_c,
+                                          par2_workload.par2_init_options(),
+                                          seed=3))
+    o3 = par2_workload.par2_options(PAR2_CPU_ITERS, AbsFuncTol=0.0,
+                                    OuterRelTol=0.0)
+    _, out_cpu = fit(spec_c, data_c, state_from_numpy(init_np, "cpu"), o3)
+    t_cpu = time.perf_counter() - tc
+    _, data_g = par2_workload.build_problem(dev, torch.float64, K=PAR2_CPU_K)
+    _, out_gpu = fit(spec_c, data_g, state_from_numpy(init_np, dev), o3)
+    hold_streams(out_gpu, out_cpu, f"PAR2 K={PAR2_CPU_K}")
+    print(f"  card vs CPU in float64 at K = {PAR2_CPU_K} slices, "
+          f"{PAR2_CPU_ITERS} iterations: the CPU side {t_cpu:.1f} s")
+    done(12, t0)
+
+    # ---- 13. the PARAFAC2 surface ---------------------------------------------
+    t0 = phase(13, f"PARAFAC2 surface {par2_surface.CONFIGS}, "
+                   f"{par2_surface.N_ITERS} outer iterations, float32")
+    expect = {"unimodal": "A", "ragged": "A", "tv": "B", "tparafac2": "C",
+              "coupled": "mttkrp3"}
+    total = dict.fromkeys(counters, 0)
+    c_routes = dict.fromkeys(t_smooth_cols.route_launches, 0)
+    for config in par2_surface.CONFIGS:
+        tc = time.perf_counter()
+        spec, data = par2_surface.build_problem(config, dev, torch.float32)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        state0 = init_coupled(spec, data, par2_surface.surface_init_options(config),
+                              generator=gen)
+        opts = par2_surface.surface_options(config, par2_surface.N_ITERS,
+                                            AbsFuncTol=0.0, OuterRelTol=0.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        _, _, _, out = cmtf_aoadmm(spec, data, opts, init=state0)
+        n_launch, syncs = counts(), to_host.calls
+        for k, v in n_launch.items():
+            total[k] += v
+        for k, v in t_smooth_cols.route_launches.items():
+            c_routes[k] += v
+        streams = np.stack([out.func_val_conv, out.func_coupl_conv,
+                            out.func_constr_conv, out.func_PAR2_coupl])
+        if out.OuterIterations != par2_surface.N_ITERS \
+                or not np.all(np.isfinite(streams)):
+            raise RuntimeError(f"PAR2 surface {config}: {out.OuterIterations} "
+                               "iterations or non-finite streams")
+        if n_launch[expect[config]] == 0:
+            raise RuntimeError(f"PAR2 surface {config}: kernel "
+                               f"{expect[config]} never launched: {n_launch}")
+        med, p90 = fit_times(out)
+        print(f"{config}: f_tensors {out.func_val_conv[0]:.6e} -> "
+              f"{out.f_tensors:.6e}; f_constraints {out.f_constraints:.3e}; "
+              f"f_couplings {out.f_couplings:.3e}; f_PAR2_couplings "
+              f"{out.f_PAR2_couplings:.3e}")
+        print(f"  ms per outer iteration: median {med:.3f}, p90 {p90:.3f}; "
+              f"launches {n_launch} ({n_launch[expect[config]] / par2_surface.N_ITERS:.2f}"
+              f" of kernel {expect[config]} an iteration); host syncs "
+              f"{syncs / par2_surface.N_ITERS:.2f} an iteration; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB  "
+              f"[{power}]")
+        del data, state0
+        spec_c, data_c = par2_surface.build_problem(config, "cpu", torch.float64,
+                                                    K=PAR2_CPU_K)
+        init_np = state_to_numpy(init_coupled(
+            spec_c, data_c, par2_surface.surface_init_options(config), seed=4))
+        o3 = par2_surface.surface_options(config, PAR2_CPU_ITERS,
+                                          AbsFuncTol=0.0, OuterRelTol=0.0)
+        if config == "unimodal":
+            o3 = dataclasses.replace(o3, iter_start_PAR2Bkconstraint=2)
+        tcpu = time.perf_counter()
+        _, out_cpu = fit(spec_c, data_c, state_from_numpy(init_np, "cpu"), o3)
+        tcpu = time.perf_counter() - tcpu
+        _, data_g = par2_surface.build_problem(config, dev, torch.float64,
+                                               K=PAR2_CPU_K)
+        _, out_gpu = fit(spec_c, data_g, state_from_numpy(init_np, dev), o3)
+        hold_streams(out_gpu, out_cpu, f"{config} K={PAR2_CPU_K}")
+        print(f"  {config}: {time.perf_counter() - tc:.1f} s, the CPU side "
+              f"{tcpu:.1f} s")
+    done(13, t0)
+
+    extra = {}
+    for name in ("A", "B"):
+        t_k, t_b, by = timed[name]
+        extra[name] = {"par2_shape": list(PAR2_SHAPE), "par2_ms": t_k,
+                       "par2_plain_ms": plain_ms[name], "par2_bound_ms": t_b,
+                       "par2_bound_by": by, "par2_max_abs_err": err[name],
+                       "par2_launches": total[name]}
+    t_k, t_b, by = timed["C"]
+    if c_routes[prox_cuda.STAGED] != total["C"]:
+        raise RuntimeError(f"kernel C routes on the surface: {c_routes}")
+    return {"batched": extra, "mttkrp3_launches": total["mttkrp3"],
+            "C": {"name": "t_smooth_cols", "route": "cuda",
+                  "source": T_SMOOTH_SOURCE, "replaces": T_SMOOTH_REPLACES,
+                  "launches": total["C"], "max_abs_err": err["C"], "ms": t_k,
+                  "plain_ms": plain_ms["C"], "bound_ms": t_b, "bound_by": by,
+                  "library_ms": None, "kernel_routes": c_routes,
+                  "stream_route_ms": t_stream}}
+
+
 def stream_variant(plan, shape, R, sms, stages=None, stage_rows=None,
                    copy=None):
     """The mode-2 stream plan with another ring depth, stage size or copy
@@ -863,8 +1242,8 @@ def main():
 
     # ---- 1. device and precision ------------------------------------------
     t0 = phase(1, "device and precision")
-    name = torch.cuda.get_device_name(0)
-    print("device:", name, "| count:", torch.cuda.device_count())
+    device_name = torch.cuda.get_device_name(0)
+    print("device:", device_name, "| count:", torch.cuda.device_count())
     print("torch", torch.__version__, "cuda", torch.version.cuda,
           "python", sys.version.split()[0])
     power = power_line()
@@ -880,9 +1259,9 @@ def main():
     # ---- 2. kernel vs plain -------------------------------------------------
     t0 = phase(2, "MTTKRP kernel vs plain")
     tb = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:    # one nvcc per source, together
+    with ThreadPoolExecutor(4) as pool:    # one nvcc per source, together
         for fut in [pool.submit(mttkrp_cuda._lib), pool.submit(sparse_cuda._lib),
-                    pool.submit(prox_cuda._lib)]:
+                    pool.submit(prox_cuda._lib), pool.submit(prox_cuda._lib_c)]:
             fut.result()
     print(f"kernel libraries built and loaded in {time.perf_counter() - tb:.1f} s")
     for log in _build.BUILD_LOGS.values():
@@ -1106,17 +1485,22 @@ def main():
 
     sparse = sparse_phases(dev, power)
     prox_entries = prox_phases(dev, power)
+    par2 = par2_phases(dev, power)
+    for e in prox_entries:
+        e.update(par2["batched"][
+            "A" if e["name"] == "project_isotonic_cols" else "B"])
+    prox_entries.append(par2["C"])
 
     print(json.dumps({"kernels": [{
         "name": "mttkrp3", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,
         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": max(bound_by_ms, key=bound_by_ms.get),
-        "library_ms": lib_ms},
+        "library_ms": lib_ms, "par2_launches": par2["mttkrp3_launches"]},
         sparse] + prox_entries}))
     print(power)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -19,8 +19,8 @@ import torch
 
 from matlab_code_tpu_torch.options import AlgOptions, LbfgsbOptions
 from matlab_code_tpu_torch.problem import (
-    ConstraintSpec, CouplingSpec, DatasetSpec, ProblemData, ProblemSpec,
-    SparseTensor)
+    ConstraintSpec, CouplingSpec, DatasetSpec, Parafac2Tensor, ProblemData,
+    ProblemSpec, SparseTensor)
 from matlab_code_tpu_torch.state import FIELDS, SolverState
 
 
@@ -74,9 +74,14 @@ def _tensor(a, device, dtype):
 
 
 def _object(a, device, dtype):
-    """A dense array, or a COO tensor read by its attributes `indices` and
-    `values` (the JAX package's SparseTensor: its plans are the TPU layout
-    and are not carried across)."""
+    """A dense array, a PARAFAC2 tensor read by its attributes `slices` and
+    `mask` (the JAX package's Parafac2Tensor), or a COO tensor read by its
+    attributes `indices` and `values` (the JAX package's SparseTensor: its
+    plans are the TPU layout and are not carried across)."""
+    if hasattr(a, "slices") and hasattr(a, "mask"):
+        return Parafac2Tensor(_tensor(a.slices, device, dtype),
+                              torch.tensor(np.asarray(a.mask), dtype=torch.bool,
+                                           device=device))
     if hasattr(a, "indices") and hasattr(a, "values"):
         return SparseTensor(
             torch.tensor(np.asarray(a.indices), dtype=torch.int32,
@@ -88,7 +93,8 @@ def _object(a, device, dtype):
 def data_from_numpy(objects, coupl_trafo=(), coupl_trafo2=(), miss=(),
                     device="cuda", dtype=torch.float64) -> ProblemData:
     """Build the port's ProblemData from arrays (anything np.asarray takes,
-    including the JAX package's ProblemData fields and SparseTensors)."""
+    including the JAX package's ProblemData fields, SparseTensors and
+    Parafac2Tensors)."""
     conv = lambda seq: tuple(_tensor(a, device, dtype) for a in seq)
     return ProblemData(objects=tuple(_object(a, device, dtype)
                                      for a in objects),
@@ -99,7 +105,8 @@ def data_from_numpy(objects, coupl_trafo=(), coupl_trafo2=(), miss=(),
 def state_from_numpy(fields, device="cuda", dtype=torch.float64) -> SolverState:
     """The port's SolverState from a mapping {field: tuple of arrays or
     None}, or from any object with those attributes (a JAX-package
-    SolverState, whose arrays np.asarray reads)."""
+    SolverState, whose arrays np.asarray reads), PARAFAC2's P, DeltaB and
+    mu_DeltaB included."""
     get = fields.get if isinstance(fields, dict) else (
         lambda k: getattr(fields, k))
     return SolverState(**{k: tuple(_tensor(a, device, dtype) for a in get(k))

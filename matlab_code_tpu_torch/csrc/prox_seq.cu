@@ -12,8 +12,11 @@
 //     direct algorithm.  Replaces the lax loop of
 //     matlab_code_tpu/ops/tv.py:23-126.
 //
-// The factor is an (n, R) row-major matrix (a column has stride R), float
-// or double; the kernels write a new matrix of the same type.  Both compute
+// The factor is an (n, R) row-major matrix (a column has stride R), or a
+// stack of K such slices (K, n, R), slice after slice (the PARAFAC2 Bk
+// mode: K R columns, a slice n R elements apart), float or double; the
+// kernels write a new stack of the same type.  Kernel B takes one lam a
+// slice.  Both compute
 // in double whatever the storage type, in the order of operations of the
 // plain versions (ops/isotonic.py, ops/tv.py) and of the JAX module, so a
 // float64 result agrees with them to rounding and a float32 result is the
@@ -67,6 +70,11 @@ __device__ __forceinline__ double ld(const T* p) { return static_cast<double>(*p
 constexpr long isotonic_state_bytes(int n) { return 36L * (n + 1); }
 constexpr long tv_state_bytes(int n, int itemsize) {
   return static_cast<long>(8 + itemsize) * n;
+}
+
+// Where column c of a (K, n, R) stack starts: slice c / R, column c % R.
+__device__ __forceinline__ long col_offset(long c, int n, int R) {
+  return (c / R) * static_cast<long>(n) * R + c % R;
 }
 
 // Block `block`'s state: dynamic shared memory on the shared route, its
@@ -198,7 +206,7 @@ isotonic_cols(const T* __restrict__ Y, T* __restrict__ X, int n, int R,
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int n_sets;
   const Scan w = carve(block_state<InShared>(smem, ws, stride, blockIdx.x), n);
-  const long c = blockIdx.x;
+  const long c = col_offset(blockIdx.x, n, R);
   stage_scan(Y + c, R, n, false, sign, w.sumwy);
   __syncthreads();
   if (threadIdx.x == 0) scan_walk(n, false, w);
@@ -239,7 +247,7 @@ unimodal_cluster(const T* __restrict__ Y, T* __restrict__ X, int n, int R,
   __shared__ int best_s, n_sets;
   cg::cluster_group cluster = cg::this_cluster();
   const int side = static_cast<int>(cluster.block_rank());
-  const long c = blockIdx.x / 2;
+  const long c = col_offset(blockIdx.x / 2, n, R);
   const Scan w = carve(block_state<InShared>(smem, ws, stride, blockIdx.x), n);
   stage_scan(Y + c, R, n, side == 1, 1.0, w.sumwy);
   __syncthreads();
@@ -359,8 +367,9 @@ __device__ __forceinline__ void condat_walk(const double* __restrict__ ys,
   }
 }
 
-// Kernel B: one block a column; lam read from the device (eta / rho, never
-// copied to the host); lam <= 0, a NaN lam and n == 1 copy the column.
+// Kernel B: one block a column; its slice's lam read from the device
+// (eta / rho_k, never copied to the host); lam <= 0, a NaN lam and n == 1
+// copy the column.
 template <typename T, bool InShared>
 __global__ void __launch_bounds__(kThreads)
 tv_cols(const T* __restrict__ Y, T* __restrict__ X, int n, int R,
@@ -369,8 +378,8 @@ tv_cols(const T* __restrict__ Y, T* __restrict__ X, int n, int R,
   double* ys = reinterpret_cast<double*>(
       block_state<InShared>(smem, ws, stride, blockIdx.x));
   T* xs = reinterpret_cast<T*>(ys + n);
-  const long c = blockIdx.x;
-  const double lam = *lam_p;
+  const long c = col_offset(blockIdx.x, n, R);
+  const double lam = lam_p[blockIdx.x / R];
   const T* y = Y + c;
   T* x = X + c;
   if (n == 1 || !(lam > 0.0)) {
@@ -400,31 +409,34 @@ cudaError_t allow_smem(K* kernel, long bytes) {
 }
 
 template <typename T, bool InShared>
-int isotonic_launch(int kind, int nonneg, const void* Y, void* X, int n, int R,
-                    long smem, unsigned char* ws, long stride, cudaStream_t st) {
+int isotonic_launch(int kind, int nonneg, const void* Y, void* X, int K, int n,
+                    int R, long smem, unsigned char* ws, long stride,
+                    cudaStream_t st) {
   const T* y = static_cast<const T*>(Y);
   T* x = static_cast<T*>(X);
+  const long cols = static_cast<long>(K) * R;
   cudaError_t e;
   if (kind == 2) {
     auto* k = unimodal_cluster<T, InShared>;
     if ((e = allow_smem(k, smem)) != cudaSuccess) return (int)e;
-    k<<<2 * R, kThreads, smem, st>>>(y, x, n, R, nonneg, ws, stride);
+    k<<<2 * cols, kThreads, smem, st>>>(y, x, n, R, nonneg, ws, stride);
   } else {
     auto* k = isotonic_cols<T, InShared>;
     if ((e = allow_smem(k, smem)) != cudaSuccess) return (int)e;
-    k<<<R, kThreads, smem, st>>>(y, x, n, R, kind == 1 ? -1.0 : 1.0, ws, stride);
+    k<<<cols, kThreads, smem, st>>>(y, x, n, R, kind == 1 ? -1.0 : 1.0, ws,
+                                    stride);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool InShared>
-int tv_launch(const void* Y, void* X, int n, int R, const double* lam,
+int tv_launch(const void* Y, void* X, int K, int n, int R, const double* lam,
               long smem, unsigned char* ws, long stride, cudaStream_t st) {
   cudaError_t e;
   auto* k = tv_cols<T, InShared>;
   if ((e = allow_smem(k, smem)) != cudaSuccess) return (int)e;
-  k<<<R, kThreads, smem, st>>>(static_cast<const T*>(Y), static_cast<T*>(X),
-                               n, R, lam, ws, stride);
+  k<<<static_cast<long>(K) * R, kThreads, smem, st>>>(
+      static_cast<const T*>(Y), static_cast<T*>(X), n, R, lam, ws, stride);
   return (int)cudaGetLastError();
 }
 
@@ -437,45 +449,46 @@ bool state_fits(long bytes, long smem, const void* ws, long stride) {
 
 }  // namespace
 
-// C entries for ctypes.  is_double selects float64 (else float32).  ws null
-// takes the shared route with `smem` bytes of dynamic shared memory a block
+// C entries for ctypes.  is_double selects float64 (else float32); Y and X
+// are (K, n, R) stacks (K = 1 for a matrix).  ws null takes the shared
+// route with `smem` bytes of dynamic shared memory a block
 // (prox_cuda.plan_isotonic, plan_tv); else the global route, block b's state
-// at ws + b * stride (R blocks, 2R for a unimodal kernel A).  Each returns
-// the launch's CUDA error.
+// at ws + b * stride (K R blocks, 2 K R for a unimodal kernel A).  Each
+// returns the launch's CUDA error.
 
 // Kernel A: kind 0 non-decreasing, 1 non-increasing, 2 unimodal.  A block's
 // state is 36 * (n + 1) bytes.
 extern "C" int isotonic_run(int is_double, int kind, int nonneg, const void* Y,
-                            void* X, int n, int R, long smem, void* ws,
+                            void* X, int K, int n, int R, long smem, void* ws,
                             long stride, void* stream) {
-  if (n < 1 || R < 1 || kind < 0 || kind > 2 ||
+  if (K < 1 || n < 1 || R < 1 || kind < 0 || kind > 2 ||
       !state_fits(isotonic_state_bytes(n), smem, ws, stride))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   unsigned char* w = static_cast<unsigned char*>(ws);
   if (w == nullptr)
     return is_double
-        ? isotonic_launch<double, true>(kind, nonneg, Y, X, n, R, smem, w, 0, st)
-        : isotonic_launch<float, true>(kind, nonneg, Y, X, n, R, smem, w, 0, st);
+        ? isotonic_launch<double, true>(kind, nonneg, Y, X, K, n, R, smem, w, 0, st)
+        : isotonic_launch<float, true>(kind, nonneg, Y, X, K, n, R, smem, w, 0, st);
   return is_double
-      ? isotonic_launch<double, false>(kind, nonneg, Y, X, n, R, 0, w, stride, st)
-      : isotonic_launch<float, false>(kind, nonneg, Y, X, n, R, 0, w, stride, st);
+      ? isotonic_launch<double, false>(kind, nonneg, Y, X, K, n, R, 0, w, stride, st)
+      : isotonic_launch<float, false>(kind, nonneg, Y, X, K, n, R, 0, w, stride, st);
 }
 
-// Kernel B.  lam: a float64 scalar on the device.  A block's state is
-// (8 + itemsize) * n bytes.
-extern "C" int tv_run(int is_double, const void* Y, void* X, int n, int R,
+// Kernel B.  lam: K float64 values on the device, one a slice.  A block's
+// state is (8 + itemsize) * n bytes.
+extern "C" int tv_run(int is_double, const void* Y, void* X, int K, int n, int R,
                       const void* lam, long smem, void* ws, long stride,
                       void* stream) {
-  if (n < 1 || R < 1 ||
+  if (K < 1 || n < 1 || R < 1 ||
       !state_fits(tv_state_bytes(n, is_double ? 8 : 4), smem, ws, stride))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const double* l = static_cast<const double*>(lam);
   unsigned char* w = static_cast<unsigned char*>(ws);
   if (w == nullptr)
-    return is_double ? tv_launch<double, true>(Y, X, n, R, l, smem, w, 0, st)
-                     : tv_launch<float, true>(Y, X, n, R, l, smem, w, 0, st);
-  return is_double ? tv_launch<double, false>(Y, X, n, R, l, 0, w, stride, st)
-                   : tv_launch<float, false>(Y, X, n, R, l, 0, w, stride, st);
+    return is_double ? tv_launch<double, true>(Y, X, K, n, R, l, smem, w, 0, st)
+                     : tv_launch<float, true>(Y, X, K, n, R, l, smem, w, 0, st);
+  return is_double ? tv_launch<double, false>(Y, X, K, n, R, l, 0, w, stride, st)
+                   : tv_launch<float, false>(Y, X, K, n, R, l, 0, w, stride, st);
 }

@@ -1,14 +1,15 @@
-"""Inner ADMM loops: constrained-only and coupled (coupling types 0-5),
-counterpart of the CP part of matlab_code_tpu/models/admm.py
-(cmtf_fun_AOADMM.m:591-1075).
+"""Inner ADMM loops: constrained-only, PARAFAC2-Bk and coupled (coupling
+types 0-5), counterpart of matlab_code_tpu/models/admm.py
+(cmtf_fun_AOADMM.m:509-1075).
 
 The JAX package runs each inner loop as a lax.while_loop that exits on the
 residuals.  Here it is an eager host loop with the same exit rule: the
 condition `it <= MaxInnerIters and (residual > tol)` is tested before each
 body, residuals start at inf, and the loop returns it - 1.  Each test after
-the first reads two residuals from the device (one host sync, counted by
-to_host).  PARAFAC2 modes (and their par2C coupling branches) come with
-slice 4 and non-Frobenius losses with slice 5.
+the first reads one flag from the device (one host sync, counted by
+to_host).  The PARAFAC2 per-slice work (Bk systems, polar factors, the
+slice-wise prox, par2C rows) is batched over the K slices.  Non-Frobenius
+losses come with slice 5.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import math
 import torch
 
 from matlab_code_tpu_torch.ops.linalg import (
-    chol_lower, solve, solve_with_chol, spd_inverse_from_chol)
+    chol_lower, polar_orth, polar_orth_ns, solve, solve_spd_left,
+    solve_with_chol, spd_inverse_from_chol, spd_inverse_newton)
 from matlab_code_tpu_torch.problem import ProblemSpec
 from matlab_code_tpu_torch.state import SolverState, tuple_set
 
@@ -49,9 +51,12 @@ def _check_ctype(ctype: int) -> None:
 
 
 def make_update_constraint(spec: ProblemSpec, proxes):
-    """Z = prox(fac + mu, rho); mu += fac - Z (cmtf_fun_AOADMM.m:1420-1429)."""
+    """Z = prox(fac + mu, rho); mu += fac - Z (cmtf_fun_AOADMM.m:1420-1429).
+    A par2C mode uses max(rho) over its per-row penalties (:1423-1424)."""
     def upd(state: SolverState, m: int, rho):
         oldZ = state.constraint_fac[m]
+        if spec.mode_role(m) == "par2_C":
+            rho = torch.amax(rho)
         Z = proxes[m](state.fac[m] + state.constraint_dual_fac[m], rho)
         dual = state.constraint_dual_fac[m] + state.fac[m] - Z
         state = state.replace(
@@ -61,21 +66,39 @@ def make_update_constraint(spec: ProblemSpec, proxes):
     return upd
 
 
-def _resolve_inner_solve(options, device: torch.device) -> str:
-    """'auto' is 'chol' on the CPU (the JAX CPU path's arithmetic) and
-    'inverse' on CUDA: one R x R inverse per outer iteration turns every
-    inner solve into one small matmul instead of two triangular-solve
-    launches (PERF.md)."""
+# what inner_solve='auto' and par2_polar='auto' resolve to on CUDA for the
+# K-batched PARAFAC2 systems (PERF.md gives the timings behind them)
+AUTO_BATCHED_SOLVE_CUDA = "inverse"
+AUTO_POLAR_CUDA = "ns"
+
+
+def _resolve_inner_solve(options, device: torch.device,
+                         batched: bool = False) -> str:
+    """'auto' is 'chol' on the CPU (the JAX CPU path's arithmetic); on CUDA
+    'inverse' for an R x R system (one inverse per outer iteration turns
+    every inner solve into one small matmul instead of two triangular-solve
+    launches) and AUTO_BATCHED_SOLVE_CUDA for the K-batched PARAFAC2 ones
+    (PERF.md)."""
     method = options.inner_solve
     if method not in ("auto", "chol", "inverse", "newton"):
         raise ValueError(f"inner_solve must be 'auto'|'chol'|'inverse'"
                          f"|'newton', got {method!r}")
-    if method == "newton":
-        raise NotImplementedError(
-            "inner_solve='newton' (K-batched PARAFAC2 systems) comes with "
-            "slice 4 (ROADMAP.md, PARAFAC2)")
     if method == "auto":
-        return "inverse" if device.type == "cuda" else "chol"
+        if device.type != "cuda":
+            return "chol"
+        return AUTO_BATCHED_SOLVE_CUDA if batched else "inverse"
+    return method
+
+
+def _resolve_polar(options, device: torch.device) -> str:
+    """options.par2_polar: 'auto' is 'svd' on the CPU (the JAX CPU path) and
+    AUTO_POLAR_CUDA on CUDA (PERF.md)."""
+    method = options.par2_polar
+    if method not in ("auto", "svd", "ns"):
+        raise ValueError(f"par2_polar must be 'auto'|'svd'|'ns', "
+                         f"got {method!r}")
+    if method == "auto":
+        return AUTO_POLAR_CUDA if device.type == "cuda" else "svd"
     return method
 
 
@@ -88,21 +111,37 @@ def _chol_rcond_bad(L, tol: float):
     return ~torch.isfinite(r) | (r < tol)
 
 
-def make_spd_solver(Bmat, options, illtol: float = 0.0):
-    """Inner-ADMM solver for the assembled SPD normal matrix, built once per
-    outer iteration.  Returns (right, illc): right(A) solves X B = A (the
-    reference's (A/L')/L, cmtf_fun_AOADMM.m:608-609); illc is the
-    ill-conditioning flag (a 0-d tensor; False when illtol == 0)."""
-    method = _resolve_inner_solve(options, Bmat.device)
+def make_spd_solver(Bmat, options, illtol: float = 0.0, lmin=None):
+    """Inner-ADMM solvers for the assembled SPD normal matrix (R x R, or a
+    K-batch (K, R, R)), built once per outer iteration.  Returns (right,
+    rowleft, illc): right(A) solves X B = A (the reference's (A/L')/L,
+    cmtf_fun_AOADMM.m:608-609; A (I, R), or (K, J, R) against a batch);
+    rowleft(A) solves the row systems B_k x_k = a_k, A (K, R) (the par2C
+    rows, :602-606); illc is the ill-conditioning flag (a 0-d tensor;
+    False when illtol == 0).  options.inner_solve: 'chol' factorizes and
+    substitutes a call, 'inverse' inverts once through the factor,
+    'newton' inverts by Newton-Hotelling matmuls (lmin: the + rho/2 I
+    eigenvalue bound that sharpens its start)."""
+    method = _resolve_inner_solve(options, Bmat.device, Bmat.dim() >= 3)
+    if method == "newton":
+        Binv, rcond = spd_inverse_newton(Bmat, lmin=lmin)
+        if illtol > 0:
+            illc = torch.any(~torch.isfinite(rcond) | (rcond < illtol))
+        else:
+            illc = torch.zeros((), dtype=torch.bool, device=Bmat.device)
+        return ((lambda A: A @ Binv),
+                (lambda A: (Binv @ A[..., None])[..., 0]), illc)
     L = chol_lower(Bmat)
     if illtol > 0:
         illc = _chol_rcond_bad(L, illtol)
     else:
         illc = torch.zeros((), dtype=torch.bool, device=Bmat.device)
     if method == "chol":
-        return (lambda A: solve_with_chol(L, A)), illc
+        return ((lambda A: solve_with_chol(L, A)),
+                (lambda A: solve_spd_left(L, A[..., None])[..., 0]), illc)
     Binv = spd_inverse_from_chol(L)
-    return (lambda A: A @ Binv), illc
+    return ((lambda A: A @ Binv),
+            (lambda A: (Binv @ A[..., None])[..., 0]), illc)
 
 
 def eval_res_constr(spec: ProblemSpec, state: SolverState, modes, oldZ: dict):
@@ -120,20 +159,22 @@ def eval_res_constr(spec: ProblemSpec, state: SolverState, modes, oldZ: dict):
 
 def admm_constrained_only(spec: ProblemSpec, state: SolverState, m: int, p: int,
                           A, solve, rho, options, proxes):
-    """Constrained, uncoupled CP mode (cmtf_fun_AOADMM.m:591-623), Frobenius
-    loss.  solve: right solver from make_spd_solver.  Returns (state,
-    inner_iters)."""
-    if spec.datasets[p].loss != "Frobenius" or spec.mode_role(m) != "cp":
+    """Constrained, uncoupled CP, PARAFAC2-A or par2C mode
+    (cmtf_fun_AOADMM.m:591-623), Frobenius loss.  solve: make_spd_solver's
+    right solver (its rowleft solver for a par2C mode, whose rows take
+    their own rho).  Returns (state, inner_iters)."""
+    if spec.datasets[p].loss != "Frobenius":
         raise NotImplementedError(
-            "admm_constrained_only is ported for CP modes with Frobenius loss; "
-            "PARAFAC2 comes with slice 4 and other losses with slice 5")
+            "admm_constrained_only is ported for Frobenius loss; other "
+            "losses come with slice 5")
     upd = make_update_constraint(spec, proxes)
+    rho_b = rho[:, None] if spec.mode_role(m) == "par2_C" else rho
     it = 1
     pr = dr = math.inf
     while it <= options.MaxInnerIters and (
             it == 1 or to_host((pr > options.innerRelPrTol_constr)
                                | (dr > options.innerRelDualTol_constr))):
-        A_inner = A + 0.5 * rho * (
+        A_inner = A + 0.5 * rho_b * (
             state.constraint_fac[m] - state.constraint_dual_fac[m])
         state = state.replace(fac=tuple_set(state.fac, m, solve(A_inner)))
         state, oldZ = upd(state, m, rho)
@@ -142,22 +183,146 @@ def admm_constrained_only(spec: ProblemSpec, state: SolverState, m: int, p: int,
     return state, it - 1
 
 
+def _fro_slices(X):
+    """Frobenius norm of each slice of a (K, J, R) stack."""
+    return torch.linalg.vector_norm(X, dim=(1, 2))
+
+
+def admm_b_parafac2(spec: ProblemSpec, state: SolverState, m: int, p: int,
+                    A, solve, rho, options, proxes, constraint_active: bool,
+                    sizes=None):
+    """The PARAFAC2-specific inner loop (cmtf_fun_AOADMM.m:509-589), batched
+    over the K slices.  A: (K, Jmax, R); solve: make_spd_solver's right
+    solver of the K-batched systems; rho: (K,).  sizes: the true slice
+    sizes J_k, or None for regular slices; ragged slices take the
+    size-bucketed slice-wise prox, so no prox sees the zero padding.  Each
+    step after the first reads its exit test, one flag over the four
+    residuals, with one to_host.  Returns (state, inner_iters)."""
+    K = spec.par2_K(p)
+    constrained = spec.is_constrained(m) and constraint_active
+    ragged = sizes is not None and len(set(sizes)) > 1
+    if _resolve_polar(options, A.device) == "svd":
+        polar = polar_orth
+    else:
+        polar = lambda M: polar_orth_ns(M, iters=options.par2_polar_iters)
+    if constrained:
+        upd_joint = spec.constraints[m].kind == "tPARAFAC2"
+        prox = proxes[m]
+    rho3 = rho[:, None, None]
+    zero = torch.zeros((), dtype=A.dtype, device=A.device)
+    it = 1
+    prc = drc = prk = drk = math.inf
+    while it <= options.MaxInnerIters and (
+            it == 1 or to_host((prk > options.innerRelPrTol_coupl)
+                               | (prc > options.innerRelPrTol_constr)
+                               | (drk > options.innerRelDualTol_coupl)
+                               | (drc > options.innerRelDualTol_constr))):
+        P_, DB, mu = state.P[p], state.DeltaB[p], state.mu_DeltaB[p]
+        A_inner = A + 0.5 * rho3 * (P_ @ DB - mu)
+        if constrained:
+            A_inner = A_inner + 0.5 * rho3 * (
+                state.constraint_fac[m] - state.constraint_dual_fac[m])
+        facB = solve(A_inner)
+        # P_k = polar((B_k + mu_k) DeltaB^T)  (cmtf_fun_AOADMM.m:532-534)
+        oldP, oldDB = P_, DB
+        P_ = polar((facB + mu) @ DB.T)
+        # DeltaB = sum_k rho_k P_k^T (B_k + mu_k) / sum rho_k  (:536-544)
+        DB = torch.einsum("k,kjr,kjs->rs", rho, P_, facB + mu) / torch.sum(rho)
+        PDB = P_ @ DB
+        mu = mu + facB - PDB
+        state = state.replace(
+            fac=tuple_set(state.fac, m, facB), P=tuple_set(state.P, p, P_),
+            DeltaB=tuple_set(state.DeltaB, p, DB),
+            mu_DeltaB=tuple_set(state.mu_DeltaB, p, mu))
+        prc = drc = zero
+        if constrained:
+            oldZ = state.constraint_fac[m]
+            V = facB + state.constraint_dual_fac[m]
+            if upd_joint:
+                Z = prox(V, rho)
+            elif ragged:
+                Z = prox_slicewise_ragged(prox, V, rho, sizes)
+            else:
+                Z = prox_slicewise(prox, V, rho)
+            dual = state.constraint_dual_fac[m] + facB - Z
+            state = state.replace(
+                constraint_fac=tuple_set(state.constraint_fac, m, Z),
+                constraint_dual_fac=tuple_set(state.constraint_dual_fac, m,
+                                              dual))
+            prc = torch.sum(_fro_slices(facB - Z) / _fro_slices(facB)) / K
+            drc = torch.sum(_safe_div(_fro_slices(oldZ - Z),
+                                      _fro_slices(dual))) / K
+        prk = torch.sum(_fro_slices(facB - PDB) / _fro_slices(facB)) / K
+        drk = torch.sum(_safe_div(_fro_slices(oldP @ oldDB - PDB),
+                                  _fro_slices(mu))) / K
+        it += 1
+    return state, it - 1
+
+
+def prox_slicewise(prox, Bs, rho):
+    """A matrix prox applied to each slice k of Bs (K, J, R) with its own
+    rho_k (cmtf_fun_AOADMM.m:567-578), as one batched call: rho reaches the
+    prox as a (K, 1, 1) tensor (ops/prox.py), so on the card the isotonic
+    and TV kinds are one kernel launch each for the K slices."""
+    return prox(Bs, rho[:, None, None])
+
+
+def prox_slicewise_ragged(prox, Bs, rho, sizes):
+    """The slice-wise prox on ragged padded slices: slice k is proxed on its
+    true J_k rows only, as the reference's per-slice
+    Z.prox_operators{m}(B{k}, rho(k)) on true-size matrices
+    (cmtf_fun_AOADMM.m:567-578).  Slices are bucketed by size and each
+    bucket is one batched prox call on exact shapes, so no prox sees the
+    padding, and the padded rows stay exactly zero.  Bs (K, Jmax, R) padded;
+    rho (K,); sizes the J_k."""
+    out = torch.zeros_like(Bs)
+    buckets: dict[int, list[int]] = {}
+    for k, J in enumerate(sizes):
+        buckets.setdefault(int(J), []).append(k)
+    for J, ks in sorted(buckets.items()):
+        idx = torch.tensor(ks, device=Bs.device)
+        out[idx, :J, :] = prox_slicewise(prox, Bs[idx, :J, :], rho[idx])
+    return out
+
+
+def _is_par2C(spec, m):
+    return spec.mode_role(m) == "par2_C"
+
+
 def _factor_update_case(spec, state, data, m, cid, ctype, A, rho,
                         constrained, solve):
-    """One coupled-factor update for CP mode m (Frobenius loss): `solve`
-    is linalg.sylvester_solver's for types 1 and 5 (B2 X + X B = A_inner,
-    B the mode's normal matrix, B2 = rho/2 H^T H [+ rho/2 I]) and
-    make_spd_solver's right solver for the other types."""
+    """One coupled-factor update for mode m (Frobenius loss).  `solve` is
+    linalg.sylvester_solver's for a CP mode under types 1 and 5 (B2 X + X B
+    = A_inner, B the mode's normal matrix, B2 = rho/2 H^T H [+ rho/2 I]);
+    for a par2C mode under types 1 and 5 the solve of the kron-vectorized
+    (K R) x (K R) system (cmtf_fun_AOADMM.m:710-722, 998-1010); else
+    make_spd_solver's right solver (its rowleft solver for a par2C mode,
+    whose rows take their own rho)."""
     Delta = state.coupling_fac[cid - 1]
     dual = state.coupling_dual_fac[m]
     H = data.coupl_trafo[m] if data.coupl_trafo else None
+    par2C = _is_par2C(spec, m)
     if ctype in (1, 5):
         target = Delta if ctype == 1 else Delta @ data.coupl_trafo2[m]
+        if par2C:
+            # the row-major ravel of (K, R) is MATLAB's reshape(M', [], 1),
+            # and kron(H, I)^T ravel(V) = ravel(H^T V): the JAX package's
+            # product with the kron matrix, without building it
+            K, R = state.fac[m].shape
+            rhoC = torch.mean(rho)
+            A_inner = A.reshape(K * R) + 0.5 * rhoC * (
+                H.T @ (target - dual)).reshape(-1)
+            if constrained:
+                A_inner = A_inner + 0.5 * rhoC * (
+                    state.constraint_fac[m] - state.constraint_dual_fac[m]
+                ).reshape(-1)
+            return solve(A_inner).reshape(K, R)
         A_inner = A + 0.5 * rho * (H.T @ (target - dual))
         if constrained:
             A_inner = A_inner + 0.5 * rho * (
                 state.constraint_fac[m] - state.constraint_dual_fac[m])
         return solve(A_inner)
+    rho_b = rho[:, None] if par2C else rho
     if ctype == 0:
         extra = Delta - dual
     elif ctype == 2:
@@ -166,69 +331,96 @@ def _factor_update_case(spec, state, data, m, cid, ctype, A, rho,
         extra = H @ Delta - dual
     else:  # 4
         extra = Delta @ H - dual
-    A_inner = A + 0.5 * rho * extra
+    A_inner = A + 0.5 * rho_b * extra
     if constrained:
-        A_inner = A_inner + 0.5 * rho * (
+        A_inner = A_inner + 0.5 * rho_b * (
             state.constraint_fac[m] - state.constraint_dual_fac[m])
     return solve(A_inner)
 
 
+def _rowwise(spec, m, r):
+    """A mode's rho as a weight of its rows: (K, 1) for a par2C mode."""
+    return r[:, None] if _is_par2C(spec, m) else r
+
+
 def _delta_update(spec, state, data, cmodes, cid, ctype, rhos):
     """Consensus Delta update for each coupling type (cmtf_fun_AOADMM.m
-    :660-675, 737-749, 807-815, 872-881, 938-963, 1026-1054)."""
+    :660-675, 737-749, 807-815, 872-881, 938-963, 1026-1054).  A par2C mode
+    weights its rows by their own rho; under types 4 and 5 its rows then
+    solve their own systems (AA + AA_PAR2_k)."""
     Delta = state.coupling_fac[cid - 1]
-    zero = torch.zeros((), dtype=Delta.dtype, device=Delta.device)
-    if ctype in (0, 1, 2):
+    kw = dict(dtype=Delta.dtype, device=Delta.device)
+    zero = torch.zeros((), **kw)
+    if ctype in (0, 2):
         num = torch.zeros_like(Delta)
         sum_rho = zero
         for jj in cmodes:
             r = rhos[jj]
             fac = state.fac[jj]
-            if ctype == 1:
-                fac = data.coupl_trafo[jj] @ fac
-            elif ctype == 2:
+            if ctype == 2:
                 fac = fac @ data.coupl_trafo[jj]
-            num = num + r * (fac + state.coupling_dual_fac[jj])
+            num = num + _rowwise(spec, jj, r) * (fac + state.coupling_dual_fac[jj])
+            sum_rho = sum_rho + r
+        return num / (sum_rho[:, None] if sum_rho.dim() else sum_rho)
+    if ctype == 1:
+        num = torch.zeros_like(Delta)
+        sum_rho = zero
+        for jj in cmodes:
+            r = torch.sum(rhos[jj])   # sum(rho{jj}) (cmtf_fun_AOADMM.m:742)
+            num = num + r * (data.coupl_trafo[jj] @ state.fac[jj]
+                             + state.coupling_dual_fac[jj])
             sum_rho = sum_rho + r
         return num / sum_rho
     if ctype == 3:
         H0 = data.coupl_trafo[cmodes[0]]
-        AA = torch.zeros((H0.shape[1], H0.shape[1]), dtype=Delta.dtype,
-                         device=Delta.device)
-        BB = torch.zeros((H0.shape[1], state.fac[cmodes[0]].shape[1]),
-                         dtype=Delta.dtype, device=Delta.device)
+        AA = torch.zeros((H0.shape[1], H0.shape[1]), **kw)
+        BB = torch.zeros((H0.shape[1], state.fac[cmodes[0]].shape[1]), **kw)
         for jj in cmodes:
             H = data.coupl_trafo[jj]
-            r = rhos[jj]
+            r = _rowwise(spec, jj, rhos[jj])
             AA = AA + H.T @ (r * H)
             BB = BB + H.T @ (r * (state.fac[jj] + state.coupling_dual_fac[jj]))
         return solve(AA, BB)
     if ctype == 4:
         H0 = data.coupl_trafo[cmodes[0]]
         D = H0.shape[0]
-        AA = torch.zeros((D, D), dtype=Delta.dtype, device=Delta.device)
-        BB = torch.zeros((state.fac[cmodes[0]].shape[0], D), dtype=Delta.dtype,
-                         device=Delta.device)
+        AA = torch.zeros((D, D), **kw)
+        BB = torch.zeros((state.fac[cmodes[0]].shape[0], D), **kw)
+        AA_PAR2 = None
         for jj in cmodes:
             H = data.coupl_trafo[jj]
             r = rhos[jj]
-            AA = AA + r * (H @ H.T)
-            BB = BB + (r * (state.fac[jj] + state.coupling_dual_fac[jj])) @ H.T
+            if _is_par2C(spec, jj):
+                AA_PAR2 = r[:, None, None] * (H @ H.T)[None]   # (K, D, D)
+            else:
+                AA = AA + r * (H @ H.T)
+            BB = BB + (_rowwise(spec, jj, r) * (
+                state.fac[jj] + state.coupling_dual_fac[jj])) @ H.T
+        if AA_PAR2 is not None:
+            # row-wise Delta(k,:) (AA + AA_PAR2_k) = BB(k,:), transposed
+            sys = AA[None] + AA_PAR2
+            return solve(sys.transpose(-1, -2), BB[:, :, None])[:, :, 0]
         # Delta AA = BB, solved with the transpose as in the JAX package
         return solve(AA.T, BB.T).T
     # type 5: the reference weights every term with rho of the LAST coupled
     # mode (its leftover loop variable, cmtf_fun_AOADMM.m:1032); kept
-    rhoC = rhos[cmodes[-1]]
+    rhoC = torch.mean(rhos[cmodes[-1]])
     H20 = data.coupl_trafo2[cmodes[0]]
     D2 = H20.shape[0]
-    AA = torch.zeros((D2, D2), dtype=Delta.dtype, device=Delta.device)
-    BB = torch.zeros((data.coupl_trafo[cmodes[0]].shape[0], D2),
-                     dtype=Delta.dtype, device=Delta.device)
+    AA = torch.zeros((D2, D2), **kw)
+    BB = torch.zeros((data.coupl_trafo[cmodes[0]].shape[0], D2), **kw)
+    AA_PAR2 = None
     for jj in cmodes:
         H, H2 = data.coupl_trafo[jj], data.coupl_trafo2[jj]
-        AA = AA + rhoC * (H2 @ H2.T)
+        if _is_par2C(spec, jj):
+            AA_PAR2 = rhos[jj][:, None, None] * (H2 @ H2.T)[None]
+        else:
+            AA = AA + rhoC * (H2 @ H2.T)
         BB = BB + rhoC * (H @ state.fac[jj]
                           + state.coupling_dual_fac[jj]) @ H2.T
+    if AA_PAR2 is not None:
+        sys = AA[None] + AA_PAR2
+        return solve(sys.transpose(-1, -2), BB[:, :, None])[:, :, 0]
     return solve(AA.T, BB.T).T
 
 
@@ -295,16 +487,11 @@ def eval_res_coupling(spec, state, data, cmodes, cid, ctype, oldDelta):
 def admm_coupled(spec: ProblemSpec, state: SolverState, data, cmodes, cid,
                  ctype, As, rhos, options, proxes, solvers):
     """Coupled-ADMM loop for coupling types 0-5 (cmtf_fun_AOADMM.m:625-1075)
-    on CP modes.  As/rhos/solvers: dicts keyed by mode; solvers holds the
-    solvers prebuilt once an outer iteration: make_spd_solver's right
-    solvers (types 0, 2, 3, 4) or linalg.sylvester_solver's (types 1, 5).
-    Returns (state, inner_iters)."""
+    on CP, PARAFAC2-A and par2C modes.  As/rhos/solvers: dicts keyed by
+    mode; solvers holds the solvers prebuilt once an outer iteration
+    (_factor_update_case).  Returns (state, inner_iters)."""
     _check_ctype(ctype)
     for mm in cmodes:
-        if spec.mode_role(mm) != "cp":
-            raise NotImplementedError(
-                f"coupled mode {mm} is a PARAFAC2 mode: PARAFAC2 (and the "
-                "par2C coupling branches) come with slice 4 (ROADMAP.md)")
         if spec.datasets[spec.which_p(mm)].loss != "Frobenius":
             raise NotImplementedError(
                 "admm_coupled is ported for Frobenius loss; other losses come "

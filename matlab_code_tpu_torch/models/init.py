@@ -1,14 +1,15 @@
 """Initialization of the solver state (init_coupled_AOADMM_CMTF.m),
-counterpart of the CP part of matlab_code_tpu/models/init.py: random draws
-or spectral ('nvecs') factors, constraint auxiliaries through every CP
-prox, coupling Delta and duals for types 0-5.
+counterpart of matlab_code_tpu/models/init.py: random draws or spectral
+('nvecs') factors, PARAFAC2's padded Bk with P, DeltaB and mu_DeltaB,
+constraint auxiliaries through every prox, coupling Delta and duals for
+types 0-5.
 
 Draws come from an explicit torch.Generator, in the JAX package's order
 (factors per dataset and mode, then constraint auxiliaries and duals, then
 couplings).  torch and jax.random give different numbers from the same
 seed, so a run that must match the JAX package moves its init state across
 with convert.state_from_numpy.  nvecs factors take no draw and match the
-JAX package's.  PARAFAC2 init comes with slice 4.
+JAX package's.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from matlab_code_tpu_torch.ops.linalg import top_eigvecs
 from matlab_code_tpu_torch.ops.tensor import unfold
 from matlab_code_tpu_torch.options import InitOptions
 from matlab_code_tpu_torch.problem import (
-    CP, ProblemData, ProblemSpec, SparseTensor)
+    CP, PAR2, ProblemData, ProblemSpec, SparseTensor)
 from matlab_code_tpu_torch.state import SolverState
 
 
@@ -129,8 +130,11 @@ def dual_shape(spec: ProblemSpec, cid: int, m: int, fac, dshape: tuple
 def init_coupled(spec: ProblemSpec, data: ProblemData,
                  init_options: InitOptions, generator: torch.Generator | None = None,
                  seed: int = 0, delta_shapes: dict | None = None) -> SolverState:
-    """Build a full initial SolverState (factors, constraint auxiliaries and
-    duals, coupling Delta and duals) — init_coupled_AOADMM_CMTF.m:37-169.
+    """Build a full initial SolverState (factors, PARAFAC2 P, DeltaB and
+    mu_DeltaB, constraint auxiliaries and duals, coupling Delta and duals)
+    — init_coupled_AOADMM_CMTF.m:37-169.  A PARAFAC2 Bk mode is (K, Jmax,
+    R), zero past each slice's J_k rows, as are its P, mu and constraint
+    auxiliaries.
 
     generator: the source of every draw; when None, one is seeded with
     `seed`.  delta_shapes: {cid: (rows, cols)}, the Delta shape of each
@@ -167,17 +171,45 @@ def init_coupled(spec: ProblemSpec, data: ProblemData,
     def rand(shape):
         return torch.rand(shape, generator=generator, dtype=dt, device=dev)
 
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
     fac = [None] * nb
+    Pfac, DeltaB, mu_DeltaB = [None] * P, [None] * P, [None] * P
     for p, ds in enumerate(spec.datasets):
-        if ds.model != CP:
-            raise NotImplementedError(
-                "PARAFAC2 initialization comes with slice 4 (ROADMAP.md)")
+        R = ds.rank
         for n in ds.modes:
-            if init_options.nvecs:
-                fac[n] = cmtf_nvecs(spec, data, n, ds.rank).to(dt)
-                continue
-            A = draw(n, (spec.mode_sizes[n], ds.rank))
-            fac[n] = _normalize_cols(A) if init_options.normalize else A
+            local = ds.modes.index(n)
+            if ds.model == PAR2 and local == 1:
+                K, Jmax = spec.par2_K(p), spec.par2_Jmax(p)
+                DeltaB[p] = rand((R, R))
+                Bs, Ps, mus = zeros((K, Jmax, R)), zeros((K, Jmax, R)), \
+                    zeros((K, Jmax, R))
+                for k, J in enumerate(spec.par2_slice_sizes(p)):
+                    if init_options.nvecs:
+                        M = data.objects[p].slices[k, :, :J].T   # (J, I)
+                        Bk = top_eigvecs(M @ M.T, R)
+                    else:
+                        Bk = draw(n, (J, R))
+                        if init_options.normalize:
+                            Bk = _normalize_cols(Bk)
+                    Bs[k, :J] = Bk
+                    Ps[k, :J] = torch.eye(J, R, dtype=dt, device=dev)
+                    mus[k, :J] = rand((J, R))
+                fac[n], Pfac[p], mu_DeltaB[p] = Bs, Ps, mus
+            elif ds.model == PAR2 and local == 0 and init_options.nvecs:
+                # the Gram of the horizontally concatenated slices (init
+                # :54-60); padded columns are zero and add nothing
+                Xs = data.objects[p].slices
+                fac[n] = top_eigvecs(torch.einsum("kij,klj->il", Xs, Xs), R)
+            elif ds.model == PAR2 and local == 2 and init_options.nvecs:
+                fac[n] = torch.ones((spec.mode_sizes[n], R), dtype=dt,
+                                    device=dev)
+            elif init_options.nvecs:
+                fac[n] = cmtf_nvecs(spec, data, n, R).to(dt)
+            else:
+                A = draw(n, (spec.mode_sizes[n], R))
+                fac[n] = _normalize_cols(A) if init_options.normalize else A
 
     from matlab_code_tpu_torch.models.solver import build_proxes
     proxes, _ = build_proxes(spec)
@@ -185,7 +217,17 @@ def init_coupled(spec: ProblemSpec, data: ProblemData,
     constraint_dual = [None] * nb
     for p, ds in enumerate(spec.datasets):
         for n in ds.modes:
-            if spec.is_constrained(n):
+            if not spec.is_constrained(n):
+                continue
+            if ds.model == PAR2 and ds.modes.index(n) == 1:
+                Zs, duals = zeros(fac[n].shape), zeros(fac[n].shape)
+                tpar2 = spec.constraints[n].kind == "tPARAFAC2"
+                for k, J in enumerate(spec.par2_slice_sizes(p)):
+                    z = draw(n, (J, ds.rank))
+                    Zs[k, :J] = z if tpar2 else proxes[n](z, 1.0)  # init:110-112
+                    duals[k, :J] = rand((J, ds.rank))
+                constraint_fac[n], constraint_dual[n] = Zs, duals
+            else:
                 constraint_fac[n] = proxes[n](draw(n, fac[n].shape), 1.0)
                 constraint_dual[n] = rand(fac[n].shape)
 
@@ -202,4 +244,4 @@ def init_coupled(spec: ProblemSpec, data: ProblemData,
         constraint_dual_fac=tuple(constraint_dual),
         coupling_fac=tuple(coupling_fac),
         coupling_dual_fac=tuple(coupling_dual),
-        P=(None,) * P, DeltaB=(None,) * P, mu_DeltaB=(None,) * P)
+        P=tuple(Pfac), DeltaB=tuple(DeltaB), mu_DeltaB=tuple(mu_DeltaB))

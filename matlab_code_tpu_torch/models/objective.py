@@ -1,23 +1,25 @@
 """Objective / residual-stream evaluation (CMTF_AOADMM_func_eval,
-cmtf_fun_AOADMM.m:1213-1363), counterpart of the CP-Frobenius part of
-matlab_code_tpu/models/objective.py: data terms, the constraints'
-regularizer terms (ops/prox.make_prox's reg), ridge, and the coupling
-gaps of types 0-5.
+cmtf_fun_AOADMM.m:1213-1363), counterpart of the Frobenius part of
+matlab_code_tpu/models/objective.py: data terms of CP and PARAFAC2
+datasets, the constraints' regularizer terms (ops/prox.make_prox's reg),
+ridge, the coupling gaps of types 0-5 and the PARAFAC2 internal coupling
+gaps.
 
 Returns the four streams (f_tensors, f_couplings, f_constraints,
-f_PAR2_couplings) as 0-d tensors.  The data term reads the cached MTTKRP
-of the last updated mode (no extra data pass); the fresh branch (iteration
-0) runs one MTTKRP per dataset, dense or sparse COO.
+f_PAR2_couplings) as 0-d tensors.  A CP data term reads the cached MTTKRP
+of the last updated mode (no extra data pass), as does a PARAFAC2 one whose
+A mode was updated last; otherwise (iteration 0, or a PARAFAC2 dataset
+whose C mode came last) it is evaluated afresh.
 """
 from __future__ import annotations
 
 import torch
 
-from matlab_code_tpu_torch.models.admm import _check_ctype
+from matlab_code_tpu_torch.models.admm import _check_ctype, _fro_slices
 from matlab_code_tpu_torch.ops.tensor import (
     gram, hadamard_grams, mttkrp, mttkrp_sparse)
 from matlab_code_tpu_torch.problem import (
-    CP, ProblemData, ProblemSpec, SparseTensor)
+    CP, PAR2, ProblemData, ProblemSpec, SparseTensor)
 
 _fro = torch.linalg.norm
 
@@ -31,23 +33,43 @@ def _mean_nonzero(vals):
                        torch.sum(arr))
 
 
+def par2_model_slices(spec, state, p):
+    """(K, I, Jmax) model slices A diag(c_k) B_k^T."""
+    ds = spec.datasets[p]
+    A, Bk, C = (state.fac[m] for m in ds.modes)
+    return (A[None] * C[:, None, :]) @ Bk.transpose(1, 2)
+
+
 def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
               znorm_consts, reg_fns, cached=None, options=None):
     """The four objective streams.  cached: None (fresh eval) or
-    {p: (last_mttkrp, last_had, last_local_mode)} for CP-Frobenius datasets."""
+    {p: (last_mttkrp, last_had, last_local_mode)} for Frobenius datasets
+    (for a PARAFAC2 dataset last_local_mode is 0, 1 or 2: A, Bk, C)."""
     like = state.fac[0]
     zero = torch.zeros((), dtype=like.dtype, device=like.device)
     fps = []
     for p, ds in enumerate(spec.datasets):
         X = data.objects[p]
-        if ds.model != CP or ds.loss != "Frobenius":
+        if ds.loss != "Frobenius":
             raise NotImplementedError(
-                f"func_eval is ported for CP datasets with Frobenius loss; "
-                f"dataset {p} is {ds.model}/{ds.loss} (PARAFAC2: slice 4, "
-                "other losses: slice 5)")
+                f"func_eval is ported for Frobenius loss; dataset {p} has "
+                f"{ds.loss} (other losses: slice 5)")
         if data.miss[p] is not None:
             raise NotImplementedError(
                 "missing data (EM imputation) comes with slice 6 (ROADMAP.md)")
+        if ds.model == PAR2:
+            if cached is not None and p in cached and cached[p][2] == 0:
+                last_mk, last_had, _ = cached[p]
+                mA = ds.modes[0]
+                f2 = torch.sum(last_mk * state.fac[mA])
+                f3 = torch.sum(last_had * grams[mA])
+                fp = znorm_consts[p] - 2.0 * f2 + f3
+            else:
+                # padded columns are zero in both and contribute nothing
+                D = X.slices - par2_model_slices(spec, state, p)
+                fp = torch.sum(D * D)
+            fps.append(ds.weight * fp)
+            continue
         if cached is not None and p in cached:
             last_mk, last_had, last_m = cached[p]
             mlast = ds.modes[last_m]
@@ -70,7 +92,15 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
 
     for m in range(spec.nb_modes):
         rf = reg_fns[m] if reg_fns else None
-        if rf is not None:
+        if rf is None:
+            continue
+        if spec.mode_role(m) == "par2_B" and spec.constraints[m].kind != "tPARAFAC2":
+            # slice by slice, each on its true J_k rows, so ragged padding
+            # never enters the penalty (cmtf_fun_AOADMM.m:1281-1284)
+            Bs = state.fac[m]
+            sizes = spec.par2_slice_sizes(spec.which_p(m))
+            f_tensors = f_tensors + sum(rf(Bs[k, :J]) for k, J in enumerate(sizes))
+        else:
             f_tensors = f_tensors + rf(state.fac[m])
     if spec.ridge is not None:
         for m in range(spec.nb_modes):
@@ -103,9 +133,29 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
     f_couplings = _mean_nonzero(cps) if cps else zero
 
     # constraint gaps (cmtf_fun_AOADMM.m:1331-1348)
-    fcs = [_fro(state.fac[m] - state.constraint_fac[m]) / _fro(state.fac[m])
-           for m in range(spec.nb_modes) if spec.is_constrained(m)]
+    fcs = []
+    for m in range(spec.nb_modes):
+        if not spec.is_constrained(m):
+            continue
+        fac, Z = state.fac[m], state.constraint_fac[m]
+        if spec.mode_role(m) == "par2_B":
+            fcs.append(torch.sum(_fro_slices(fac - Z) / _fro_slices(fac))
+                       / fac.shape[0])
+        else:
+            fcs.append(_fro(fac - Z) / _fro(fac))
     f_constraints = _mean_nonzero(fcs) if fcs else zero
 
-    # no PARAFAC2 datasets: the internal coupling stream is zero
-    return f_tensors, f_couplings, f_constraints, zero
+    # PARAFAC2 internal coupling gaps (cmtf_fun_AOADMM.m:1350-1362)
+    f_par2 = zero
+    par2 = [p for p, ds in enumerate(spec.datasets) if ds.model == PAR2]
+    for p in par2:
+        facB = state.fac[spec.datasets[p].modes[1]]
+        PDB = state.P[p] @ state.DeltaB[p]
+        f_par2 = f_par2 + torch.sum(_fro_slices(facB - PDB) / _fro_slices(facB))
+    if par2:
+        # the reference divides by K of the LAST dataset's second mode
+        # (its leftover loop variable, cmtf_fun_AOADMM.m:1361); kept
+        last_sz = spec.mode_sizes[spec.datasets[-1].modes[1]]
+        div = len(last_sz) if isinstance(last_sz, (tuple, list)) else 1
+        f_par2 = torch.where(f_par2 > 0, f_par2 / div, f_par2)
+    return f_tensors, f_couplings, f_constraints, f_par2

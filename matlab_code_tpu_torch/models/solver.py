@@ -7,7 +7,9 @@ outer loop is an eager host loop with the same exit rule and the same
 per-iteration streams; it reads one combined stop / ill-conditioning flag
 from the device per outer iteration, and the inner loops read their
 residuals (models/admm.to_host counts every such read).  Per-iteration wall
-times are exact, as in the JAX package's fit_stepwise.
+times are exact, as in the JAX package's fit_stepwise.  A delayed PARAFAC2
+Bk constraint (options.iter_start_PAR2Bkconstraint, script 9) switches the
+sweep at that iteration, as the JAX fit's two phases do.
 """
 from __future__ import annotations
 
@@ -20,17 +22,20 @@ import numpy as np
 import torch
 
 from matlab_code_tpu_torch.models.admm import (
-    _check_ctype, _chol_rcond_bad, admm_constrained_only, admm_coupled,
-    make_spd_solver, to_host)
+    _check_ctype, _chol_rcond_bad, admm_b_parafac2, admm_constrained_only,
+    admm_coupled, make_spd_solver, to_host)
 from matlab_code_tpu_torch.models.objective import func_eval
-from matlab_code_tpu_torch.models.updates import cp_mode_precompute, refresh_gram
+from matlab_code_tpu_torch.models.updates import (
+    cp_mode_precompute, mode_gram, par2A_precompute, par2B_precompute,
+    par2C_precompute, refresh_gram)
 from matlab_code_tpu_torch.ops import losses
-from matlab_code_tpu_torch.ops.linalg import chol_lower, rsolve, sylvester_solver
+from matlab_code_tpu_torch.ops.linalg import (
+    block_diag, chol_lower, rsolve, solve, solve_spd_left, sylvester_solver)
 from matlab_code_tpu_torch.ops.prox import make_prox
-from matlab_code_tpu_torch.ops.tensor import gram
 from matlab_code_tpu_torch.options import AlgOptions, apply_matmul_precision
 from matlab_code_tpu_torch.problem import (
-    CP, ProblemData, ProblemSpec, SparseTensor, check_data_input, has_missing)
+    CP, PAR2, Parafac2Tensor, ProblemData, ProblemSpec, SparseTensor,
+    check_data_input, has_missing)
 from matlab_code_tpu_torch.state import SolverState, tuple_set
 
 STREAMS = ("f_tensors", "f_couplings", "f_constraints", "f_PAR2_couplings")
@@ -38,9 +43,6 @@ STREAMS = ("f_tensors", "f_couplings", "f_constraints", "f_PAR2_couplings")
 
 def _check_ported(spec: ProblemSpec) -> None:
     for p, ds in enumerate(spec.datasets):
-        if ds.model != CP:
-            raise NotImplementedError(
-                f"dataset {p} is PARAFAC2: it comes with slice 4 (ROADMAP.md)")
         if ds.loss != "Frobenius":
             raise NotImplementedError(
                 f"dataset {p} has loss {ds.loss!r}: non-Frobenius losses come "
@@ -50,30 +52,39 @@ def _check_ported(spec: ProblemSpec) -> None:
 
 
 def build_proxes(spec: ProblemSpec):
-    """(prox, reg) of every constrained mode (ops/prox.make_prox)."""
+    """(prox, reg) of every constrained mode (ops/prox.make_prox).  A
+    PARAFAC2 Bk mode's size is its FIRST slice's (the reference's sz{m}(1),
+    constraints_to_prox.m:70): the size of a GL smoothness operator."""
     prox_fns = [None] * spec.nb_modes
     reg_fns = [None] * spec.nb_modes
     for m in range(spec.nb_modes):
         if spec.is_constrained(m):
-            prox_fns[m], reg_fns[m] = make_prox(
-                spec.constraints[m], spec.mode_sizes[m])
+            sz = spec.mode_sizes[m]
+            if isinstance(sz, (tuple, list)):
+                sz = sz[0]
+            prox_fns[m], reg_fns[m] = make_prox(spec.constraints[m], sz)
     return tuple(prox_fns), tuple(reg_fns)
 
 
 def init_cache(spec: ProblemSpec, state: SolverState) -> tuple:
-    """Initial Grams of every (CP, Frobenius) mode (cmtf_fun_AOADMM.m:62-81)."""
+    """Initial Grams (cmtf_fun_AOADMM.m:62-81): of every CP and PARAFAC2-A
+    mode, the per-slice Grams (K, R, R) of a Bk mode, None for a par2C
+    mode (never read as a Gram)."""
     _check_ported(spec)
-    return tuple(gram(state.fac[m]) for m in range(spec.nb_modes))
+    return tuple(None if spec.mode_role(m) == "par2_C"
+                 else mode_gram(spec, state, m) for m in range(spec.nb_modes))
 
 
 def compute_znorm_consts(spec: ProblemSpec, data: ProblemData,
                          options: AlgOptions):
     """Per-dataset data constants (cmtf_AOADMM.m:124-189); sum of squared
-    values for a sparse COO dataset."""
+    values for a sparse COO or PARAFAC2 dataset."""
     out = []
     for p, ds in enumerate(spec.datasets):
         X = data.objects[p]
-        if isinstance(X, SparseTensor):
+        if ds.model == PAR2:
+            out.append(torch.sum(X.slices * X.slices))
+        elif isinstance(X, SparseTensor):
             out.append(torch.sum(X.values * X.values))
         else:
             out.append(losses.znorm_const(ds.loss, X, options.eps_log,
@@ -113,7 +124,10 @@ def attach_sparse_plans(spec: ProblemSpec, data: ProblemData,
     never copies X.  Data on the CPU is returned as it is."""
     objs = list(data.objects)
     for p, X in enumerate(objs):
-        if isinstance(X, SparseTensor):
+        if isinstance(X, Parafac2Tensor):
+            if X.device.type == "cuda" and not X.slices.is_contiguous():
+                objs[p] = Parafac2Tensor(X.slices.contiguous(), X.mask)
+        elif isinstance(X, SparseTensor):
             if X.plans is None and X.device.type == "cuda":
                 objs[p] = X.with_plans(
                     tuple(spec.mode_sizes[m] for m in spec.datasets[p].modes),
@@ -137,25 +151,52 @@ def _check_devices(data: ProblemData, state: SolverState) -> None:
                 f"{dev}")
 
 
-def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns):
+def _has_bk_constraint(spec: ProblemSpec) -> bool:
+    return any(ds.model == PAR2 and spec.is_constrained(ds.modes[1])
+               for ds in spec.datasets)
+
+
+def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
+                    bk_constraint_active: bool = True):
     """One AO sweep over the coupling ids (cmtf_fun_AOADMM.m:87-407) for CP
-    datasets with Frobenius loss.  outer_step(state, data, grams) returns
-    (state, grams, cached, inner_its, illc): cached feeds func_eval's
-    cached-MTTKRP branch, inner_its maps mode -> inner iterations (int),
-    illc is the ill-conditioning flag (0-d bool tensor)."""
+    and PARAFAC2 datasets with Frobenius loss.  bk_constraint_active: False
+    before options.iter_start_PAR2Bkconstraint, when a PARAFAC2 Bk mode
+    runs unconstrained.  outer_step(state, data, grams) returns (state,
+    grams, cached, inner_its, illc): cached feeds func_eval's cached-MTTKRP
+    branch, inner_its maps mode -> inner iterations (int), illc is the
+    ill-conditioning flag (0-d bool tensor)."""
     _check_ported(spec)
 
     def outer_step(state, data, grams):
         inner_its: dict[int, Any] = {}
         cached: dict[int, Any] = {}
-        partials: dict[int, Any] = {}
+        partials: dict = {}
         illc = torch.zeros((), dtype=torch.bool, device=state.fac[0].device)
 
-        def spd_checked(B):
+        def chol_checked(B):
             nonlocal illc
-            right, bad = make_spd_solver(B, options, illtol=options.IllCondTol)
+            L = chol_lower(B)
+            if options.IllCondTol > 0:
+                illc = illc | _chol_rcond_bad(L, options.IllCondTol)
+            return L
+
+        def spd_checked(B, lmin=None):
+            nonlocal illc
+            right, rowleft, bad = make_spd_solver(
+                B, options, illtol=options.IllCondTol, lmin=lmin)
             illc = illc | bad
-            return right
+            return right, rowleft
+
+        def screen(B):
+            # where MATLAB's nearlySingularMatrix would fire
+            # (cmtf_fun_AOADMM.m:134)
+            nonlocal illc
+            if options.IllCondTol > 0:
+                illc = illc | _chol_rcond_bad(chol_lower(B), options.IllCondTol)
+
+        def eye_of(pre):
+            return torch.eye(pre.B.shape[-1], dtype=pre.A.dtype,
+                             device=pre.A.device)
 
         for cid in spec.coupling_ids():
             cmodes = spec.coupled_modes_of(cid)
@@ -163,30 +204,58 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns):
             for p in sorted({spec.which_p(m) for m in cmodes}):
                 ds = spec.datasets[p]
                 for m in (m for m in cmodes if spec.which_p(m) == p):
-                    pre = cp_mode_precompute(spec, data, state, grams, p, m,
-                                             options, partials)
-                    cached[p] = (pre.last_mttkrp, pre.last_had,
-                                 ds.modes.index(m))
+                    role = spec.mode_role(m)
+                    constrained = spec.is_constrained(m)
+                    if role == "par2_B":
+                        active = constrained and bk_constraint_active
+                        A, Bk, rho = par2B_precompute(
+                            spec, data, state, grams, p, m, options,
+                            constraint_active=active, partials=partials)
+                        right, _ = spd_checked(Bk, lmin=0.5 * rho)
+                        cached[p] = (None, None, 1)
+                        state, inner_its[m] = admm_b_parafac2(
+                            spec, state, m, p, A, right, rho, options, proxes,
+                            constraint_active=active,
+                            sizes=spec.par2_slice_sizes(p))
+                        grams = refresh_gram(spec, state, grams, m)
+                        continue
+                    if role == "cp":
+                        pre = cp_mode_precompute(spec, data, state, grams, p, m,
+                                                 options, partials)
+                        cached[p] = (pre.last_mttkrp, pre.last_had,
+                                     ds.modes.index(m))
+                    elif role == "par2_A":
+                        pre = par2A_precompute(spec, data, state, grams, p, m,
+                                               options)
+                        cached[p] = (pre.last_mttkrp, pre.last_had, 0)
+                    else:   # par2_C
+                        pre = par2C_precompute(spec, data, state, grams, p, m,
+                                               options, partials=partials)
+                        cached[p] = (None, None, 2)
                     if cid != 0:
                         pres[m] = pre
-                        continue
-                    if not spec.is_constrained(m):
-                        if options.IllCondTol > 0:
-                            # where MATLAB's nearlySingularMatrix would fire
-                            # (cmtf_fun_AOADMM.m:134)
-                            illc = illc | _chol_rcond_bad(
-                                chol_lower(pre.B), options.IllCondTol)
-                        state = state.replace(fac=tuple_set(
-                            state.fac, m, rsolve(pre.A, pre.B)))
+                    elif not constrained:
+                        screen(pre.B)
+                        if role == "par2_C":
+                            fac = solve(pre.B, pre.A[:, :, None])[:, :, 0]
+                        else:
+                            fac = rsolve(pre.A, pre.B)
+                        state = state.replace(fac=tuple_set(state.fac, m, fac))
                         inner_its[m] = 1
                     else:
-                        eye = torch.eye(ds.rank, dtype=pre.A.dtype,
-                                        device=pre.A.device)
-                        solve = spd_checked(pre.B + 0.5 * pre.rho * eye)
+                        rho_b = (pre.rho[:, None, None] if role == "par2_C"
+                                 else pre.rho)
+                        right, rowleft = spd_checked(
+                            pre.B + 0.5 * rho_b * eye_of(pre),
+                            lmin=0.5 * pre.rho)
                         state, inner_its[m] = admm_constrained_only(
-                            spec, state, m, p, pre.A, solve, pre.rho,
+                            spec, state, m, p, pre.A,
+                            rowleft if role == "par2_C" else right, pre.rho,
                             options, proxes)
-                    grams = refresh_gram(spec, state, grams, m)
+                    # a PARAFAC2 A mode's Gram is refreshed even where it is
+                    # coupled and not yet updated (cmtf_fun_AOADMM.m:190)
+                    if role == "par2_A" or (role == "cp" and cid == 0):
+                        grams = refresh_gram(spec, state, grams, m)
 
             if cid != 0:
                 ctype = spec.coupling.coupling_type[cid - 1]
@@ -194,10 +263,25 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns):
                 for m in cmodes:
                     pre = pres[m]
                     As[m], rhos[m] = pre.A, pre.rho
+                    par2C = spec.mode_role(m) == "par2_C"
                     constrained = spec.is_constrained(m)
                     H = data.coupl_trafo[m] if data.coupl_trafo else None
-                    eye = torch.eye(spec.mode_rank(m), dtype=pre.A.dtype,
-                                    device=pre.A.device)
+                    eye = eye_of(pre)
+                    rho_b = pre.rho[:, None, None] if par2C else pre.rho
+                    if ctype in (1, 5) and par2C:
+                        # the kron-vectorized system (cmtf_fun_AOADMM.m
+                        # :283-297); kron(H, I)^T kron(H, I) = kron(H^T H, I)
+                        K, R = pre.A.shape
+                        rhoC = torch.mean(pre.rho)
+                        B2 = block_diag(pre.B) + 0.5 * rhoC * torch.kron(
+                            H.T @ H, eye)
+                        if constrained:
+                            B2 = B2 + 0.5 * rhoC * torch.eye(
+                                K * R, dtype=B2.dtype, device=B2.device)
+                        L = chol_checked(B2)
+                        solvers[m] = (lambda v, L=L:
+                                      solve_spd_left(L, v[:, None])[:, 0])
+                        continue
                     if ctype in (1, 5):
                         # the Sylvester pair (cmtf_fun_AOADMM.m:724-728),
                         # decomposed once for the inner loop
@@ -209,18 +293,22 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns):
                         solvers[m] = sylvester_solver(B2, pre.B)
                         continue
                     if ctype == 2:
-                        B = pre.B + 0.5 * pre.rho * (H @ H.T)
+                        B = pre.B + 0.5 * rho_b * (H @ H.T)
+                        lmin = 0.5 * pre.rho if constrained else None
                     else:  # 0, 3, 4
-                        B = pre.B + 0.5 * pre.rho * eye
+                        B = pre.B + 0.5 * rho_b * eye
+                        lmin = 0.5 * pre.rho
                     if constrained:
-                        B = B + 0.5 * pre.rho * eye
-                    solvers[m] = spd_checked(B)
+                        B = B + 0.5 * rho_b * eye
+                    right, rowleft = spd_checked(B, lmin=lmin)
+                    solvers[m] = rowleft if par2C else right
                 state, nin = admm_coupled(
                     spec, state, data, cmodes, cid, ctype, As, rhos, options,
                     proxes, solvers)
                 for m in cmodes:
                     inner_its[m] = nin
-                    grams = refresh_gram(spec, state, grams, m)
+                    if spec.mode_role(m) != "par2_C":
+                        grams = refresh_gram(spec, state, grams, m)
         return state, grams, cached, inner_its, illc
 
     return outer_step
@@ -285,7 +373,10 @@ def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
     apply_matmul_precision(options)
     znorms = compute_znorm_consts(spec, data, options)
     proxes, reg_fns = build_proxes(spec)
-    outer_step = make_outer_step(spec, options, proxes, reg_fns)
+    bk = _has_bk_constraint(spec)
+    steps = {active: make_outer_step(spec, options, proxes, reg_fns, active)
+             for active in ((False, True) if bk else (True,))}
+    start = options.iter_start_PAR2Bkconstraint
     T = options.MaxOuterIters
 
     grams = init_cache(spec, state)
@@ -304,6 +395,7 @@ def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
     it = 1
     stop = illc = False
     while it <= T and not stop:
+        outer_step = steps[(not bk) or it >= start]
         state, grams, cached, inner_its, illc_t = outer_step(state, data, grams)
         f4_new = func_eval(spec, data, state, grams, znorms, reg_fns,
                            cached=cached, options=options)
@@ -359,7 +451,8 @@ def cmtf_aoadmm(spec: ProblemSpec, data: ProblemData, options: AlgOptions,
     """High-level entry point (functions/cmtf_AOADMM.m): initializes if needed
     (init_coupled with `generator`, or one seeded with `seed`), fits, and
     assembles per-dataset factor estimates.  Returns
-    (Zhat, state, init_state, out) with Zhat[p] = {'weights', 'factors'}."""
+    (Zhat, state, init_state, out) with Zhat[p] = {'weights', 'factors'}
+    for a CP dataset, {'A', 'Bk', 'C'} for a PARAFAC2 one."""
     if init is None:
         if init_options is None:
             raise ValueError("init_options are missing in cmtf_aoadmm")
@@ -371,9 +464,21 @@ def cmtf_aoadmm(spec: ProblemSpec, data: ProblemData, options: AlgOptions,
 
 
 def assemble_zhat(spec: ProblemSpec, state: SolverState):
-    """Per-dataset factor estimates as numpy arrays (cmtf_AOADMM.m:197-206);
-    ktensor packaging carries implicit unit weights."""
+    """Per-dataset factor estimates as numpy arrays (cmtf_AOADMM.m:197-206):
+    {'weights', 'factors'} for a CP dataset (ktensor packaging carries
+    implicit unit weights), {'A', 'Bk', 'C'} for a PARAFAC2 dataset, Bk the
+    list of each slice's true J_k rows."""
     _check_ported(spec)
-    return [{"weights": np.ones(ds.rank),
-             "factors": [state.fac[j].detach().cpu().numpy() for j in ds.modes]}
-            for ds in spec.datasets]
+    npy = lambda t: t.detach().cpu().numpy()
+    zhat = []
+    for p, ds in enumerate(spec.datasets):
+        if ds.model == CP:
+            zhat.append({"weights": np.ones(ds.rank),
+                         "factors": [npy(state.fac[j]) for j in ds.modes]})
+            continue
+        Bs = npy(state.fac[ds.modes[1]])
+        zhat.append({"A": npy(state.fac[ds.modes[0]]),
+                     "Bk": [Bs[k, :J] for k, J in
+                            enumerate(spec.par2_slice_sizes(p))],
+                     "C": npy(state.fac[ds.modes[2]])})
+    return zhat

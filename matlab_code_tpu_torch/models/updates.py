@@ -1,7 +1,8 @@
 """Per-mode precompute for the AO sweep: MTTKRPs, Gram-Hadamards, the rho
-heuristic and the normal-equation matrices (counterpart of the CP part of
-matlab_code_tpu/models/updates.py, cmtf_fun_AOADMM.m:92-127).  PARAFAC2
-precomputes come with slice 4."""
+heuristic and the normal-equation matrices (counterpart of
+matlab_code_tpu/models/updates.py, cmtf_fun_AOADMM.m:92-251).  The
+PARAFAC2 per-slice loops are batched over the stacked (K, ., .) arrays;
+padded (ragged) rows and columns are zero and drop out of every sum."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -15,9 +16,9 @@ from matlab_code_tpu_torch.problem import ProblemSpec, ProblemData, SparseTensor
 
 class ModePre(NamedTuple):
     """Precomputed quantities for one mode's update."""
-    A: torch.Tensor | None        # RHS (I, R)
+    A: torch.Tensor | None        # RHS (I,R) | (K,R) par2C
     B: torch.Tensor | None        # normal matrix before coupling/constraint terms
-    rho: torch.Tensor | None      # scalar
+    rho: torch.Tensor | None      # scalar, or (K,) for a par2C mode
     last_mttkrp: torch.Tensor | None
     last_had: torch.Tensor | None
 
@@ -91,6 +92,104 @@ def cp_mode_precompute(spec: ProblemSpec, data: ProblemData, state, grams,
     return ModePre(A=A, B=B, rho=rho, last_mttkrp=last_mttkrp, last_had=last_had)
 
 
+def par2_gram_Bk(facB: torch.Tensor) -> torch.Tensor:
+    """(K, Jmax, R) -> per-slice Grams (K, R, R)."""
+    return facB.transpose(1, 2) @ facB
+
+
+def _par2_ridge_bsum(spec, state, m, R, A, B, options):
+    re = _ridge_eye(spec, m, R, A)
+    if re is not None:
+        B = B + re
+    if options.bsum:
+        A = A + options.bsum_weight / 2.0 * state.fac[m]
+        B = B + options.bsum_weight / 2.0 * _eye(R, A)
+    return A, B
+
+
+def par2A_precompute(spec: ProblemSpec, data: ProblemData, state, grams,
+                     p: int, m: int, options) -> ModePre:
+    """First PARAFAC2 mode: A = sum_k X_k B_k diag(c_k), C = sum_k diag(c_k)
+    B_k^T B_k diag(c_k) (cmtf_fun_AOADMM.m:159-178)."""
+    ds = spec.datasets[p]
+    X = data.objects[p]
+    mB, mC = ds.modes[1], ds.modes[2]
+    R = ds.rank
+    facB, facC = state.fac[mB], state.fac[mC]
+    A0 = torch.sum((X.slices @ facB) * facC[:, None, :], dim=0)
+    C = torch.einsum("kr,krs,ks->rs", facC, grams[mB], facC)
+    A, B = _par2_ridge_bsum(spec, state, m, R, ds.weight * A0, ds.weight * C,
+                            options)
+    return ModePre(A=A, B=B, rho=torch.trace(C) / R, last_mttkrp=A0,
+                   last_had=C)
+
+
+def _par2_W(spec, data, state, p, partials):
+    """The shared PARAFAC2 partial W_k = X_k^T A (K, Jmax, R) of the Bk and
+    C precomputes, reused only while the A factor is the same tensor object
+    (factors are never updated in place), so a stale A is never reused."""
+    facA = state.fac[spec.datasets[p].modes[0]]
+    key = ("par2W", p)
+    if partials is not None:
+        hit = partials.get(key)
+        if hit is not None and hit[0] is facA:
+            return hit[1]
+    W = (facA.T @ data.objects[p].slices).transpose(1, 2)
+    if partials is not None:
+        partials[key] = (facA, W)
+    return W
+
+
+def par2B_precompute(spec: ProblemSpec, data: ProblemData, state, grams,
+                     p: int, m: int, options, constraint_active: bool,
+                     partials: dict | None = None):
+    """Second PARAFAC2 mode, batched over slices (cmtf_fun_AOADMM.m:191-213).
+    Returns (A (K,Jmax,R), B (K,R,R) the assembled normal matrix with the
+    always-on internal-coupling rho_k/2 I and, while the constraint is
+    active, another rho_k/2 I (:209-211), rho (K,))."""
+    ds = spec.datasets[p]
+    mA, mC = ds.modes[0], ds.modes[2]
+    R = ds.rank
+    facC = state.fac[mC]
+    W = _par2_W(spec, data, state, p, partials)
+    A = ds.weight * (W * facC[:, None, :])
+    C = facC[:, :, None] * grams[mA][None] * facC[:, None, :]
+    rho = torch.diagonal(C, dim1=1, dim2=2).sum(-1) / R
+    if options.increase_factor_rhoBk is not None:
+        rho = options.increase_factor_rhoBk * rho
+    eye = _eye(R, A)
+    B = ds.weight * C + 0.5 * rho[:, None, None] * eye
+    A, B = _par2_ridge_bsum(spec, state, m, R, A, B, options)
+    if constraint_active:
+        B = B + 0.5 * rho[:, None, None] * eye
+    return A, B, rho
+
+
+def par2C_precompute(spec: ProblemSpec, data: ProblemData, state, grams,
+                     p: int, m: int, options,
+                     partials: dict | None = None) -> ModePre:
+    """Third PARAFAC2 mode, row-wise batched (cmtf_fun_AOADMM.m:219-233):
+    A (K, R) = w * colsum(W_k .* B_k), B (K, R, R) = w * GramA .* GramB_k,
+    rho (K,)."""
+    ds = spec.datasets[p]
+    mA, mB = ds.modes[0], ds.modes[1]
+    R = ds.rank
+    W = _par2_W(spec, data, state, p, partials)
+    A = ds.weight * torch.sum(W * state.fac[mB], dim=1)
+    C = grams[mA][None, :, :] * grams[mB]
+    rho = torch.diagonal(C, dim1=1, dim2=2).sum(-1) / R
+    A, B = _par2_ridge_bsum(spec, state, m, R, A, ds.weight * C, options)
+    return ModePre(A=A, B=B, rho=rho, last_mttkrp=None, last_had=None)
+
+
+def mode_gram(spec: ProblemSpec, state, m: int) -> torch.Tensor:
+    """Mode m's Gram: per-slice Grams (K, R, R) for a PARAFAC2 Bk mode."""
+    if spec.mode_role(m) == "par2_B":
+        return par2_gram_Bk(state.fac[m])
+    return gram(state.fac[m])
+
+
 def refresh_gram(spec: ProblemSpec, state, grams: tuple, m: int) -> tuple:
-    """G_transp_G refresh after a CP mode update (cmtf_fun_AOADMM.m:148,396)."""
-    return grams[:m] + (gram(state.fac[m]),) + grams[m + 1:]
+    """G_transp_G refresh after a mode update (cmtf_fun_AOADMM.m:148, 190,
+    216, 396)."""
+    return grams[:m] + (mode_gram(spec, state, m),) + grams[m + 1:]

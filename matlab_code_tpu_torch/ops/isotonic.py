@@ -127,16 +127,19 @@ def unimodal_vector(y: torch.Tensor, nonneg: bool) -> torch.Tensor:
 
 def columns_reference(X: torch.Tensor, kind: int, nonneg: bool = False,
                       steps: list | None = None) -> torch.Tensor:
-    """The plain version of kernel A on a CPU matrix: kind INCREASING,
-    DECREASING or UNIMODAL, column by column, in float64, returned in
-    X.dtype.  steps, when given, gets each scan's dependent steps."""
-    cols = X.detach().to(torch.float64).T.tolist()
+    """The plain version of kernel A on a CPU matrix (n, R) or stack of
+    slices (K, n, R): kind INCREASING, DECREASING or UNIMODAL, column by
+    column, in float64, returned in X.dtype.  steps, when given, gets each
+    scan's dependent steps."""
+    n, R = X.shape[-2:]
+    cols = X.detach().to(torch.float64).reshape(-1, n, R).transpose(
+        1, 2).reshape(-1, n).tolist()
     if kind == UNIMODAL:
         out = [unimodal_list(c, nonneg, steps) for c in cols]
     else:
         out = [isotonic_list(c, kind == INCREASING, steps) for c in cols]
-    return torch.tensor(out, dtype=torch.float64).T.to(X.dtype).reshape(
-        X.shape)
+    return torch.tensor(out, dtype=torch.float64).reshape(-1, R, n).transpose(
+        1, 2).to(X.dtype).reshape(X.shape)
 
 
 def _columns(X: torch.Tensor, kind: int, nonneg: bool) -> torch.Tensor:
@@ -149,12 +152,13 @@ def _columns(X: torch.Tensor, kind: int, nonneg: bool) -> torch.Tensor:
 
 
 def project_monotone(X: torch.Tensor, increasing: bool = True) -> torch.Tensor:
-    """Column-wise monotone projection of an (n, R) matrix; non-increasing
+    """Column-wise monotone projection of an (n, R) matrix or of each slice
+    of a (K, n, R) stack; non-increasing
     negates in and out, as the reference's -project_monotone(-x, 1)."""
     return _columns(X, INCREASING if increasing else DECREASING, False)
 
 
 def project_unimodal(X: torch.Tensor, nonneg: bool) -> torch.Tensor:
-    """Column-wise unimodal projection of an (n, R) matrix
-    (project_unimodal.m)."""
+    """Column-wise unimodal projection of an (n, R) matrix or of each slice
+    of a (K, n, R) stack (project_unimodal.m)."""
     return _columns(X, UNIMODAL, nonneg)

@@ -1,8 +1,14 @@
 """Small dense linear algebra of the ADMM updates and of nvecs init
-(counterpart of the CP part of matlab_code_tpu/ops/linalg.py).  The
-systems are R x R, or mode-sized for the Sylvester solve of coupling types
-1 and 5.  block_diag and the Newton / polar solvers come with PARAFAC2
-(slice 4).
+(counterpart of matlab_code_tpu/ops/linalg.py).  The systems are R x R,
+K-batched R x R for PARAFAC2, mode-sized for the Sylvester solve of
+coupling types 1 and 5, or (K*R) x (K*R) for a PARAFAC2 C mode under
+coupling type 1 or 5 (block_diag).
+
+The JAX package's two adaptive Newton iterations (spd_inverse_newton,
+polar_orth_ns) exit a lax.while_loop once a residual drops below a
+tolerance.  Here each runs its full iteration bound with the update
+masked after the exit (torch.where on a device flag): the same iterates,
+the same result, and no host sync.
 
 chol_lower returns NaNs for a matrix that is not positive definite, as
 jnp.linalg.cholesky does, instead of raising like torch.linalg.cholesky:
@@ -39,6 +45,37 @@ def spd_inverse_from_chol(L: torch.Tensor) -> torch.Tensor:
     return Linv.transpose(-1, -2) @ Linv
 
 
+def spd_inverse_newton(B: torch.Tensor, lmin=None, max_iters: int = 24,
+                       polish: int = 2):
+    """Batched SPD inverse by Newton-Hotelling iteration, matmuls only
+    (matlab_code_tpu/ops/linalg.py::spd_inverse_newton): X_{t+1} = X_t (2I -
+    B X_t) from X_0 = c I, c = 2 / (lmin + ||B||_inf) (1 / ||B||_inf without
+    lmin), while max|B X - I| > tol (1e-2 in float32, 1e-6 otherwise) and at
+    most max_iters steps, then `polish` steps.  lmin: None, a number or a
+    (K,) tensor.  Returns (B^{-1}, rcond estimate 1 / (||B||_inf
+    ||B^{-1}||_inf))."""
+    R = B.shape[-1]
+    eye = torch.eye(R, dtype=B.dtype, device=B.device)
+    ninf = torch.amax(torch.sum(torch.abs(B), dim=-1), dim=-1)
+    if lmin is None:
+        c = 1.0 / ninf
+    else:
+        c = 2.0 / (ninf + torch.as_tensor(lmin, dtype=B.dtype, device=B.device))
+    X = c[..., None, None] * eye.expand(B.shape)
+    tol = 1e-2 if B.dtype == torch.float32 else 1e-6
+    active = torch.ones((), dtype=torch.bool, device=B.device)
+    for _ in range(max_iters):
+        E = B @ X
+        res = torch.amax(torch.abs(E - eye))
+        X = torch.where(active, X @ (2.0 * eye - E), X)
+        active = active & (res > tol)
+    for _ in range(polish):
+        E = B @ X
+        X = X @ (2.0 * eye - E)
+    xinf = torch.amax(torch.sum(torch.abs(X), dim=-1), dim=-1)
+    return X, 1.0 / (ninf * xinf)
+
+
 def solve_spd_left(L: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     """Solve B X = A given B = L L^T.  A: (n, k)."""
     y = torch.linalg.solve_triangular(L, A, upper=False)
@@ -56,6 +93,40 @@ def rsolve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """MATLAB A/B (solve X B = A) for general square B, solved with the
     transpose as in the JAX package: solve(B^T, A^T)^T."""
     return solve(B.transpose(-1, -2), A.transpose(-1, -2)).transpose(-1, -2)
+
+
+def polar_orth(M: torch.Tensor) -> torch.Tensor:
+    """Orthonormal polar factor U V^T of M by thin SVD ([U,~,V] =
+    svd(M,'econ'); U*V', cmtf_fun_AOADMM.m:532-534).  Batched over leading
+    dims."""
+    U, _, Vh = torch.linalg.svd(M, full_matrices=False)
+    return U @ Vh
+
+
+def polar_orth_ns(M: torch.Tensor, iters: int = 30, polish: int = 2
+                  ) -> torch.Tensor:
+    """Orthonormal polar factor of M by cubic Newton-Schulz iteration,
+    matmuls only (matlab_code_tpu/ops/linalg.py::polar_orth_ns): X_0 =
+    M / ||M||_F, X <- 1.5 X - 0.5 X (X^T X) while the largest max|X^T X - I|
+    of the nonzero slices exceeds tol (1e-2 in float32, 1e-6 otherwise), at
+    most `iters` steps, then `polish` steps.  Zero slices stay zero.
+    Batched over leading dims."""
+    nrm = torch.sqrt(torch.sum(M * M, dim=(-2, -1), keepdim=True))
+    X = M / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    tol = 1e-2 if M.dtype == torch.float32 else 1e-6
+    nonzero = nrm[..., 0, 0] > 0
+    active = torch.ones((), dtype=torch.bool, device=M.device)
+    for _ in range(iters):
+        G = X.transpose(-1, -2) @ X
+        res = torch.amax(torch.abs(G - eye), dim=(-2, -1))
+        res = torch.amax(torch.where(nonzero, res, torch.zeros_like(res)))
+        X = torch.where(active, 1.5 * X - 0.5 * X @ G, X)
+        active = active & (res > tol)
+    for _ in range(polish):
+        G = X.transpose(-1, -2) @ X
+        X = 1.5 * X - 0.5 * (X @ G)
+    return X
 
 
 def top_eigvecs(Y: torch.Tensor, r: int) -> torch.Tensor:
@@ -89,3 +160,11 @@ def sylvester_sym(B2: torch.Tensor, B: torch.Tensor, C: torch.Tensor
                   ) -> torch.Tensor:
     """Solve B2 X + X B = C for symmetric B2 and B (sylvester_solver)."""
     return sylvester_solver(B2, B)(C)
+
+
+def block_diag(mats: torch.Tensor) -> torch.Tensor:
+    """Block-diagonal matrix of a stacked batch (K, R, R) -> (K*R, K*R),
+    blkdiag(B{m}{:}) at cmtf_fun_AOADMM.m:286."""
+    K, R, _ = mats.shape
+    eye_k = torch.eye(K, dtype=mats.dtype, device=mats.device)
+    return (eye_k[:, None, :, None] * mats[:, :, None, :]).reshape(K * R, K * R)

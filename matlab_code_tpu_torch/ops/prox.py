@@ -4,10 +4,13 @@ constraint -> (prox, reg) dispatch (constraints_to_prox.m:13-91).
 Counterpart of matlab_code_tpu/ops/prox.py.  Every prox has the signature
 prox(x, rho) -> x_hat, where rho is the ADMM penalty (a number or a 0-d
 tensor on x's device); projections ignore it, regularizers use eta / rho
-as the reference does.  The sequential proxes (monotone, unimodal, TV) live
-in ops/isotonic.py and ops/tv.py and run hand-written kernels on a CUDA
-tensor.  'tPARAFAC2' (the joint prox over PARAFAC2 slices) comes with slice
-4 and raises NotImplementedError.
+as the reference does.  A prox also takes a stack of PARAFAC2 slices x
+(K, n, R) with one rho a slice, as a (K, 1, 1) tensor (models/admm.
+prox_slicewise): each slice gets the prox of its own (n, R) matrix, in one
+batched call (a 'custom' prox is called slice by slice).  The sequential
+proxes (monotone, unimodal, TV) live in ops/isotonic.py and ops/tv.py and
+run hand-written kernels on a CUDA tensor, as does 'tPARAFAC2' (the joint
+temporal-smoothness prox over the K slices, t_smoothness_prox).
 """
 from __future__ import annotations
 
@@ -29,8 +32,6 @@ KNOWN_CONSTRAINT_KINDS = frozenset({
     "quadratic regularization", "GL smoothness", "TV regularization",
     "tPARAFAC2", "custom",
 })
-
-PORTED_CONSTRAINT_KINDS = KNOWN_CONSTRAINT_KINDS - {"tPARAFAC2"}
 
 
 @dataclass(frozen=True)
@@ -78,50 +79,50 @@ def project_box(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 def project_simplex_cols(x: torch.Tensor, eta: float) -> torch.Tensor:
     """Euclidean projection of each column onto {v >= 0, sum(v) = eta},
     the sort-based algorithm (Held/Wolfe/Crowder) of the JAX package
-    (constraints_to_prox.m:19-21)."""
-    n = x.shape[0]
-    u = torch.sort(x, dim=0, descending=True).values
-    css = torch.cumsum(u, dim=0) - eta
+    (constraints_to_prox.m:19-21).  Columns run along axis -2."""
+    n = x.shape[-2]
+    u = torch.sort(x, dim=-2, descending=True).values
+    css = torch.cumsum(u, dim=-2) - eta
     idx = torch.arange(1, n + 1, dtype=x.dtype, device=x.device)[:, None]
-    k = torch.sum(u - css / idx > 0, dim=0)
+    k = torch.sum(u - css / idx > 0, dim=-2, keepdim=True)
     # k >= 1 for eta > 0; k == 0 (NaN input) takes the last row, as
     # jnp.take_along_axis does with index -1
-    tau = torch.gather(css, 0, ((k - 1) % n)[None, :])[0] / k.to(x.dtype)
-    return torch.clamp(x - tau[None, :], min=0.0)
+    tau = torch.gather(css, -2, (k - 1) % n) / k.to(x.dtype)
+    return torch.clamp(x - tau, min=0.0)
 
 
 def project_simplex_rows(x: torch.Tensor, eta: float) -> torch.Tensor:
     """Row-wise simplex projection (constraints_to_prox.m:22-24)."""
-    return project_simplex_cols(x.T, eta).T
+    return project_simplex_cols(x.transpose(-1, -2), eta).transpose(-1, -2)
 
 
 def project_l1ball_cols(x: torch.Tensor, eta: float) -> torch.Tensor:
     """Column-wise projection onto the l1 ball ||v||_1 <= eta
     (constraints_to_prox.m:32-34)."""
     a = torch.abs(x)
-    inside = torch.sum(a, dim=0) <= eta
+    inside = torch.sum(a, dim=-2, keepdim=True) <= eta
     proj = torch.sign(x) * project_simplex_cols(a, eta)
-    return torch.where(inside[None, :], x, proj)
+    return torch.where(inside, x, proj)
 
 
 def project_l2ball_cols(x: torch.Tensor, eta: float) -> torch.Tensor:
     """Column-wise projection onto the l2 ball ||v||_2 <= eta
     (constraints_to_prox.m:35-37)."""
-    nrm = torch.linalg.vector_norm(x, dim=0)
+    nrm = torch.linalg.vector_norm(x, dim=-2, keepdim=True)
     scale = torch.where(nrm > eta, eta / torch.clamp(nrm, min=1e-300),
                         torch.ones_like(nrm))
-    return x * scale[None, :]
+    return x * scale
 
 
 def prox_normalized_nonneg(x: torch.Tensor) -> torch.Tensor:
     """Projection onto the nonnegative unit sphere, column-wise; all-negative
     columns map to the indicator of their argmax (prox_normalized_nonneg.m)."""
     y = torch.clamp(x, min=0.0)
-    nrm = torch.linalg.vector_norm(y, dim=0)
+    nrm = torch.linalg.vector_norm(y, dim=-2, keepdim=True)
     onehot = torch.zeros_like(x).scatter_(
-        0, torch.argmax(x, dim=0, keepdim=True), 1.0)
-    normalized = y / torch.where(nrm == 0, torch.ones_like(nrm), nrm)[None, :]
-    return torch.where(nrm[None, :] == 0, onehot, normalized)
+        -2, torch.argmax(x, dim=-2, keepdim=True), 1.0)
+    normalized = y / torch.where(nrm == 0, torch.ones_like(nrm), nrm)
+    return torch.where(nrm == 0, onehot, normalized)
 
 
 def project_orthonormal(x: torch.Tensor) -> torch.Tensor:
@@ -153,9 +154,9 @@ def prox_l0(x: torch.Tensor, gamma) -> torch.Tensor:
 def prox_l2_cols(x: torch.Tensor, gamma) -> torch.Tensor:
     """Column-wise group soft threshold: prox of gamma*sum_r ||x_col||_2
     (constraints_to_prox.m:54-57)."""
-    nrm = torch.linalg.vector_norm(x, dim=0)
+    nrm = torch.linalg.vector_norm(x, dim=-2, keepdim=True)
     scale = torch.clamp(1.0 - gamma / torch.clamp(nrm, min=1e-300), min=0.0)
-    return x * scale[None, :]
+    return x * scale
 
 
 def make_quadratic_prox(L, eta: float):
@@ -181,8 +182,8 @@ def make_quadratic_prox(L, eta: float):
 
     def prox(x, rho):
         _, lam, Q = operator(x)
-        filt = 1.0 / (2.0 * eta / rho * lam + 1.0)
-        return Q @ (filt[:, None] * (Q.T @ x))
+        filt = 1.0 / (2.0 * eta / rho * lam[:, None] + 1.0)
+        return Q @ (filt * (Q.T @ x))
 
     def reg(x):
         Lx = operator(x)[0]
@@ -201,6 +202,68 @@ def gl_smoothness_matrix(n: int, dtype=torch.float64, device="cpu"
     L[0, 0] = 1.0
     L[n - 1, n - 1] = 1.0
     return L
+
+
+def t_smoothness_prox(Bs: torch.Tensor, rho: torch.Tensor, eta: float
+                      ) -> torch.Tensor:
+    """tPARAFAC2 temporal-smoothness joint prox over the K slice matrices
+    (functions/t_smoothness_prox.m:23-56): the block-tridiagonal system with
+    diagonal 4 eta + rho_k (2 eta + rho_k at both ends), off-diagonal
+    -2 eta and right-hand side rho_k B_k, by the Thomas algorithm.  Bs
+    (K, J, R), rho (K,).  A CUDA tensor goes to the hand-written kernel
+    ops/prox_cuda.t_smooth_cols (kernel C); a CPU tensor takes the plain
+    version, t_smoothness_reference."""
+    if Bs.device.type == "cuda":
+        from matlab_code_tpu_torch.ops.prox_cuda import t_smooth_cols
+        return t_smooth_cols(Bs.contiguous(), rho, eta)
+    if Bs.device.type != "cpu":
+        raise ValueError(f"t_smoothness_prox: unsupported device {Bs.device}")
+    return t_smoothness_reference(Bs, rho, eta)
+
+
+def t_smoothness_reference(Bs: torch.Tensor, rho: torch.Tensor, eta: float
+                           ) -> torch.Tensor:
+    """The plain version of kernel C: the two scans of the JAX package's
+    t_smoothness_prox (matlab_code_tpu/ops/prox.py:144-188) as loops over k,
+    in its order of operations and in Bs's dtype."""
+    K = Bs.shape[0]
+    eta = torch.tensor(eta, dtype=Bs.dtype, device=Bs.device)
+    diag = 4.0 * eta + rho.to(Bs.dtype)
+    diag[0] = diag[0] + -2.0 * eta
+    diag[K - 1] = diag[K - 1] + -2.0 * eta
+    off = -2.0 * eta
+    rhs = rho.to(Bs.dtype)[:, None, None] * Bs
+    # forward elimination: d'_i = d_i - (off / d'_{i-1}) off,
+    # r'_i = r_i - (off / d'_{i-1}) r'_{i-1}
+    dmod, rmod = [diag[0]], [rhs[0]]
+    for i in range(1, K):
+        m = off / dmod[-1]
+        dmod.append(diag[i] - m * off)
+        rmod.append(rhs[i] - m * rmod[-1])
+    # back substitution: x_K = r'_K / d'_K, x_i = (r'_i - off x_{i+1}) / d'_i
+    xs = [None] * K
+    xs[K - 1] = rmod[K - 1] / dmod[K - 1]
+    for i in range(K - 2, -1, -1):
+        xs[i] = (rmod[i] - off * xs[i + 1]) / dmod[i]
+    return torch.stack(xs)
+
+
+def t_smoothness_penalty(Bs: torch.Tensor, eta: float) -> torch.Tensor:
+    """eta * sum_k ||B_k - B_{k-1}||_F^2 (t_smoothness_penalty.m:5-9)."""
+    d = Bs[1:] - Bs[:-1]
+    return eta * torch.sum(d * d)
+
+
+def _custom_prox(fn):
+    """A user's prox of one (n, R) matrix, called slice by slice on a
+    (K, n, R) stack with the slice's rho."""
+    def prox(x, rho):
+        if x.dim() == 2:
+            return fn(x, rho)
+        r = rho.reshape(-1) if isinstance(rho, torch.Tensor) else None
+        return torch.stack([fn(x[k], rho if r is None or r.numel() == 1
+                               else r[k]) for k in range(x.shape[0])])
+    return prox
 
 
 # ---------------------------------------------------------------------------
@@ -279,12 +342,12 @@ def make_prox(spec: ConstraintSpec, mode_size: int
         # replicated literally (constraints_to_prox.m:81)
         return ((lambda x, rho: prox_tv(x, eta / rho)),
                 lambda x: eta * torch.sum(x[1:, :] - x[:-1, :]))
+    if k == "tPARAFAC2":
+        eta, = p
+        return ((lambda Bs, rho: t_smoothness_prox(Bs, rho, eta)),
+                lambda Bs: t_smoothness_penalty(Bs, eta))
     if k == "custom":
         prox_fn = spec.fns[0]
         reg_fn = spec.fns[1] if len(spec.fns) > 1 else None
-        return prox_fn, reg_fn
-    if k == "tPARAFAC2":
-        raise NotImplementedError(
-            "constraint 'tPARAFAC2' (the joint temporal-smoothness prox over "
-            "PARAFAC2 slices) comes with slice 4 (ROADMAP.md, PARAFAC2)")
+        return _custom_prox(prox_fn), reg_fn
     raise ValueError(f"Unknown constraint kind: {k!r}")

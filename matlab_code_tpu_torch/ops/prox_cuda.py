@@ -1,15 +1,20 @@
-"""Hand-written Hopper kernels for the sequential per-column proxes
-(csrc/prox_seq.cu):
+"""Hand-written Hopper kernels for the sequential proxes (csrc/prox_seq.cu,
+csrc/t_smooth.cu):
 
   project_isotonic_cols (kernel A)  non-decreasing, non-increasing and
       unimodal (optionally non-negative) projections; replaces the lax
       loops of matlab_code_tpu/ops/isotonic.py (no pallas_call there)
   prox_tv_cols (kernel B)  the exact TV prox, Condat's algorithm;
       replaces the lax loop of matlab_code_tpu/ops/tv.py
+  t_smooth_cols (kernel C)  the tPARAFAC2 temporal-smoothness prox, a
+      Thomas solve over the K slices; replaces the lax.scans of
+      matlab_code_tpu/ops/prox.py:144-188
 
-Each takes a contiguous (n, R) float32 or float64 CUDA matrix and returns a
-new one, walking each column's recurrence in float64 in the order of the
-plain versions (ops/isotonic.columns_reference, ops/tv.columns_reference):
+Kernels A and B take a contiguous (n, R) float32 or float64 CUDA matrix, or
+a (K, n, R) stack of PARAFAC2 slices (K R columns; kernel B with one lam a
+slice), and return a new one, walking each column's recurrence in float64
+in the order of the plain versions (ops/isotonic.columns_reference,
+ops/tv.columns_reference):
 a block of THREADS threads a column (kernel A: a scan side; a unimodal
 column is a cluster of two blocks), one thread walking the recurrence and
 all threads staging the column, searching the unimodal peak and writing
@@ -21,7 +26,13 @@ before the launch (plan_isotonic, plan_tv):
   "global"  longer columns: the block's slice of a workspace in device
             memory allocated here.
 
-A build or launch error raises on either route; nothing falls back to the
+Kernel C takes a contiguous (K, J, R) stack and rho (K,) on the card and
+computes in the stack's dtype, in the plain version's order
+(ops/prox.t_smoothness_reference), on one of two routes chosen before the
+launch (plan_t_smooth): "staged", a tile of elements over all K slices in
+shared memory, or "stream", for longer K, r' kept in the output.
+
+A build or launch error raises on every route; nothing falls back to the
 plain version.  Each launch is counted in the wrapper's `launches` and in
 its route's entry of `route_launches`.  Nothing is built at import: the
 first call builds the library (ops/_build.py).
@@ -33,8 +44,11 @@ import ctypes
 import torch
 
 _LIB = None
+_LIB_C = None
 KERNEL_DTYPES = (torch.float32, torch.float64)
 SHARED, GLOBAL = "shared", "global"
+STAGED, STREAM = "staged", "stream"     # kernel C's routes
+T_TILE = 32              # kernel C's staged route: elements a block (kTile)
 THREADS = 256            # threads a block (kThreads)
 # dynamic shared memory a block of the shared route may take: the 227 KB
 # (232,448 bytes) a Hopper block may opt into, less 1 KB for the kernels'
@@ -48,11 +62,23 @@ def _lib():
         from matlab_code_tpu_torch.ops._build import load_library
         lib = load_library("prox_seq", ["prox_seq.cu"])
         p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        lib.isotonic_run.argtypes = [i, i, i, p, p, i, i, l, p, l, p]
-        lib.tv_run.argtypes = [i, p, p, i, i, p, l, p, l, p]
+        lib.isotonic_run.argtypes = [i, i, i, p, p, i, i, i, l, p, l, p]
+        lib.tv_run.argtypes = [i, p, p, i, i, i, p, l, p, l, p]
         lib.isotonic_run.restype = lib.tv_run.restype = i
         _LIB = lib
     return _LIB
+
+
+def _lib_c():
+    global _LIB_C
+    if _LIB_C is None:
+        from matlab_code_tpu_torch.ops._build import load_library
+        lib = load_library("t_smooth", ["t_smooth.cu"])
+        p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        lib.t_smooth_run.argtypes = [i, i, p, p, p, i, l, ctypes.c_double, l, p]
+        lib.t_smooth_run.restype = i
+        _LIB_C = lib
+    return _LIB_C
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -96,13 +122,33 @@ def workspace_stride(state_bytes: int) -> int:
     return -(-state_bytes // 128) * 128
 
 
-def _check(X: torch.Tensor, name: str) -> None:
+def plan_t_smooth(K: int, E: int, dtype: torch.dtype) -> tuple[str, int]:
+    """(route, bytes of shared memory a block) of kernel C on K slices of E
+    elements: the "staged" route (a tile of T_TILE elements over all K
+    slices in shared memory with the recurrence's d'_k and m_k, (2 +
+    T_TILE) K values) while that fits a block, else the "stream" route
+    (the recurrence only, 2 K values; r' kept in the output); ValueError
+    past even that (K > 14464 in float64, 28928 in float32)."""
+    item = _itemsize(dtype)
+    if K < 1 or E < 1:
+        raise ValueError(f"kernel C takes K, J R >= 1, got ({K}, {E})")
+    staged = (2 + T_TILE) * K * item
+    if staged <= SMEM_LIMIT:
+        return STAGED, staged
+    if 2 * K * item > SMEM_LIMIT:
+        raise ValueError(f"kernel C keeps 2 K values in shared memory: K = {K} "
+                         f"needs {2 * K * item} bytes, a block has {SMEM_LIMIT}")
+    return STREAM, 2 * K * item
+
+
+def _check(X: torch.Tensor, name: str, dims=(2, 3)) -> None:
     if X.device.type != "cuda":
         raise ValueError(f"{name} takes a CUDA tensor, got one on {X.device}")
-    if X.dim() != 2 or X.dtype not in KERNEL_DTYPES or not X.is_contiguous():
-        raise ValueError(f"{name} takes a contiguous (n, R) float32 or float64 "
-                         f"matrix, got {tuple(X.shape)} {X.dtype}, contiguous "
-                         f"{X.is_contiguous()}")
+    if X.dim() not in dims or X.dtype not in KERNEL_DTYPES \
+            or not X.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous (n, R) matrix or (K, n, R) "
+                         f"stack, float32 or float64, got {tuple(X.shape)} "
+                         f"{X.dtype}, contiguous {X.is_contiguous()}")
 
 
 def _stream(X: torch.Tensor) -> int:
@@ -127,8 +173,9 @@ def _run(name: str, kernel, X: torch.Tensor, route: str, state: int,
 
 def project_isotonic_cols(X: torch.Tensor, kind: int, nonneg: bool = False
                           ) -> torch.Tensor:
-    """Kernel A on every column of X: kind 0 non-decreasing, 1
-    non-increasing, 2 unimodal (non-negative where nonneg)."""
+    """Kernel A on every column of X (n, R), or of every slice of X
+    (K, n, R), in one launch: kind 0 non-decreasing, 1 non-increasing, 2
+    unimodal (non-negative where nonneg)."""
     _check(X, "project_isotonic_cols")
     return _isotonic(X, kind, nonneg)
 
@@ -137,16 +184,17 @@ def _isotonic(X: torch.Tensor, kind: int, nonneg: bool,
               route: str | None = None) -> torch.Tensor:
     """Kernel A on plan_isotonic's route, or on `route` (GLOBAL at any n:
     the card tests and chip_smoke.py's timing of the two routes)."""
-    n, R = X.shape
+    n, R = X.shape[-2:]
+    K = X.shape[0] if X.dim() == 3 else 1
     out = torch.empty_like(X)
     if X.numel() == 0:
         return out
     planned, state = plan_isotonic(n, R, X.dtype)
     route = route or planned
     _run("project_isotonic_cols", _lib().isotonic_run, X, route, state,
-         2 * R if kind == 2 else R,
+         (2 if kind == 2 else 1) * K * R,
          (int(X.dtype == torch.float64), kind, int(bool(nonneg)), X.data_ptr(),
-          out.data_ptr(), n, R))
+          out.data_ptr(), K, n, R))
     project_isotonic_cols.launches += 1
     project_isotonic_cols.route_launches[route] += 1
     return out
@@ -157,23 +205,30 @@ project_isotonic_cols.route_launches = {SHARED: 0, GLOBAL: 0}
 
 
 def prox_tv_cols(X: torch.Tensor, lam) -> torch.Tensor:
-    """Kernel B on every column of X with strength lam (a number or a 0-d
-    tensor; a CUDA tensor is read by the kernel, never by the host)."""
+    """Kernel B on every column of X (n, R) with strength lam (a number or
+    a 0-d tensor), or on every slice of X (K, n, R) in one launch, slice k
+    with lam[k] (a tensor of K values, or one value for all).  A CUDA lam
+    is read by the kernel, never by the host."""
     _check(X, "prox_tv_cols")
     return _tv(X, lam)
 
 
 def _tv(X: torch.Tensor, lam, route: str | None = None) -> torch.Tensor:
     """Kernel B on plan_tv's route, or on `route` (GLOBAL at any n)."""
-    n, R = X.shape
+    n, R = X.shape[-2:]
+    K = X.shape[0] if X.dim() == 3 else 1
     out = torch.empty_like(X)
     if X.numel() == 0:
         return out
     planned, state = plan_tv(n, R, X.dtype)
     route = route or planned
-    lam_t = torch.as_tensor(lam, dtype=torch.float64).to(X.device).reshape(())
-    _run("prox_tv_cols", _lib().tv_run, X, route, state, R,
-         (int(X.dtype == torch.float64), X.data_ptr(), out.data_ptr(), n, R,
+    lam_t = torch.as_tensor(lam, dtype=torch.float64).to(X.device).reshape(-1)
+    if lam_t.numel() not in (1, K):
+        raise ValueError(f"prox_tv_cols: {lam_t.numel()} lam values for {K} "
+                         "slices")
+    lam_t = lam_t.expand(K).contiguous()
+    _run("prox_tv_cols", _lib().tv_run, X, route, state, K * R,
+         (int(X.dtype == torch.float64), X.data_ptr(), out.data_ptr(), K, n, R,
           lam_t.data_ptr()))
     prox_tv_cols.launches += 1
     prox_tv_cols.route_launches[route] += 1
@@ -182,3 +237,46 @@ def _tv(X: torch.Tensor, lam, route: str | None = None) -> torch.Tensor:
 
 prox_tv_cols.launches = 0
 prox_tv_cols.route_launches = {SHARED: 0, GLOBAL: 0}
+
+
+def t_smooth_cols(Bs: torch.Tensor, rho, eta: float) -> torch.Tensor:
+    """Kernel C: the tPARAFAC2 prox of a contiguous (K, J, R) CUDA stack,
+    rho (K,) (a tensor, on the card or moved there; never read by the
+    host), eta a number."""
+    _check(Bs, "t_smooth_cols", dims=(3,))
+    return _t_smooth(Bs, rho, eta)
+
+
+def _t_smooth(Bs: torch.Tensor, rho, eta: float,
+              route: str | None = None) -> torch.Tensor:
+    """Kernel C on plan_t_smooth's route, or on `route` (STREAM at any K:
+    the card tests and chip_smoke.py's timing of the two routes)."""
+    K = Bs.shape[0]
+    E = Bs.numel() // K if K else 0
+    out = torch.empty_like(Bs)
+    if Bs.numel() == 0:
+        return out
+    planned, smem = plan_t_smooth(K, E, Bs.dtype)
+    route = route or planned
+    if route == STREAM:
+        smem = 2 * K * _itemsize(Bs.dtype)
+    rho_t = torch.as_tensor(rho).to(device=Bs.device, dtype=Bs.dtype).reshape(-1)
+    if rho_t.numel() != K:
+        raise ValueError(f"t_smooth_cols: {rho_t.numel()} rho values for {K} "
+                         "slices")
+    rho_t = rho_t.contiguous()
+    err = _lib_c().t_smooth_run(int(Bs.dtype == torch.float64),
+                                int(route == STAGED), Bs.data_ptr(),
+                                rho_t.data_ptr(), out.data_ptr(), K, E,
+                                float(eta), smem, _stream(Bs))
+    if err != 0:
+        raise RuntimeError(f"t_smooth_cols ({route} route) launch failed: "
+                           f"cudaError {err} ({'x'.join(map(str, Bs.shape))} "
+                           f"{Bs.dtype})")
+    t_smooth_cols.launches += 1
+    t_smooth_cols.route_launches[route] += 1
+    return out
+
+
+t_smooth_cols.launches = 0
+t_smooth_cols.route_launches = {STAGED: 0, STREAM: 0}

@@ -11,8 +11,8 @@ memory (in device memory for columns too long for it).  A CPU
 tensor takes the plain version: a Python walk of each column in the JAX
 module's order of states and arithmetic, in float64 whatever the tensor's
 dtype (the kernel also computes in float64).
-lam may be a number or a 0-d tensor (eta / rho); lam <= 0 and columns of
-length 1 return y.
+lam may be a number or a 0-d tensor (eta / rho), or one value a slice for
+a stack of PARAFAC2 slices; lam <= 0 and columns of length 1 return y.
 """
 from __future__ import annotations
 
@@ -97,18 +97,24 @@ def tv_denoise_vector(y: torch.Tensor, lam) -> torch.Tensor:
 
 def columns_reference(X: torch.Tensor, lam, steps: list | None = None
                       ) -> torch.Tensor:
-    """The plain version of kernel B on a CPU matrix, column by column, in
-    float64, returned in X.dtype.  steps, when given, gets each column's
-    states walked."""
-    lam = float(lam)
-    cols = X.detach().to(torch.float64).T.tolist()
-    out = [tv_list(c, lam, steps) for c in cols]
-    return torch.tensor(out, dtype=torch.float64).T.to(X.dtype).reshape(
-        X.shape)
+    """The plain version of kernel B on a CPU matrix (n, R) or stack of
+    slices (K, n, R), column by column, in float64, returned in X.dtype.
+    lam: a number, or a tensor of one value or of one a slice (K values).
+    steps, when given, gets each column's states walked."""
+    n, R = X.shape[-2:]
+    Xs = X.detach().to(torch.float64).reshape(-1, n, R)
+    lams = torch.as_tensor(lam, dtype=torch.float64).reshape(-1).tolist()
+    if len(lams) == 1:
+        lams = lams * Xs.shape[0]
+    out = [[tv_list(c, lam_k, steps) for c in M.T.tolist()]
+           for M, lam_k in zip(Xs, lams)]
+    return torch.tensor(out, dtype=torch.float64).reshape(
+        Xs.shape[0], R, n).transpose(1, 2).to(X.dtype).reshape(X.shape)
 
 
 def prox_tv(X: torch.Tensor, lam) -> torch.Tensor:
-    """Column-wise TV prox of an (n, R) matrix (functions/prox_TV.m)."""
+    """Column-wise TV prox of an (n, R) matrix (functions/prox_TV.m), or of
+    each slice of a (K, n, R) stack with its own lam (K values)."""
     if X.device.type == "cuda":
         from matlab_code_tpu_torch.ops.prox_cuda import prox_tv_cols
         return prox_tv_cols(X.contiguous(), lam)

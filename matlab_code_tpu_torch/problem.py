@@ -159,11 +159,48 @@ class SparseTensor:
 
 
 @dataclass
+class Parafac2Tensor:
+    """Padded ragged PARAFAC2 data (counterpart of
+    matlab_code_tpu.problem.Parafac2Tensor): slices (K, I, Jmax), zero past
+    each slice's J_k columns; mask (K, Jmax) bool, True = real column of
+    slice k."""
+    slices: torch.Tensor
+    mask: torch.Tensor
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.slices.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.slices.device
+
+    @staticmethod
+    def from_list(slice_list, dtype=None, device="cpu") -> "Parafac2Tensor":
+        """Stack K slices X_k (I, J_k) (torch tensors or anything np.asarray
+        takes) into the padded form."""
+        mats = [s if isinstance(s, torch.Tensor) else torch.as_tensor(np.asarray(s))
+                for s in slice_list]
+        dt = dtype or mats[0].dtype
+        K, I = len(mats), mats[0].shape[0]
+        Jmax = max(s.shape[1] for s in mats)
+        out = torch.zeros((K, I, Jmax), dtype=dt, device=device)
+        mask = torch.zeros((K, Jmax), dtype=torch.bool, device=device)
+        for k, s in enumerate(mats):
+            out[k, :, :s.shape[1]] = s.to(dtype=dt, device=device)
+            mask[k, :s.shape[1]] = True
+        return Parafac2Tensor(out, mask)
+
+    def to_list(self, sizes) -> list:
+        return [self.slices[k, :, :j] for k, j in enumerate(sizes)]
+
+
+@dataclass
 class ProblemData:
     """Tensor side of the problem.
 
-    objects[p]: dense torch tensor or SparseTensor (CP datasets; the port
-                has no PARAFAC2 container yet).
+    objects[p]: CP -> dense torch tensor or SparseTensor; PAR2 ->
+                Parafac2Tensor.
     miss[p]:    None or a boolean mask, True = observed entry.
     coupl_trafo[m], coupl_trafo2[m]: None or the H / H2 matrices.
     """

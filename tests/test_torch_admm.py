@@ -107,7 +107,7 @@ def test_torch_admm_constrained_only_matches_jax():
         spec, state, m, p, pre.A, jsolve, pre.rho, opts, jproxes)
 
     topts = tp.AlgOptions(MaxInnerIters=5)
-    tsolve, tillc = tadmm.make_spd_solver(
+    tsolve, _, tillc = tadmm.make_spd_solver(
         torch.tensor(np.asarray(Bmat)), topts, illtol=topts.IllCondTol)
     assert not bool(tillc)
     tproxes, _ = tbuild_proxes(tspec)
@@ -137,7 +137,7 @@ def test_torch_admm_coupled_type4_matches_jax(inner_solve):
                                                  illtol=opts.IllCondTol)
         tAs[m] = torch.tensor(np.asarray(pre.A))
         trhos[m] = torch.tensor(float(pre.rho), dtype=torch.float64)
-        tsolvers[m], _ = tadmm.make_spd_solver(
+        tsolvers[m], _, _ = tadmm.make_spd_solver(
             torch.tensor(np.asarray(B)), topts, illtol=topts.IllCondTol)
     jst, jnin, _, _ = jadmm.admm_coupled(
         spec, state, data, cmodes, 1, 4, As, {m: None for m in cmodes}, {}, {},
@@ -154,13 +154,13 @@ def test_torch_cholesky_of_non_pd_flags_and_does_not_raise():
     L = tlinalg.chol_lower(B)
     assert torch.isnan(L).all()
     assert bool(tadmm._chol_rcond_bad(L, 1e-16))
-    _, illc = tadmm.make_spd_solver(B, tp.AlgOptions(), illtol=1e-16)
+    _, _, illc = tadmm.make_spd_solver(B, tp.AlgOptions(), illtol=1e-16)
     assert bool(illc)
     # the JAX package flags the same matrix
     assert bool(jadmm._chol_rcond_bad(jlinalg.chol_lower(jnp.asarray(B.numpy())),
                                       1e-16))
     good = torch.tensor([[4.0, 1.0], [1.0, 3.0]], dtype=torch.float64)
-    _, illc = tadmm.make_spd_solver(good, tp.AlgOptions(), illtol=1e-16)
+    _, _, illc = tadmm.make_spd_solver(good, tp.AlgOptions(), illtol=1e-16)
     assert not bool(illc)
 
 
@@ -196,8 +196,6 @@ def test_torch_prox_matches_jax(kind, params):
 
 
 def test_torch_unported_parts_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tprox.make_prox(tprox.ConstraintSpec("tPARAFAC2", (1.0,)), 5)
     with pytest.raises(ValueError):
         tprox.ConstraintSpec("no such constraint")
     spec = tp.ProblemSpec(
@@ -212,10 +210,14 @@ def test_torch_unported_parts_raise_not_implemented():
     state = tp.SolverState.empty(4, 1, 2)
     with pytest.raises(NotImplementedError, match="slice 5"):
         tp.fit(spec, data, state, tp.AlgOptions())
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tp.fit(tp.ProblemSpec(mode_sizes=(4, (5, 5), 2),
-                              datasets=(tp.DatasetSpec("PAR2", (0, 1, 2), 2),)),
-               data, state, tp.AlgOptions(), validate=False)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        tp.fit(tp.ProblemSpec(mode_sizes=(4, 5),
+                              datasets=(tp.DatasetSpec("CP", (0, 1), 2),)),
+               tp.ProblemData(objects=(X,), miss=(X > 0,)),
+               tp.SolverState.empty(2, 0, 1).replace(
+                   fac=(torch.ones((4, 2), dtype=torch.float64),
+                        torch.ones((5, 2), dtype=torch.float64))),
+               tp.AlgOptions(), validate=False)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         apply_matmul_precision(tp.AlgOptions(matmul_precision="bfloat16"))
 

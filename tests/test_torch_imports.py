@@ -26,6 +26,8 @@ PORT_MODULES = [
     "matlab_code_tpu_torch.ops.prox_cuda", "matlab_code_tpu_torch.utils.surface",
     "matlab_code_tpu_torch.utils.time_prox_seq",
     "matlab_code_tpu_torch.utils.time_mttkrp3", "matlab_code_tpu_torch.utils.timing",
+    "matlab_code_tpu_torch.utils.par2_workload",
+    "matlab_code_tpu_torch.utils.par2_surface",
 ]
 
 
@@ -55,10 +57,10 @@ def test_torch_port_builds_nothing_at_import():
             "matlab_code_tpu_torch.ops.prox_cuda as q, "
             "matlab_code_tpu_torch.ops._build as b\n"
             "print('STATE', k._LIB is None, s._LIB is None, q._LIB is None, "
-            "b.BUILD_LOGS == {})\n")
+            "q._LIB_C is None, b.BUILD_LOGS == {})\n")
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
-    assert "STATE True True True True" in proc.stdout
+    assert "STATE True True True True True" in proc.stdout
 
 
 def _run_smoke(cwd):

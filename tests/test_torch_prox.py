@@ -109,24 +109,24 @@ def test_torch_custom_prox_takes_torch_functions():
 
 
 def test_torch_every_known_kind_is_ported_or_names_its_slice():
-    """Every kind of KNOWN_CONSTRAINT_KINDS builds a prox, except
-    'tPARAFAC2', which raises NotImplementedError naming slice 4; the kind
-    sets are the JAX package's."""
+    """Every kind of KNOWN_CONSTRAINT_KINDS builds a prox (the kind sets are
+    the JAX package's): the matrix kinds on a (7, 5) matrix, 'tPARAFAC2' on
+    a (3, 7, 5) stack of slices with one rho a slice."""
     assert tprox.KNOWN_CONSTRAINT_KINDS == jprox.KNOWN_CONSTRAINT_KINDS
-    assert tprox.KNOWN_CONSTRAINT_KINDS - tprox.PORTED_CONSTRAINT_KINDS == {
-        "tPARAFAC2"}
     params = {k: p for k, p in KINDS}
     for kind in sorted(tprox.KNOWN_CONSTRAINT_KINDS):
-        if kind in tprox.PORTED_CONSTRAINT_KINDS:
-            spec = tprox.ConstraintSpec(
-                kind, params.get(kind, ()),
-                QUAD_L if kind == "quadratic regularization" else None,
-                ((lambda x, rho: x),) if kind == "custom" else ())
-            prox, _ = tprox.make_prox(spec, 7)
-            assert prox(torch.tensor(_matrices(7)), 1.0).shape == (7, 5)
-        else:
-            with pytest.raises(NotImplementedError, match="slice 4"):
-                tprox.make_prox(tprox.ConstraintSpec(kind, (1.0,)), 7)
+        if kind == "tPARAFAC2":
+            prox, reg = tprox.make_prox(tprox.ConstraintSpec(kind, (1.0,)), 7)
+            Bs = torch.tensor(np.stack([_matrices(7)] * 3))
+            assert prox(Bs, torch.ones(3, dtype=torch.float64)).shape == (3, 7, 5)
+            assert float(reg(Bs)) == 0.0
+            continue
+        spec = tprox.ConstraintSpec(
+            kind, params.get(kind, ()),
+            QUAD_L if kind == "quadratic regularization" else None,
+            ((lambda x, rho: x),) if kind == "custom" else ())
+        prox, _ = tprox.make_prox(spec, 7)
+        assert prox(torch.tensor(_matrices(7)), 1.0).shape == (7, 5)
 
 
 def test_torch_quadratic_operators_take_the_data_dtype():

@@ -1,13 +1,18 @@
 """The sequential-prox kernels (csrc/prox_seq.cu: kernel A, isotonic and
-unimodal; kernel B, TV) on a CUDA card, on both routes (shared memory up
-to prox_cuda.plan_isotonic's / plan_tv's limit, device memory past it),
-and coupled fits of types 1 and 5 on the card against the CPU.
+unimodal; kernel B, TV; csrc/t_smooth.cu: kernel C, the tPARAFAC2 prox) on
+a CUDA card, on both routes of A and B (shared memory up to
+prox_cuda.plan_isotonic's / plan_tv's limit, device memory past it) and on
+stacks of PARAFAC2 slices (regular, ragged buckets, one lam a slice), and
+coupled CP fits of types 1 and 5 and PARAFAC2 fits on the card against the
+CPU.
 
 Every test here needs the card and skips without one.  This file imports
 no jax, so it also runs on a machine that has only torch:
 
     python -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_prox_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +22,8 @@ from matlab_code_tpu_torch.convert import state_from_numpy, state_to_numpy
 from matlab_code_tpu_torch.models.init import init_coupled
 from matlab_code_tpu_torch.ops import isotonic, prox, prox_cuda, tv
 from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
-from matlab_code_tpu_torch.utils import surface
+from matlab_code_tpu_torch.models.admm import prox_slicewise, prox_slicewise_ragged
+from matlab_code_tpu_torch.utils import par2_surface, surface
 
 pytestmark = pytest.mark.cuda
 
@@ -216,4 +222,139 @@ def test_torch_coupled_fit_on_cuda_matches_cpu(cuda_device, ctype):
     for a, b in [(out.func_val_conv, out_cpu.func_val_conv),
                  (out.func_coupl_conv, out_cpu.func_coupl_conv),
                  (out.func_constr_conv, out_cpu.func_constr_conv)]:
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=0)
+
+
+def _stack(K, n, R, seed=4):
+    """A (K, n, R) stack of _inputs slices, each slice its own draw."""
+    return np.stack([_inputs(n, R, seed + k) for k in range(K)])
+
+
+@pytest.mark.parametrize("K,n,R", [(1, 29, 5), (2, 256, 32), (3, 40, 7),
+                                   (64, 256, 32)])
+def test_torch_batched_isotonic_kernel_matches_plain(cuda_device, K, n, R):
+    """Kernel A on a (K, n, R) stack, one launch for the K R columns, against
+    the plain walk of every column."""
+    X = _stack(K, n, R)
+    for dt, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        Xd = torch.tensor(X, dtype=dt, device=cuda_device)
+        for kind, nn in KINDS_A:
+            want = isotonic.columns_reference(Xd.double().cpu(), kind, nn)
+            before = prox_cuda.project_isotonic_cols.launches
+            got = prox_cuda.project_isotonic_cols(Xd, kind, nn)
+            torch.cuda.synchronize()
+            assert prox_cuda.project_isotonic_cols.launches == before + 1
+            assert got.shape == (K, n, R) and got.dtype == dt
+            _assert_close(got, want, rtol)
+            if dt == torch.float64:
+                assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("K,n,R", [(1, 29, 5), (2, 256, 32), (3, 40, 7),
+                                   (64, 256, 32)])
+def test_torch_batched_tv_kernel_matches_plain(cuda_device, K, n, R):
+    """Kernel B on a (K, n, R) stack with one lam a slice (0 for the first
+    slice, above every column's TV for the last), read on the card."""
+    X = _stack(K, n, R)
+    lam = np.linspace(0.0, 0.3, K)
+    if K > 1:
+        lam[-1] = 1.0 + float(np.max(np.sum(np.abs(np.diff(X, axis=1)),
+                                            axis=1)))
+    for dt, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        Xd = torch.tensor(X, dtype=dt, device=cuda_device)
+        lam_d = torch.tensor(lam, device=cuda_device)
+        want = tv.columns_reference(Xd.double().cpu(), torch.tensor(lam))
+        before = prox_cuda.prox_tv_cols.launches
+        got = prox_cuda.prox_tv_cols(Xd, lam_d)
+        torch.cuda.synchronize()
+        assert prox_cuda.prox_tv_cols.launches == before + 1
+        _assert_close(got, want, rtol)
+        assert torch.equal(got[0], Xd[0])
+        if dt == torch.float64:
+            assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="lam values"):
+        prox_cuda.prox_tv_cols(Xd, lam_d[:1].expand(K + 1))
+
+
+def test_torch_slicewise_prox_on_the_card_matches_cpu(cuda_device):
+    """prox_slicewise (one launch) and prox_slicewise_ragged (one launch a
+    size bucket, padded rows exactly zero) with unimodal and TV proxes and
+    one rho a slice, card against CPU in float64."""
+    rng = np.random.default_rng(3)
+    sizes = (30, 24, 30, 17, 24, 30)
+    X = rng.standard_normal((6, 30, 4))
+    rho = torch.tensor(rng.uniform(0.5, 2.0, 6))
+    for kind, params, counter in (
+            ("unimodality", (True,), prox_cuda.project_isotonic_cols),
+            ("TV regularization", (0.05,), prox_cuda.prox_tv_cols)):
+        p, _ = prox.make_prox(prox.ConstraintSpec(kind, params), 30)
+        before = counter.launches
+        got = prox_slicewise(p, torch.tensor(X, device=cuda_device),
+                             rho.to(cuda_device))
+        assert counter.launches == before + 1
+        _assert_close(got, prox_slicewise(p, torch.tensor(X), rho), 1e-12)
+        before = counter.launches
+        got = prox_slicewise_ragged(p, torch.tensor(X, device=cuda_device),
+                                    rho.to(cuda_device), sizes)
+        assert counter.launches == before + len(set(sizes))
+        want = prox_slicewise_ragged(p, torch.tensor(X), rho, sizes)
+        _assert_close(got, want, 1e-12)
+        for k, J in enumerate(sizes):
+            assert not bool(got[k, J:].any())
+
+
+@pytest.mark.parametrize("K,J,R", [(1, 5, 3), (2, 30, 4), (3, 7, 2),
+                                   (512, 256, 32), (900, 3, 5)])
+def test_torch_t_smooth_kernel_matches_plain(cuda_device, K, J, R):
+    """Kernel C on both routes against its plain version
+    (ops/prox.t_smoothness_reference): the same bits in float64 and in
+    float32 (K = 900 in float64 is past the staged route's limit)."""
+    rng = np.random.default_rng(K + J)
+    B = rng.standard_normal((K, J, R))
+    rho = rng.uniform(0.2, 3.0, K)
+    for dt in (torch.float64, torch.float32):
+        Bd = torch.tensor(B, dtype=dt, device=cuda_device)
+        rd = torch.tensor(rho, dtype=dt, device=cuda_device)
+        want = prox.t_smoothness_reference(Bd.cpu(), rd.cpu(), 10.0)
+        route = prox_cuda.plan_t_smooth(K, J * R, dt)[0]
+        before = prox_cuda.t_smooth_cols.route_launches[route]
+        got = prox.t_smoothness_prox(Bd, rd, 10.0)
+        torch.cuda.synchronize()
+        assert prox_cuda.t_smooth_cols.route_launches[route] == before + 1
+        assert got.dtype == dt and torch.equal(got.cpu(), want)
+        stream = prox_cuda._t_smooth(Bd, rd, 10.0, prox_cuda.STREAM)
+        assert torch.equal(stream.cpu(), want)
+    with pytest.raises(ValueError, match="rho values"):
+        prox_cuda.t_smooth_cols(Bd, torch.cat([rd, rd]), 1.0)
+
+
+@pytest.mark.parametrize("config", par2_surface.CONFIGS)
+def test_torch_par2_fit_on_cuda_matches_cpu(cuda_device, config):
+    """Each PARAFAC2 surface configuration (utils/par2_surface.py) at K = 8
+    slices on the card and on the CPU in float64 from one init state, 3
+    outer iterations (the unimodal one's Bk constraint switched on at the
+    second): the four streams at rtol 1e-8, and the configuration's kernel
+    launched on the card."""
+    spec, data_c = par2_surface.build_problem(config, "cpu", torch.float64, K=8)
+    state0 = state_to_numpy(init_coupled(
+        spec, data_c, par2_surface.surface_init_options(config), seed=2))
+    opts = par2_surface.surface_options(config, 3, AbsFuncTol=0.0,
+                                        OuterRelTol=0.0)
+    if config == "unimodal":
+        opts = dataclasses.replace(opts, iter_start_PAR2Bkconstraint=2)
+    _, out_cpu = tp.fit(spec, data_c, state_from_numpy(state0, "cpu"), opts)
+    _, data_d = par2_surface.build_problem(config, cuda_device, torch.float64,
+                                           K=8)
+    counter = {"unimodal": prox_cuda.project_isotonic_cols,
+               "ragged": prox_cuda.project_isotonic_cols,
+               "tv": prox_cuda.prox_tv_cols,
+               "tparafac2": prox_cuda.t_smooth_cols,
+               "coupled": mttkrp3}[config]
+    before = counter.launches
+    _, out = tp.fit(spec, data_d, state_from_numpy(state0, cuda_device), opts)
+    assert counter.launches > before
+    for a, b in [(out.func_val_conv, out_cpu.func_val_conv),
+                 (out.func_coupl_conv, out_cpu.func_coupl_conv),
+                 (out.func_constr_conv, out_cpu.func_constr_conv),
+                 (out.func_PAR2_coupl, out_cpu.func_PAR2_coupl)]:
         np.testing.assert_allclose(a, b, rtol=1e-8, atol=0)

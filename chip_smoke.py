@@ -70,13 +70,19 @@ exits non-zero:
 
  11. the slice-wise kernels vs plain: kernels A and B on (K, n, R) stacks
      of PARAFAC2 slices (one launch for every slice; B with one lam a
-     slice, 0 among them) at the PAR2 workload's (512, 256, 32), at K in
-     {1, 2, 3} and in the ragged buckets of prox_slicewise_ragged, and
+     slice, 0 among them) at the PAR2 workload's (512, 256, 32), at (1,
+     256, 32), (2, 29, 5), (3, 256, 32) and (7, 29, 5) (K R not a multiple
+     of 32), on their planned route and on the lanes route (a thread a
+     column, a warp 32 columns), and on a ragged stack of 64 slices through
+     prox_slicewise_ragged (one lanes launch a call, padded rows zero), and
      kernel C (csrc/t_smooth.cu, the tPARAFAC2 prox; both routes: a tile
      staged in shared memory, or r' streamed through the output) at (512,
      256, 32) and K in {1, 2, 3}, against their plain versions (float64:
-     the same bits; float32 rtol 1e-5, kernel C the same bits), each timed
-     after the L2 flush beside its bound (kernel C's routes in turns);
+     the same bits; float32 those rounded once, kernel C the same bits),
+     each timed after the L2 flush beside its bound: A and B's lanes route
+     against the block route (a block a column) in turns (lanes, block,
+     block, lanes), kernel C's routes in turns, and torch.linalg.solve of
+     kernel C's dense K x K system as its library call;
  12. the PAR2 K=512 workload (bench.py:235-263, utils/par2_workload.py:
      512 slices of 256 x 256, rank 32, non-negative A and C) through
      cmtf_aoadmm for 100 outer iterations in float32 (ms per iteration,
@@ -89,8 +95,10 @@ exits non-zero:
      iteration 10, TV Bk, tPARAFAC2 Bk, ragged unimodal Bk, and the PAR2
      dataset coupled with a CP tensor by types 0 and 1), 20 outer
      iterations each in float32 (ms per iteration, the launches of kernels
-     A, B, C and mttkrp3), then the first 3 iterations on the card and on
-     the CPU in float64 at K = PAR2_CPU_K, held to rtol 1e-8.
+     A, B, C and mttkrp3 and of A's and B's routes; the ragged stack's
+     launches of A an iteration, one a prox call), then the first 3
+     iterations on the card and on the CPU in float64 at K = PAR2_CPU_K,
+     held to rtol 1e-8.
 
 It then prints one JSON line describing the five kernels, the card's name
 and power limit, and as its last line {"ok": true, "device": {...}}.  It
@@ -665,8 +673,8 @@ def prox_phases(dev, power):
     t0 = phase(10, f"CP surface, coupling types {surface.CTYPES}, "
                    f"{SURFACE_ITERS} outer iterations, float32")
     launches = {"A": 0, "B": 0}
-    route_launches = {"A": {"shared": 0, "global": 0},
-                      "B": {"shared": 0, "global": 0}}
+    route_launches = {"A": dict.fromkeys(project_isotonic_cols.route_launches, 0),
+                      "B": dict.fromkeys(prox_tv_cols.route_launches, 0)}
     for ctype in surface.CTYPES:
         tc = time.perf_counter()
         spec, data, ds = surface.build_problem(ctype, dev, torch.float32)
@@ -827,8 +835,8 @@ def par2_phases(dev, power):
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
-        t_smooth_cols.route_launches = dict.fromkeys(
-            t_smooth_cols.route_launches, 0)
+        for fn in (project_isotonic_cols, prox_tv_cols, t_smooth_cols):
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
         to_host.calls = 0
 
     def counts():
@@ -842,7 +850,9 @@ def par2_phases(dev, power):
     err = {"A": 0.0, "B": 0.0, "C": 0.0}
     plain_ms = {}
     checked = []
-    for shape in (PAR2_SHAPE, (1, 256, 32), (2, 29, 5), (3, 256, 32)):
+    lanes_checked = 0
+    for shape in (PAR2_SHAPE, (1, 256, 32), (2, 29, 5), (3, 256, 32),
+                  (7, 29, 5)):
         K, n, R = shape
         full = shape == PAR2_SHAPE
         X = slice_stack(K, n, R, K + n)
@@ -860,12 +870,18 @@ def par2_phases(dev, power):
                 Xd = torch.tensor(X, dtype=dt, device=dev)
                 before = project_isotonic_cols.launches
                 got = project_isotonic_cols(Xd, kind, nn)
+                lanes = prox_cuda._isotonic(Xd, kind, nn, prox_cuda.LANES)
                 torch.cuda.synchronize()
-                if project_isotonic_cols.launches != before + 1:
+                if project_isotonic_cols.launches != before + 2:
                     raise RuntimeError("kernel A: not one launch a stack")
                 label = f"kernel A kind {kind} nonneg {nn} {shape} {dt}"
-                if dt == torch.float64 and not torch.equal(got.cpu(), want):
-                    raise RuntimeError(f"{label}: not the plain walk's bits")
+                # the lanes route: float64 the plain walk's bits, float32
+                # those rounded once, as the planned route
+                for route, res in (("planned", got), ("lanes", lanes)):
+                    if not torch.equal(res.cpu(), want.to(dt)):
+                        raise RuntimeError(f"{label} ({route}): not the plain "
+                                           "walk's bits (rounded once)")
+                lanes_checked += 1
                 e = check_close(got, want, 1e-12 if dt == torch.float64
                                 else 1e-5, label)
                 if dt == torch.float32:
@@ -878,12 +894,17 @@ def par2_phases(dev, power):
             Xd = torch.tensor(X, dtype=dt, device=dev)
             before = prox_tv_cols.launches
             got = prox_tv_cols(Xd, torch.tensor(lam, device=dev))
+            lanes = prox_cuda._tv(Xd, torch.tensor(lam, device=dev),
+                                  prox_cuda.LANES)
             torch.cuda.synchronize()
             label = f"kernel B {shape} {dt}, one lam a slice"
-            if prox_tv_cols.launches != before + 1 or not torch.equal(got[0], Xd[0]):
+            if prox_tv_cols.launches != before + 2 or not torch.equal(got[0], Xd[0]):
                 raise RuntimeError(f"{label}: launches or the lam = 0 slice")
-            if dt == torch.float64 and not torch.equal(got.cpu(), want):
-                raise RuntimeError(f"{label}: not the plain walk's bits")
+            for route, res in (("planned", got), ("lanes", lanes)):
+                if not torch.equal(res.cpu(), want.to(dt)):
+                    raise RuntimeError(f"{label} ({route}): not the plain "
+                                       "walk's bits (rounded once)")
+            lanes_checked += 1
             e = check_close(got, want, 1e-12 if dt == torch.float64 else 1e-5,
                             label)
             if dt == torch.float32:
@@ -904,7 +925,8 @@ def par2_phases(dev, power):
                                    "bits than the plain version")
             err["C"] = max(err["C"], float((got.cpu() - want).abs().max()))
         checked.append(shape)
-    # the ragged buckets: one launch a slice size, padded rows exactly zero
+    # a ragged stack: one lanes launch a call, padded rows exactly zero, the
+    # bits of the CPU's size buckets
     sizes = par2_surface.slice_sizes("ragged", 64)
     X = slice_stack(64, max(sizes), 32, 5)
     for k, J in enumerate(sizes):
@@ -913,23 +935,26 @@ def par2_phases(dev, power):
     for kind, params, fn in (("unimodality", (True,), project_isotonic_cols),
                              ("TV regularization", (1e-3,), prox_tv_cols)):
         pf, _ = prox.make_prox(prox.ConstraintSpec(kind, params), 256)
-        before = fn.launches
+        before, lanes = fn.launches, fn.route_launches[prox_cuda.LANES]
         got = prox_slicewise_ragged(pf, torch.tensor(X, device=dev),
                                     rho.to(dev), sizes)
-        if fn.launches != before + len(set(sizes)):
+        if fn.launches != before + 1 or \
+                fn.route_launches[prox_cuda.LANES] != lanes + 1:
             raise RuntimeError(f"{kind} ragged: {fn.launches - before} launches "
-                               f"for {len(set(sizes))} buckets")
+                               f"for {len(set(sizes))} sizes, not one lanes launch")
         want = prox_slicewise_ragged(pf, torch.tensor(X), rho, sizes)
         if not torch.equal(got.cpu(), want):
             raise RuntimeError(f"{kind} ragged: not the plain walk's bits")
         if any(bool(got[k, J:].any()) for k, J in enumerate(sizes)):
             raise RuntimeError(f"{kind} ragged: a padded row is not zero")
     print(f"kernels A, B and C (both routes) held to their plain versions on "
-          f"stacks {checked} (A and B: float64 the same bits, float32 rtol "
-          f"1e-5; C the same bits in both) and kernels A and B on "
-          f"64 ragged slices in {len(set(sizes))} size buckets (one launch a "
-          f"bucket, padded rows zero); float32 max abs diff A {err['A']:.3e}, "
-          f"B {err['B']:.3e}, C {err['C']:.3e}")
+          f"stacks {checked} (A and B on their planned route and on the lanes "
+          f"route, {lanes_checked} cases: float64 the same bits, float32 those "
+          f"rounded once; C the same bits in both dtypes) and kernels A and B "
+          f"on 64 ragged slices of {len(set(sizes))} sizes (one lanes launch "
+          f"a call, padded rows zero, the bits of the CPU's size buckets); "
+          f"float32 max abs diff A {err['A']:.3e}, B {err['B']:.3e}, C "
+          f"{err['C']:.3e}")
     clock = sm_clock_hz()
     flush = l2_flush(dev)
     K, n, R = PAR2_SHAPE
@@ -939,6 +964,7 @@ def par2_phases(dev, power):
                        device=dev) + 0.5
     t_bytes = 2 * X.numel() * 4 / HBM_BYTES_S * 1e3
     timed = {}
+    block_ms = {}
     for name, fn, chain in (
             ("A", lambda: project_isotonic_cols(X, isotonic.UNIMODAL, True), n),
             ("B", lambda: prox_tv_cols(X, lam_d), n),
@@ -956,7 +982,25 @@ def par2_phases(dev, power):
                   f"{t_stream * 1e3:.1f} us; staged route {t_k * 1e3:.1f} us: "
                   f"{t_stream / t_k:.2f}x  [{power}]")
         else:
-            t_k = time_ms(fn, flush)
+            # the lanes route (planned) against the block route in turns:
+            # lanes, block, block, lanes
+            planned = (prox_cuda.plan_isotonic if name == "A"
+                       else prox_cuda.plan_tv)(n, R, X.dtype, K)[0]
+            block = (functools.partial(prox_cuda._isotonic, X,
+                                       isotonic.UNIMODAL, True, prox_cuda.SHARED)
+                     if name == "A" else
+                     functools.partial(prox_cuda._tv, X, lam_d, prox_cuda.SHARED))
+            if planned != prox_cuda.LANES or not torch.equal(fn(), block()):
+                raise RuntimeError(f"kernel {name}: the PAR2 stack plans "
+                                   f"{planned}, or the routes' bits differ")
+            t_l1 = time_ms(fn, flush)
+            t_b1, t_b2 = time_ms(block, flush), time_ms(block, flush)
+            t_l2 = time_ms(fn, flush)
+            t_k, block_ms[name] = (t_l1 + t_l2) / 2, (t_b1 + t_b2) / 2
+            print(f"  kernel {name}, lanes route {t_k * 1e3:.1f} us ({t_l1 * 1e3:.1f},"
+                  f" {t_l2 * 1e3:.1f}) | block route "
+                  f"{block_ms[name] * 1e3:.1f} us ({t_b1 * 1e3:.1f}, "
+                  f"{t_b2 * 1e3:.1f}): {block_ms[name] / t_k:.2f}x  [{power}]")
         t_steps = chain / clock * 1e3
         t_b = max(t_bytes, t_steps)
         by = "operations" if t_steps > t_bytes else "bytes"
@@ -966,6 +1010,29 @@ def par2_phases(dev, power):
               f"{chain} dependent steps at {clock / 1e9:.2f} GHz "
               f"{t_steps * 1e3:.2f} us) = {t_b / t_k:.2%} | plain (CPU, host "
               f"clock) {plain_ms[name]:.1f} ms  [{power}]")
+    # kernel C's library call: torch.linalg.solve of the dense K x K
+    # tridiagonal matrix (ops/prox.py:209-213) on the (K, J R) right-hand
+    # side rho_k B_k, both built before the timing
+    eta = 1000.0
+    M = (torch.diag(4.0 * eta + rho_d) - 2.0 * eta * (
+        torch.diag(torch.ones(K - 1, device=dev), 1)
+        + torch.diag(torch.ones(K - 1, device=dev), -1)))
+    M[0, 0] -= 2.0 * eta
+    M[K - 1, K - 1] -= 2.0 * eta
+    rhs = (rho_d[:, None, None] * X).reshape(K, n * R)
+    # the same function: float32 solves of a system of condition ~1e4
+    # agree to ~1e-3 of the solution's scale (a check of the call, not of
+    # the kernel, which phase 11 holds to its plain version's bits)
+    got_c = t_smooth_cols(X, rho_d, eta)
+    lib_c = float((torch.linalg.solve(M, rhs).reshape(K, n, R) - got_c).abs().max())
+    if not lib_c <= 1e-2 * float(got_c.abs().max()):
+        raise RuntimeError(f"torch.linalg.solve of kernel C's system: max abs "
+                           f"diff {lib_c:.3e}")
+    t_lib_c = time_ms(lambda: torch.linalg.solve(M, rhs), flush)
+    print(f"  kernel C's library call, torch.linalg.solve of the dense "
+          f"{K}x{K} system on ({K}, {n * R}): {t_lib_c * 1e3:.1f} us "
+          f"(kernel {timed['C'][0] * 1e3:.1f} us, {t_lib_c / timed['C'][0]:.2f}x;"
+          f" max abs diff {lib_c:.3e})  [{power}]")
     del flush, X
     done(11, t0)
 
@@ -1043,6 +1110,8 @@ def par2_phases(dev, power):
               "coupled": "mttkrp3"}
     total = dict.fromkeys(counters, 0)
     c_routes = dict.fromkeys(t_smooth_cols.route_launches, 0)
+    par2_routes = {"A": dict.fromkeys(project_isotonic_cols.route_launches, 0),
+                   "B": dict.fromkeys(prox_tv_cols.route_launches, 0)}
     for config in par2_surface.CONFIGS:
         tc = time.perf_counter()
         spec, data = par2_surface.build_problem(config, dev, torch.float32)
@@ -1061,6 +1130,18 @@ def par2_phases(dev, power):
             total[k] += v
         for k, v in t_smooth_cols.route_launches.items():
             c_routes[k] += v
+        for name, fn in (("A", project_isotonic_cols), ("B", prox_tv_cols)):
+            for k, v in fn.route_launches.items():
+                par2_routes[name][k] += v
+        lanes_a = project_isotonic_cols.route_launches[prox_cuda.LANES]
+        if config in ("unimodal", "ragged") and lanes_a != n_launch["A"]:
+            raise RuntimeError(f"PAR2 surface {config}: kernel A routes "
+                               f"{project_isotonic_cols.route_launches}")
+        if config == "ragged":
+            print(f"  ragged: {n_launch['A'] / par2_surface.N_ITERS:.2f} "
+                  f"launches of kernel A an iteration, all on the lanes route "
+                  f"(one a prox call for the {len(set(spec.par2_slice_sizes(0)))}"
+                  f" slice sizes)")
         streams = np.stack([out.func_val_conv, out.func_coupl_conv,
                             out.func_constr_conv, out.func_PAR2_coupl])
         if out.OuterIterations != par2_surface.N_ITERS \
@@ -1105,9 +1186,11 @@ def par2_phases(dev, power):
     for name in ("A", "B"):
         t_k, t_b, by = timed[name]
         extra[name] = {"par2_shape": list(PAR2_SHAPE), "par2_ms": t_k,
+                       "par2_block_route_ms": block_ms[name],
                        "par2_plain_ms": plain_ms[name], "par2_bound_ms": t_b,
                        "par2_bound_by": by, "par2_max_abs_err": err[name],
-                       "par2_launches": total[name]}
+                       "par2_launches": total[name],
+                       "par2_kernel_routes": par2_routes[name]}
     t_k, t_b, by = timed["C"]
     if c_routes[prox_cuda.STAGED] != total["C"]:
         raise RuntimeError(f"kernel C routes on the surface: {c_routes}")
@@ -1116,7 +1199,7 @@ def par2_phases(dev, power):
                   "source": T_SMOOTH_SOURCE, "replaces": T_SMOOTH_REPLACES,
                   "launches": total["C"], "max_abs_err": err["C"], "ms": t_k,
                   "plain_ms": plain_ms["C"], "bound_ms": t_b, "bound_by": by,
-                  "library_ms": None, "kernel_routes": c_routes,
+                  "library_ms": t_lib_c, "kernel_routes": c_routes,
                   "stream_route_ms": t_stream}}
 
 

@@ -271,10 +271,14 @@ def prox_slicewise_ragged(prox, Bs, rho, sizes):
     """The slice-wise prox on ragged padded slices: slice k is proxed on its
     true J_k rows only, as the reference's per-slice
     Z.prox_operators{m}(B{k}, rho(k)) on true-size matrices
-    (cmtf_fun_AOADMM.m:567-578).  Slices are bucketed by size and each
-    bucket is one batched prox call on exact shapes, so no prox sees the
-    padding, and the padded rows stay exactly zero.  Bs (K, Jmax, R) padded;
-    rho (K,); sizes the J_k."""
+    (cmtf_fun_AOADMM.m:567-578), and the padded rows stay exactly zero.
+    On the card a prox whose kernels take the ragged stack (`takes_sizes`:
+    monotone, unimodal, TV) is one launch for all slices; every other prox,
+    and every prox on the CPU, runs as the JAX package does: slices bucketed
+    by size, each bucket one batched prox call on exact shapes.  Bs (K,
+    Jmax, R) padded; rho (K,); sizes the J_k."""
+    if Bs.device.type == "cuda" and getattr(prox, "takes_sizes", False):
+        return prox(Bs, rho[:, None, None], sizes=sizes)
     out = torch.zeros_like(Bs)
     buckets: dict[int, list[int]] = {}
     for k, J in enumerate(sizes):

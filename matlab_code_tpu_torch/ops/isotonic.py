@@ -7,7 +7,9 @@ The merge loop is sequential and data-dependent.  A CUDA tensor goes to the
 hand-written kernel `project_isotonic_cols` (csrc/prox_seq.cu, bound in
 ops/prox_cuda.py): a block a scan side of a column (a unimodal column is
 a cluster of two), one thread walking the same recurrence with its state
-in shared memory (in device memory for columns too long for it).  A CPU
+in shared memory (in device memory for columns too long for it); a stack
+of many columns, or a ragged one, a thread a scan side and a warp 32
+columns (the lanes route).  A CPU
 tensor takes the plain version below: a Python walk of each column in the
 JAX module's order of merges and arithmetic, in float64 whatever the
 tensor's dtype (the kernel also computes in float64), so float64 results
@@ -142,23 +144,43 @@ def columns_reference(X: torch.Tensor, kind: int, nonneg: bool = False,
         1, 2).to(X.dtype).reshape(X.shape)
 
 
-def _columns(X: torch.Tensor, kind: int, nonneg: bool) -> torch.Tensor:
+def ragged_reference(X: torch.Tensor, sizes, fn) -> torch.Tensor:
+    """A padded ragged stack X (K, Jmax, R) through fn(slice) on each
+    slice's true J_k rows, the padded rows zero: the plain version of the
+    kernels' ragged form (shared with ops/tv.py)."""
+    if X.dim() != 3 or len(sizes) != X.shape[0]:
+        raise ValueError(f"ragged sizes: {len(sizes)} lengths for a stack "
+                         f"of shape {tuple(X.shape)}")
+    out = torch.zeros_like(X)
+    for k, J in enumerate(sizes):
+        out[k, :J] = fn(k, X[k, :J])
+    return out
+
+
+def _columns(X: torch.Tensor, kind: int, nonneg: bool, sizes=None
+             ) -> torch.Tensor:
     if X.device.type == "cuda":
         from matlab_code_tpu_torch.ops.prox_cuda import project_isotonic_cols
-        return project_isotonic_cols(X.contiguous(), kind, nonneg)
+        return project_isotonic_cols(X.contiguous(), kind, nonneg, sizes)
     if X.device.type != "cpu":
         raise ValueError(f"isotonic projection: unsupported device {X.device}")
+    if sizes is not None:
+        return ragged_reference(
+            X, sizes, lambda k, M: columns_reference(M, kind, nonneg))
     return columns_reference(X, kind, nonneg)
 
 
-def project_monotone(X: torch.Tensor, increasing: bool = True) -> torch.Tensor:
+def project_monotone(X: torch.Tensor, increasing: bool = True, sizes=None
+                     ) -> torch.Tensor:
     """Column-wise monotone projection of an (n, R) matrix or of each slice
-    of a (K, n, R) stack; non-increasing
-    negates in and out, as the reference's -project_monotone(-x, 1)."""
-    return _columns(X, INCREASING if increasing else DECREASING, False)
+    of a (K, n, R) stack (of its true J_k rows where the stack is ragged,
+    sizes the J_k; padded rows zero); non-increasing negates in and out,
+    as the reference's -project_monotone(-x, 1)."""
+    return _columns(X, INCREASING if increasing else DECREASING, False, sizes)
 
 
-def project_unimodal(X: torch.Tensor, nonneg: bool) -> torch.Tensor:
+def project_unimodal(X: torch.Tensor, nonneg: bool, sizes=None
+                     ) -> torch.Tensor:
     """Column-wise unimodal projection of an (n, R) matrix or of each slice
-    of a (K, n, R) stack (project_unimodal.m)."""
-    return _columns(X, UNIMODAL, nonneg)
+    of a (K, n, R) stack, ragged as project_monotone (project_unimodal.m)."""
+    return _columns(X, UNIMODAL, nonneg, sizes)

@@ -10,7 +10,10 @@ prox_slicewise): each slice gets the prox of its own (n, R) matrix, in one
 batched call (a 'custom' prox is called slice by slice).  The sequential
 proxes (monotone, unimodal, TV) live in ops/isotonic.py and ops/tv.py and
 run hand-written kernels on a CUDA tensor, as does 'tPARAFAC2' (the joint
-temporal-smoothness prox over the K slices, t_smoothness_prox).
+temporal-smoothness prox over the K slices, t_smoothness_prox).  Their
+proxes also take a padded ragged stack with its slice lengths,
+prox(x, rho, sizes=J_k) (`takes_sizes`), one kernel launch for all slices
+(models/admm.prox_slicewise_ragged).
 """
 from __future__ import annotations
 
@@ -254,6 +257,13 @@ def t_smoothness_penalty(Bs: torch.Tensor, eta: float) -> torch.Tensor:
     return eta * torch.sum(d * d)
 
 
+def _takes_sizes(prox):
+    """Mark a prox whose kernels take a padded ragged stack in one call,
+    prox(x, rho, sizes=J_k), each slice's true rows only."""
+    prox.takes_sizes = True
+    return prox
+
+
 def _custom_prox(fn):
     """A user's prox of one (n, R) matrix, called slice by slice on a
     (K, n, R) stack with the slice's rho."""
@@ -291,13 +301,16 @@ def make_prox(spec: ConstraintSpec, mode_size: int
         eta, = p
         return (lambda x, rho: project_simplex_rows(x, eta)), None
     if k == "non-decreasing":
-        return (lambda x, rho: project_monotone(x, True)), None
+        return _takes_sizes(lambda x, rho, sizes=None:
+                            project_monotone(x, True, sizes)), None
     if k == "non-increasing":
         # the reference's -project_monotone(-x, 1) (constraints_to_prox.m:27-28)
-        return (lambda x, rho: project_monotone(x, False)), None
+        return _takes_sizes(lambda x, rho, sizes=None:
+                            project_monotone(x, False, sizes)), None
     if k == "unimodality":
         nn = bool(p[0])
-        return (lambda x, rho: project_unimodal(x, nn)), None
+        return _takes_sizes(lambda x, rho, sizes=None:
+                            project_unimodal(x, nn, sizes)), None
     if k == "l1-ball":
         eta, = p
         return (lambda x, rho: project_l1ball_cols(x, eta)), None
@@ -340,7 +353,8 @@ def make_prox(spec: ConstraintSpec, mode_size: int
         eta, = p
         # the reference's reg is eta*sum(sum(diff(x))), without abs:
         # replicated literally (constraints_to_prox.m:81)
-        return ((lambda x, rho: prox_tv(x, eta / rho)),
+        return (_takes_sizes(lambda x, rho, sizes=None:
+                             prox_tv(x, eta / rho, sizes)),
                 lambda x: eta * torch.sum(x[1:, :] - x[:-1, :]))
     if k == "tPARAFAC2":
         eta, = p

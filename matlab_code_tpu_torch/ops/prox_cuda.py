@@ -14,17 +14,19 @@ Kernels A and B take a contiguous (n, R) float32 or float64 CUDA matrix, or
 a (K, n, R) stack of PARAFAC2 slices (K R columns; kernel B with one lam a
 slice), and return a new one, walking each column's recurrence in float64
 in the order of the plain versions (ops/isotonic.columns_reference,
-ops/tv.columns_reference):
-a block of THREADS threads a column (kernel A: a scan side; a unimodal
-column is a cluster of two blocks), one thread walking the recurrence and
-all threads staging the column, searching the unimodal peak and writing
-the output.  Where a block keeps its column and the walk's state is the
-only difference between the two routes, chosen here from n and the dtype
-before the launch (plan_isotonic, plan_tv):
+ops/tv.columns_reference).  Three routes, chosen here from n, the column
+count K R and the dtype before the launch (plan_isotonic, plan_tv):
 
-  "shared"  dynamic shared memory, as far as a block's 227 KB;
-  "global"  longer columns: the block's slice of a workspace in device
-            memory allocated here.
+  "shared"  a block of THREADS threads a column (kernel A: a scan side; a
+            unimodal column is a cluster of two blocks), one thread walking
+            and all staging, searching the unimodal peak and writing, the
+            state in dynamic shared memory, as far as a block's 227 KB;
+  "global"  the same for longer columns, the state in the block's slice of
+            a workspace in device memory allocated here;
+  "lanes"   stacks of many short columns: a thread walks a column (a scan
+            side), a warp takes 32 adjacent columns, the lanes' state
+            interleaved.  It alone takes a ragged stack (`sizes`, the J_k of
+            padded slices), in one launch.
 
 Kernel C takes a contiguous (K, J, R) stack and rho (K,) on the card and
 computes in the stack's dtype, in the plain version's order
@@ -46,10 +48,19 @@ import torch
 _LIB = None
 _LIB_C = None
 KERNEL_DTYPES = (torch.float32, torch.float64)
-SHARED, GLOBAL = "shared", "global"
+SHARED, GLOBAL, LANES = "shared", "global", "lanes"
 STAGED, STREAM = "staged", "stream"     # kernel C's routes
 T_TILE = 32              # kernel C's staged route: elements a block (kTile)
 THREADS = 256            # threads a block (kThreads)
+LANE_COLS = 32           # columns a warp of the lanes route (kLanes)
+# The lanes route from this many columns (K R) on.  A warp of the lanes
+# route walks its 32 columns 1.8-3.4x slower than a block walks one (the
+# slowest lane's merges, the state in device memory), so it wins only
+# where the block routes run in waves: at n = 256, R = 32 in float32 on an
+# H100 (utils/time_prox_seq.py --crossover, in turns) the lanes route
+# passes the block route between 768 and 1,056 columns for kernel A
+# unimodal and kernel B, and between 1,056 and 1,536 for A non-decreasing.
+LANES_MIN_COLS = 1024
 # dynamic shared memory a block of the shared route may take: the 227 KB
 # (232,448 bytes) a Hopper block may opt into, less 1 KB for the kernels'
 # static shared memory
@@ -64,7 +75,11 @@ def _lib():
         p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
         lib.isotonic_run.argtypes = [i, i, i, p, p, i, i, i, l, p, l, p]
         lib.tv_run.argtypes = [i, p, p, i, i, i, p, l, p, l, p]
-        lib.isotonic_run.restype = lib.tv_run.restype = i
+        lib.isotonic_lanes_run.argtypes = [i, i, i, p, p, i, i, i, p, p, l, p]
+        lib.tv_lanes_run.argtypes = [i, p, p, i, i, i, p, p, l, p, l, p]
+        for f in (lib.isotonic_run, lib.tv_run, lib.isotonic_lanes_run,
+                  lib.tv_lanes_run):
+            f.restype = i
         _LIB = lib
     return _LIB
 
@@ -92,26 +107,36 @@ def _route(state_bytes: int) -> str:
     return SHARED if state_bytes <= SMEM_LIMIT else GLOBAL
 
 
-def plan_isotonic(n: int, R: int, dtype: torch.dtype) -> tuple[str, int]:
-    """(route, bytes of state a block) of kernel A on an (n, R) matrix: a
-    scan side's state, 36 bytes a slot for slots 0..n (the column is staged
-    in its sumwy slots), whatever the dtype; the shared route while that
-    fits a block's shared memory, the global route after."""
+def plan_isotonic(n: int, R: int, dtype: torch.dtype, K: int = 1
+                  ) -> tuple[str, int]:
+    """(route, bytes of state a walker) of kernel A on an (n, R) matrix or a
+    (K, n, R) stack.  The lanes route for K R >= LANES_MIN_COLS columns: a
+    lane's state in a workspace, at most 44 bytes a slot for slots 0..n
+    (lanes_state_bytes); else a block's scan side, 36 bytes a slot (the
+    column staged in its sumwy slots), whatever the dtype: the shared route
+    while that fits a block's shared memory, the global route after."""
     _itemsize(dtype)
-    if n < 1 or R < 1:
-        raise ValueError(f"kernel A takes n, R >= 1, got ({n}, {R})")
+    if n < 1 or R < 1 or K < 1:
+        raise ValueError(f"kernel A takes n, R >= 1 and K >= 1, got ({n}, {R}, {K})")
+    if K * R >= LANES_MIN_COLS:
+        return LANES, 44 * (n + 1)
     state = 36 * (n + 1)
     return _route(state), state
 
 
-def plan_tv(n: int, R: int, dtype: torch.dtype) -> tuple[str, int]:
-    """(route, bytes of state a block) of kernel B on an (n, R) matrix: the
+def plan_tv(n: int, R: int, dtype: torch.dtype, K: int = 1
+            ) -> tuple[str, int]:
+    """(route, bytes of state a walker) of kernel B on an (n, R) matrix or a
+    (K, n, R) stack: the lanes route for K R >= LANES_MIN_COLS columns, a
+    lane's column in the storage type (itemsize n bytes); else a block's
     column as doubles and the output in the storage type, (8 + itemsize)
-    bytes a row; the shared route while that fits, the global route
+    bytes a row, on the shared route while that fits, the global route
     after."""
     item = _itemsize(dtype)
-    if n < 1 or R < 1:
-        raise ValueError(f"kernel B takes n, R >= 1, got ({n}, {R})")
+    if n < 1 or R < 1 or K < 1:
+        raise ValueError(f"kernel B takes n, R >= 1 and K >= 1, got ({n}, {R}, {K})")
+    if K * R >= LANES_MIN_COLS:
+        return LANES, item * n
     state = (8 + item) * n
     return _route(state), state
 
@@ -155,88 +180,167 @@ def _stream(X: torch.Tensor) -> int:
     return torch.cuda.current_stream(X.device).cuda_stream
 
 
-def _run(name: str, kernel, X: torch.Tensor, route: str, state: int,
-         blocks: int, args: tuple) -> None:
-    """Launch `kernel` (a C entry) on `route`: with `state` bytes of shared
-    memory a block, or a workspace of `blocks` slices allocated here.
-    args: the entry's arguments before (smem, ws, stride, stream)."""
+def _run(kernel, X: torch.Tensor, route: str, state: int, blocks: int,
+         args: tuple) -> int:
+    """Launch `kernel` (a C entry of a block route) on `route`: with a
+    block's `state` bytes (plan_isotonic's / plan_tv's block state) of
+    shared memory a block, or a workspace of `blocks` slices allocated
+    here.  args: the entry's arguments before (smem, ws,
+    stride, stream).  Returns the launch's CUDA error."""
     if route == SHARED:
-        err = kernel(*args, state, None, 0, _stream(X))
-    else:
-        stride = workspace_stride(state)
-        ws = torch.empty(blocks * stride, dtype=torch.uint8, device=X.device)
-        err = kernel(*args, 0, ws.data_ptr(), stride, _stream(X))
+        return kernel(*args, state, None, 0, _stream(X))
+    stride = workspace_stride(state)
+    ws = torch.empty(blocks * stride, dtype=torch.uint8, device=X.device)
+    return kernel(*args, 0, ws.data_ptr(), stride, _stream(X))
+
+
+def lanes_state_bytes(n: int, kind: int) -> int:
+    """Bytes of a warp's state in kernel A's lanes route (lanes_state_bytes
+    in csrc/prox_seq.cu): slots 0..n of 32 lanes, 20 bytes a slot a lane
+    for kinds 0 and 1 (sumwy, idxr, and the level just before the slot's
+    set), 44 for the unimodal kind (with sumwy2, err, and the err just
+    before the set)."""
+    return (44 if kind == 2 else 20) * (n + 1) * LANE_COLS
+
+
+_SIZES: dict = {}
+
+
+def _sizes_on(sizes, K: int, n: int, device) -> torch.Tensor:
+    """The J_k of a ragged (K, n, R) stack as K int32 on the device, checked
+    (1 <= J_k <= n) and kept for the calls that follow with the same
+    sizes (one copy to the card a fit)."""
+    key = (tuple(int(J) for J in sizes), str(device))
+    if key not in _SIZES:
+        if len(key[0]) != K or not all(1 <= J <= n for J in key[0]):
+            raise ValueError(f"ragged sizes: {K} slice lengths in 1..{n} "
+                             f"expected, got {key[0]}")
+        if len(_SIZES) >= 16:
+            _SIZES.clear()
+        _SIZES[key] = torch.tensor(key[0], dtype=torch.int32, device=device)
+    return _SIZES[key]
+
+
+def _stack_dims(X: torch.Tensor, sizes) -> tuple[int, int, int]:
+    n, R = X.shape[-2:]
+    K = X.shape[0] if X.dim() == 3 else 1
+    if sizes is not None and X.dim() != 3:
+        raise ValueError("ragged sizes take a (K, n, R) stack, got "
+                         f"{tuple(X.shape)}")
+    return K, n, R
+
+
+def _launched(fn, route: str, err: int, X: torch.Tensor) -> None:
+    """Raise on a launch's CUDA error, else count the launch on `route`."""
     if err != 0:
-        raise RuntimeError(f"{name} ({route} route) launch failed: cudaError "
-                           f"{err} ({'x'.join(map(str, X.shape))} {X.dtype})")
+        raise RuntimeError(f"{fn.__name__} ({route} route) launch failed: "
+                           f"cudaError {err} ({'x'.join(map(str, X.shape))} "
+                           f"{X.dtype})")
+    fn.launches += 1
+    fn.route_launches[route] += 1
 
 
-def project_isotonic_cols(X: torch.Tensor, kind: int, nonneg: bool = False
-                          ) -> torch.Tensor:
+def project_isotonic_cols(X: torch.Tensor, kind: int, nonneg: bool = False,
+                          sizes=None) -> torch.Tensor:
     """Kernel A on every column of X (n, R), or of every slice of X
     (K, n, R), in one launch: kind 0 non-decreasing, 1 non-increasing, 2
-    unimodal (non-negative where nonneg)."""
+    unimodal (non-negative where nonneg).  sizes: the true lengths J_k of
+    the slices of a padded ragged stack (the lanes route); rows J_k and
+    after are written as zeros."""
     _check(X, "project_isotonic_cols")
-    return _isotonic(X, kind, nonneg)
+    return _isotonic(X, kind, nonneg, sizes=sizes)
 
 
 def _isotonic(X: torch.Tensor, kind: int, nonneg: bool,
-              route: str | None = None) -> torch.Tensor:
-    """Kernel A on plan_isotonic's route, or on `route` (GLOBAL at any n:
-    the card tests and chip_smoke.py's timing of the two routes)."""
-    n, R = X.shape[-2:]
-    K = X.shape[0] if X.dim() == 3 else 1
+              route: str | None = None, sizes=None) -> torch.Tensor:
+    """Kernel A on plan_isotonic's route (LANES for a ragged stack), or on
+    `route` (GLOBAL or LANES at any n: the card tests and the timing of
+    the routes)."""
+    K, n, R = _stack_dims(X, sizes)
     out = torch.empty_like(X)
     if X.numel() == 0:
         return out
-    planned, state = plan_isotonic(n, R, X.dtype)
-    route = route or planned
-    _run("project_isotonic_cols", _lib().isotonic_run, X, route, state,
-         (2 if kind == 2 else 1) * K * R,
-         (int(X.dtype == torch.float64), kind, int(bool(nonneg)), X.data_ptr(),
-          out.data_ptr(), K, n, R))
-    project_isotonic_cols.launches += 1
-    project_isotonic_cols.route_launches[route] += 1
+    planned = plan_isotonic(n, R, X.dtype, K)[0]
+    route = route or (LANES if sizes is not None else planned)
+    if sizes is not None and route != LANES:
+        raise ValueError(f"a ragged stack takes the lanes route, not {route}")
+    args = (int(X.dtype == torch.float64), kind, int(bool(nonneg)),
+            X.data_ptr(), out.data_ptr(), K, n, R)
+    if route != LANES:
+        err = _run(_lib().isotonic_run, X, route, 36 * (n + 1),
+                   (2 if kind == 2 else 1) * K * R, args)
+    else:
+        sz = _sizes_on(sizes, K, n, X.device) if sizes is not None else None
+        warps = (2 if kind == 2 else 1) * -(-K * R // LANE_COLS)
+        stride = workspace_stride(lanes_state_bytes(n, kind))
+        ws = torch.empty(warps * stride, dtype=torch.uint8, device=X.device)
+        err = _lib().isotonic_lanes_run(
+            *args, None if sz is None else sz.data_ptr(), ws.data_ptr(),
+            stride, _stream(X))
+    _launched(project_isotonic_cols, route, err, X)
     return out
 
 
 project_isotonic_cols.launches = 0
-project_isotonic_cols.route_launches = {SHARED: 0, GLOBAL: 0}
+project_isotonic_cols.route_launches = {SHARED: 0, GLOBAL: 0, LANES: 0}
 
 
-def prox_tv_cols(X: torch.Tensor, lam) -> torch.Tensor:
+def prox_tv_cols(X: torch.Tensor, lam, sizes=None) -> torch.Tensor:
     """Kernel B on every column of X (n, R) with strength lam (a number or
     a 0-d tensor), or on every slice of X (K, n, R) in one launch, slice k
     with lam[k] (a tensor of K values, or one value for all).  A CUDA lam
-    is read by the kernel, never by the host."""
+    is read by the kernel, never by the host.  sizes: the true lengths J_k
+    of a padded ragged stack (the lanes route), rows J_k and after zero."""
     _check(X, "prox_tv_cols")
-    return _tv(X, lam)
+    return _tv(X, lam, sizes=sizes)
 
 
-def _tv(X: torch.Tensor, lam, route: str | None = None) -> torch.Tensor:
-    """Kernel B on plan_tv's route, or on `route` (GLOBAL at any n)."""
-    n, R = X.shape[-2:]
-    K = X.shape[0] if X.dim() == 3 else 1
+def _tv(X: torch.Tensor, lam, route: str | None = None, sizes=None,
+        in_shared: bool | None = None) -> torch.Tensor:
+    """Kernel B on plan_tv's route (LANES for a ragged stack), or on
+    `route` (GLOBAL or LANES at any n).  On the lanes route a warp's
+    columns are staged in shared memory where they fit (32 n itemsize
+    bytes: n up to 1808 in float32, 904 in float64), else in a workspace
+    in device memory; in_shared names one (the card tests and the timing
+    of the two)."""
+    K, n, R = _stack_dims(X, sizes)
     out = torch.empty_like(X)
     if X.numel() == 0:
         return out
-    planned, state = plan_tv(n, R, X.dtype)
-    route = route or planned
+    planned = plan_tv(n, R, X.dtype, K)[0]
+    route = route or (LANES if sizes is not None else planned)
+    if sizes is not None and route != LANES:
+        raise ValueError(f"a ragged stack takes the lanes route, not {route}")
     lam_t = torch.as_tensor(lam, dtype=torch.float64).to(X.device).reshape(-1)
     if lam_t.numel() not in (1, K):
         raise ValueError(f"prox_tv_cols: {lam_t.numel()} lam values for {K} "
                          "slices")
     lam_t = lam_t.expand(K).contiguous()
-    _run("prox_tv_cols", _lib().tv_run, X, route, state, K * R,
-         (int(X.dtype == torch.float64), X.data_ptr(), out.data_ptr(), K, n, R,
-          lam_t.data_ptr()))
-    prox_tv_cols.launches += 1
-    prox_tv_cols.route_launches[route] += 1
+    args = (int(X.dtype == torch.float64), X.data_ptr(), out.data_ptr(), K, n,
+            R)
+    if route != LANES:
+        err = _run(_lib().tv_run, X, route, (8 + _itemsize(X.dtype)) * n,
+                   K * R, args + (lam_t.data_ptr(),))
+    else:
+        sz = _sizes_on(sizes, K, n, X.device) if sizes is not None else None
+        args += (None if sz is None else sz.data_ptr(), lam_t.data_ptr())
+        warp_bytes = _itemsize(X.dtype) * n * LANE_COLS
+        if in_shared is None:
+            in_shared = warp_bytes <= SMEM_LIMIT
+        if in_shared:
+            err = _lib().tv_lanes_run(*args, warp_bytes, None, 0, _stream(X))
+        else:
+            stride = workspace_stride(warp_bytes)
+            ws = torch.empty(-(-K * R // LANE_COLS) * stride,
+                             dtype=torch.uint8, device=X.device)
+            err = _lib().tv_lanes_run(*args, 0, ws.data_ptr(), stride,
+                                      _stream(X))
+    _launched(prox_tv_cols, route, err, X)
     return out
 
 
 prox_tv_cols.launches = 0
-prox_tv_cols.route_launches = {SHARED: 0, GLOBAL: 0}
+prox_tv_cols.route_launches = {SHARED: 0, GLOBAL: 0, LANES: 0}
 
 
 def t_smooth_cols(Bs: torch.Tensor, rho, eta: float) -> torch.Tensor:

@@ -7,7 +7,9 @@ prox_TV.m around TV_Condat_v2.m).  For each column y it solves
 A CUDA tensor goes to the hand-written kernel `prox_tv_cols`
 (csrc/prox_seq.cu, bound in ops/prox_cuda.py): a block a column, one
 thread running the state machine below on the column staged in shared
-memory (in device memory for columns too long for it).  A CPU
+memory (in device memory for columns too long for it); a stack of many
+columns, or a ragged one, a thread a column and a warp 32 columns (the
+lanes route).  A CPU
 tensor takes the plain version: a Python walk of each column in the JAX
 module's order of states and arithmetic, in float64 whatever the tensor's
 dtype (the kernel also computes in float64).
@@ -112,12 +114,20 @@ def columns_reference(X: torch.Tensor, lam, steps: list | None = None
         Xs.shape[0], R, n).transpose(1, 2).to(X.dtype).reshape(X.shape)
 
 
-def prox_tv(X: torch.Tensor, lam) -> torch.Tensor:
+def prox_tv(X: torch.Tensor, lam, sizes=None) -> torch.Tensor:
     """Column-wise TV prox of an (n, R) matrix (functions/prox_TV.m), or of
-    each slice of a (K, n, R) stack with its own lam (K values)."""
+    each slice of a (K, n, R) stack with its own lam (K values); of each
+    slice's true J_k rows where the stack is ragged (sizes the J_k; padded
+    rows zero)."""
     if X.device.type == "cuda":
         from matlab_code_tpu_torch.ops.prox_cuda import prox_tv_cols
-        return prox_tv_cols(X.contiguous(), lam)
+        return prox_tv_cols(X.contiguous(), lam, sizes)
     if X.device.type != "cpu":
         raise ValueError(f"prox_tv: unsupported device {X.device}")
+    if sizes is not None:
+        from matlab_code_tpu_torch.ops.isotonic import ragged_reference
+        lams = torch.as_tensor(lam, dtype=torch.float64).reshape(-1)
+        lams = lams.expand(X.shape[0]) if lams.numel() == 1 else lams
+        return ragged_reference(
+            X, sizes, lambda k, M: columns_reference(M, lams[k]))
     return columns_reference(X, lam)

@@ -176,9 +176,10 @@ class Parafac2Tensor:
         return self.slices.device
 
     @staticmethod
-    def from_list(slice_list, dtype=None, device="cpu") -> "Parafac2Tensor":
+    def from_list(slice_list, dtype=None, device="cuda") -> "Parafac2Tensor":
         """Stack K slices X_k (I, J_k) (torch tensors or anything np.asarray
-        takes) into the padded form."""
+        takes) into the padded form, on `device` (the card unless asked
+        for the CPU)."""
         mats = [s if isinstance(s, torch.Tensor) else torch.as_tensor(np.asarray(s))
                 for s in slice_list]
         dt = dtype or mats[0].dtype

@@ -217,7 +217,7 @@ def test_torch_parafac2_tensor_crosses_from_jax():
     rng = np.random.default_rng(3)
     slices = [rng.standard_normal((4, J)) for J in (3, 5, 2)]
     j = Parafac2Tensor.from_list(slices)
-    t = TParafac2Tensor.from_list(slices)
+    t = TParafac2Tensor.from_list(slices, device="cpu")
     c = data_from_numpy((j,), device="cpu").objects[0]
     for x in (t, c):
         np.testing.assert_array_equal(x.slices.numpy(), np.asarray(j.slices))
@@ -225,6 +225,14 @@ def test_torch_parafac2_tensor_crosses_from_jax():
         assert x.slices.dtype == torch.float64 and x.mask.dtype == torch.bool
     for a, b in zip(t.to_list((3, 5, 2)), slices):
         np.testing.assert_array_equal(a.numpy(), b)
+
+
+def test_torch_parafac2_tensor_from_list_defaults_to_the_card():
+    """The port's entry points put data on the card unless asked for the
+    CPU, as the JAX package's from_list puts it on the default device."""
+    import inspect
+    sig = inspect.signature(TParafac2Tensor.from_list)
+    assert sig.parameters["device"].default == "cuda"
 
 
 def test_torch_t_smooth_plan_and_cpu_dispatch():

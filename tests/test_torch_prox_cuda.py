@@ -1,8 +1,10 @@
 """The sequential-prox kernels (csrc/prox_seq.cu: kernel A, isotonic and
 unimodal; kernel B, TV; csrc/t_smooth.cu: kernel C, the tPARAFAC2 prox) on
-a CUDA card, on both routes of A and B (shared memory up to
-prox_cuda.plan_isotonic's / plan_tv's limit, device memory past it) and on
-stacks of PARAFAC2 slices (regular, ragged buckets, one lam a slice), and
+a CUDA card, on the three routes of A and B (a block a column with its
+state in shared memory up to prox_cuda.plan_isotonic's / plan_tv's limit,
+or in device memory past it; a thread a column, a warp 32 columns, for
+stacks of many columns) and on stacks of PARAFAC2 slices (regular, ragged
+in one launch, one lam a slice), and
 coupled CP fits of types 1 and 5 and PARAFAC2 fits on the card against the
 CPU.
 
@@ -164,7 +166,7 @@ def test_torch_kernels_match_plain_on_nonfinite_columns(cuda_device):
     Y[0, 0], Y[7, 1], Y[8, 1], Y[39, 2] = -np.inf, -np.inf, -np.inf, -np.inf
     Y[5, 3], Y[0, 2] = np.inf, np.inf
     Yd = torch.tensor(Y, device=cuda_device)
-    for route in ("shared", "global"):
+    for route in ("shared", "global", "lanes"):
         for M in (Xd, Yd):
             for kind, nn in KINDS_A:
                 got = prox_cuda._isotonic(M, kind, nn, route)
@@ -277,9 +279,10 @@ def test_torch_batched_tv_kernel_matches_plain(cuda_device, K, n, R):
 
 
 def test_torch_slicewise_prox_on_the_card_matches_cpu(cuda_device):
-    """prox_slicewise (one launch) and prox_slicewise_ragged (one launch a
-    size bucket, padded rows exactly zero) with unimodal and TV proxes and
-    one rho a slice, card against CPU in float64."""
+    """prox_slicewise and prox_slicewise_ragged (padded rows exactly zero)
+    with unimodal and TV proxes and one rho a slice, one launch each, card
+    against CPU in float64: the ragged stack takes the lanes route and
+    gives the bits of the CPU's size buckets."""
     rng = np.random.default_rng(3)
     sizes = (30, 24, 30, 17, 24, 30)
     X = rng.standard_normal((6, 30, 4))
@@ -294,13 +297,110 @@ def test_torch_slicewise_prox_on_the_card_matches_cpu(cuda_device):
         assert counter.launches == before + 1
         _assert_close(got, prox_slicewise(p, torch.tensor(X), rho), 1e-12)
         before = counter.launches
+        lanes = counter.route_launches["lanes"]
         got = prox_slicewise_ragged(p, torch.tensor(X, device=cuda_device),
                                     rho.to(cuda_device), sizes)
-        assert counter.launches == before + len(set(sizes))
+        assert counter.launches == before + 1
+        assert counter.route_launches["lanes"] == lanes + 1
         want = prox_slicewise_ragged(p, torch.tensor(X), rho, sizes)
-        _assert_close(got, want, 1e-12)
+        assert torch.equal(got.cpu(), want)
         for k, J in enumerate(sizes):
             assert not bool(got[k, J:].any())
+
+
+LANE_SHAPES = [(512, 256, 32), (1, 256, 32), (3, 256, 32), (2, 29, 5),
+               (7, 29, 5), (4, 1, 9), (5, 2, 7), (2, 1900, 3)]
+
+
+@pytest.mark.parametrize("K,n,R", LANE_SHAPES)
+def test_torch_lanes_route_matches_plain(cuda_device, K, n, R):
+    """The lanes route (a thread a column's scan side, a warp 32 adjacent
+    columns, the last warp's lanes past K R idle) against the plain walk:
+    every kind of kernel A and kernel B with one lam a slice; float64 the
+    same bits, float32 the float64 result rounded once (rtol 1e-5).  At
+    n = 1900 kernel B's columns pass a warp's shared memory and are staged
+    in a device-memory workspace."""
+    X = _stack(K, n, R)
+    lam = np.linspace(0.0, 0.05, K)
+    if K > 2:
+        lam[-1] = 1.0 + float(np.max(np.sum(np.abs(np.diff(X, axis=1)),
+                                            axis=1)))
+    for dt, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        Xd = torch.tensor(X, dtype=dt, device=cuda_device)
+        Xh = Xd.double().cpu()
+        for kind, nn in KINDS_A:
+            want = isotonic.columns_reference(Xh, kind, nn)
+            before = prox_cuda.project_isotonic_cols.route_launches["lanes"]
+            got = prox_cuda._isotonic(Xd, kind, nn, "lanes")
+            torch.cuda.synchronize()
+            assert prox_cuda.project_isotonic_cols.route_launches["lanes"] \
+                == before + 1
+            assert got.dtype == dt and got.shape == (K, n, R)
+            _assert_close(got, want, rtol)
+            assert torch.equal(got.cpu(), want.to(dt))
+        want = tv.columns_reference(Xh, torch.tensor(lam))
+        lam_d = torch.tensor(lam, device=cuda_device)
+        got = prox_cuda._tv(Xd, lam_d, "lanes")
+        _assert_close(got, want, rtol)
+        assert torch.equal(got.cpu(), want.to(dt))
+        # the columns staged in a device-memory workspace (the variant for
+        # columns past a warp's shared memory): the same bits
+        assert torch.equal(prox_cuda._tv(Xd, lam_d, "lanes", in_shared=False),
+                           got)
+
+
+def test_torch_plan_sends_many_columns_to_the_lanes_route(cuda_device):
+    """The PAR2 stack (512, 256, 32) goes to the lanes route through the
+    public wrappers; a CP-shaped matrix keeps the block route."""
+    X = torch.tensor(_stack(512, 256, 32), dtype=torch.float32,
+                     device=cuda_device)
+    A, B = prox_cuda.project_isotonic_cols, prox_cuda.prox_tv_cols
+    for fn, call in ((A, lambda M: A(M, 2, True)), (B, lambda M: B(M, 1e-3))):
+        before = dict(fn.route_launches)
+        call(X)
+        call(X[0, :, :16].contiguous())
+        torch.cuda.synchronize()
+        assert fn.route_launches == {**before,
+                                     "lanes": before["lanes"] + 1,
+                                     "shared": before["shared"] + 1}
+
+
+@pytest.mark.parametrize("R", [5, 32])
+def test_torch_ragged_stack_is_one_launch(cuda_device, R):
+    """A padded ragged stack (J_k in 1..40, K R not a multiple of 32 at R
+    = 5) in one lanes launch: each column walks its slice's J_k rows, the
+    padded rows come back exactly zero, and the result has the bits of
+    the plain version on each slice's true rows (float64) or that result
+    rounded once (float32); a ragged stack on another route, and sizes
+    out of range, raise."""
+    rng = np.random.default_rng(R)
+    sizes = tuple(int(J) for J in rng.integers(1, 41, 9))
+    X = rng.standard_normal((9, 40, R))
+    A, B = prox_cuda.project_isotonic_cols, prox_cuda.prox_tv_cols
+    lam = rng.uniform(0.0, 0.2, 9)
+    for dt in (torch.float64, torch.float32):
+        Xd = torch.tensor(X, dtype=dt, device=cuda_device)
+        Xh = Xd.double().cpu()
+        for kind, nn in KINDS_A:
+            want = isotonic.ragged_reference(
+                Xh, sizes, lambda k, M: isotonic.columns_reference(M, kind, nn))
+            before = A.route_launches["lanes"]
+            got = A(Xd, kind, nn, sizes)
+            torch.cuda.synchronize()
+            assert A.route_launches["lanes"] == before + 1
+            assert torch.equal(got.cpu(), want.to(dt))
+            for k, J in enumerate(sizes):
+                assert not bool(got[k, J:].any())
+        want = isotonic.ragged_reference(
+            Xh, sizes, lambda k, M: tv.columns_reference(M, float(lam[k])))
+        before = B.route_launches["lanes"]
+        got = B(Xd, torch.tensor(lam, device=cuda_device), sizes)
+        assert B.route_launches["lanes"] == before + 1
+        assert torch.equal(got.cpu(), want.to(dt))
+    with pytest.raises(ValueError, match="lanes route"):
+        prox_cuda._isotonic(Xd, 2, True, "shared", sizes)
+    with pytest.raises(ValueError, match="slice lengths"):
+        A(Xd, 0, False, (41,) + sizes[1:])
 
 
 @pytest.mark.parametrize("K,J,R", [(1, 5, 3), (2, 30, 4), (3, 7, 2),

@@ -6,7 +6,7 @@ NVIDIA GPU.  Usage, from the root of a checkout:
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
 started together, into the git-ignored matlab_code_tpu_torch/_build/) and
-runs thirteen phases, each printing its seconds; any failure raises and
+runs fifteen phases, each printing its seconds; any failure raises and
 exits non-zero:
 
   1. device and precision: the card, its power limit, the TF32 switches;
@@ -98,9 +98,27 @@ exits non-zero:
      A, B, C and mttkrp3 and of A's and B's routes; the ragged stack's
      launches of A an iteration, one a prox call), then the first 3
      iterations on the card and on the CPU in float64 at K = PAR2_CPU_K,
-     held to rtol 1e-8.
+     held to rtol 1e-8;
+ 14. kernel D, the loss pass (csrc/loss_fg.cu: sum fh and gh of the KL,
+     IS and beta losses in one pass), against its plain version on the
+     card for KL, IS and beta at 0.5 and 1.5, at the KL workload's
+     128x256x256 and at an odd length, in float32 and float64 (gh within
+     1e-6 / 1e-12 of the sum of its two terms' magnitudes, sum fh within
+     1e-5 / 1e-12, the same bits on repeat), timed at the workload's data
+     and model beside its bound, the plain version and one whole L-BFGS-B
+     evaluation (torch.einsum's model, kernel D, mttkrp3);
+ 15. the KL workload (bench_large.py:116-139, utils/kl_workload.py:
+     128x256x256 Poisson counts, rank 8, non-negative, KL) through
+     cmtf_aoadmm for 5 outer iterations in float32 (ms an iteration,
+     median and p90, the device reads an iteration and their share of the
+     wall clock, launches of kernel D and mttkrp3, the L-BFGS-B
+     iterations, peak memory, the device's busy share under
+     torch.profiler) and in float64, then example script 07's configuration at its
+     widths (a 50x30x40 tensor and a 50x70 matrix, both KL, coupled by
+     type 0) for 3 iterations on the card and on the CPU in float64: the
+     streams at rtol 1e-8, the inner and L-BFGS-B iteration counts equal.
 
-It then prints one JSON line describing the five kernels, the card's name
+It then prints one JSON line describing the six kernels, the card's name
 and power limit, and as its last line {"ok": true, "device": {...}}.  It
 imports nothing of JAX, and it fails without a CUDA card or without the
 package beside it.
@@ -159,6 +177,20 @@ PAR2_SHAPE = (512, 256, 32)     # (K, J, R) of the PAR2 K=512 workload
 PAR2_ITERS = 100
 PAR2_CPU_K = 16                 # slices of the card-vs-CPU float64 runs
 PAR2_CPU_ITERS = 3
+LOSS_SOURCE = "matlab_code_tpu_torch/csrc/loss_fg.cu"
+LOSS_REPLACES = ("matlab_code_tpu/models/lbfgs_bridge.py:45-47 and "
+                 "matlab_code_tpu/models/objective.py:84-87 (fused by XLA, "
+                 "no pallas_call)")
+LOSS_CASES = (("KL", None), ("IS", None), ("beta", 0.5), ("beta", 1.5))
+LOSS_SHAPES = ((128, 256, 256), (1000003,))   # the workload's; an odd length
+# (float32, float64) tolerances of kernel D against its plain version: gh
+# (a difference of two terms) against the sum of the terms' magnitudes,
+# sum fh relative (summed in another order)
+LOSS_RTOL_GH = (1e-6, 1e-12)
+LOSS_RTOL_F = (1e-5, 1e-12)
+KL_ITERS = 5
+S07_ITERS = 3
+S07_SEED = 2
 
 
 def phase(n, title):
@@ -1299,6 +1331,195 @@ def design_probe(X32, f32, want, shape, R, mode, flush, power):
     return times
 
 
+def gh_scale(loss, X, M, eps_log, beta):
+    """|first term| + |second term| of gh(X, M), elementwise: the scale
+    kernel D's gh is held to (a difference of two rounded terms)."""
+    if loss == "KL":
+        return 1.0 + (X / (M + eps_log)).abs()
+    if loss == "IS":
+        return (X / (M + eps_log) ** 2).abs() + (1.0 / (M + eps_log)).abs()
+    return (M ** (beta - 1.0)).abs() + (X * M ** (beta - 2.0)).abs()
+
+
+def kl_phases(dev, power):
+    """Phases 14 and 15: kernel D and the KL workload.  Returns kernel D's
+    entry of the kernels line and mttkrp3's launches on the KL path."""
+    import warnings
+    import torch
+    from matlab_code_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from matlab_code_tpu_torch.models.admm import to_host
+    from matlab_code_tpu_torch.models.init import init_coupled
+    from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit
+    from matlab_code_tpu_torch.ops import losses
+    from matlab_code_tpu_torch.ops.loss_cuda import loss_fg_cuda
+    from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
+    from matlab_code_tpu_torch.ops.tensor import ktensor_full
+    from matlab_code_tpu_torch.utils import kl_workload as klw
+
+    # ---- 14. kernel D vs plain ------------------------------------------------
+    t0 = phase(14, "kernel D (the loss pass) vs plain")
+    eps = 1e-10
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    max_abs_err = 0.0
+    for shape in LOSS_SHAPES:
+        # a positive model and Poisson counts of it (zeros among them)
+        M64 = 0.05 + 2.95 * torch.rand(shape, generator=gen, device=dev,
+                                       dtype=torch.float64)
+        X64 = torch.poisson(M64, generator=gen)
+        for dt, rtol_y, rtol_f in zip((torch.float32, torch.float64),
+                                      LOSS_RTOL_GH, LOSS_RTOL_F):
+            X, M = X64.to(dt), M64.to(dt)
+            for loss, beta in LOSS_CASES:
+                before = loss_fg_cuda.launches
+                f, Y = loss_fg_cuda(loss, X, M, eps, beta)
+                torch.cuda.synchronize()
+                f_ref, Y_ref = losses.loss_fg_reference(loss, X, M, eps, beta)
+                err_y = float(((Y - Y_ref).abs()
+                               / gh_scale(loss, X, M, eps, beta)).max())
+                err_f = abs(float(f) - float(f_ref)) / abs(float(f_ref))
+                f2, Y2 = loss_fg_cuda(loss, X, M, eps, beta)
+                same = bool(torch.equal(f2, f) and torch.equal(Y2, Y))
+                bits = float((Y == Y_ref).double().mean())
+                label = f"{loss}{'' if beta is None else f' {beta}'}"
+                print(f"{shape} {dt} {label}: gh max |kernel-plain| / scale "
+                      f"{err_y:.3e} (bound {rtol_y:.0e}; {bits:.2%} of "
+                      f"elements the same bits); sum fh rel diff {err_f:.3e} "
+                      f"(bound {rtol_f:.0e}); same bits on repeat: {same}")
+                if not (err_y <= rtol_y and err_f <= rtol_f and same
+                        and loss_fg_cuda.launches == before + 2):
+                    raise RuntimeError(f"kernel D disagrees: {shape} {dt} "
+                                       f"{label}")
+                max_abs_err = max(max_abs_err,
+                                  float((Y - Y_ref).abs().max()))
+        del M64, X64, X, M, Y, Y_ref, Y2
+    # timed at the KL workload's data and the model of its init
+    spec, data, state0, _ = klw.build_problem(dev, torch.float32)
+    X = data.objects[0]
+    facs = list(state0.fac)
+    M = ktensor_full(facs).contiguous()
+    n = X.numel()
+    flush = l2_flush(dev)
+    t_b, by = bound(12 * n, 6 * n)   # X, M read, Y written; ~6 ops (KL)
+    t_k = time_ms(lambda: loss_fg_cuda("KL", X, M, eps), flush)
+    t_p = time_ms(lambda: losses.loss_fg_reference("KL", X, M, eps), flush)
+    _, Y = loss_fg_cuda("KL", X, M, eps)
+
+    def evaluation():
+        Mx = ktensor_full(facs).contiguous()
+        _, Yx = loss_fg_cuda("KL", X, Mx, eps)
+        return mttkrp3(Yx, facs, 0)
+
+    t_e = time_ms(evaluation, flush)
+    t_m = time_ms(lambda: ktensor_full(facs).contiguous(), flush)
+    t_g = [time_ms(lambda: mttkrp3(Y, facs, mode), flush) for mode in range(3)]
+    print(f"KL at {tuple(X.shape)} float32: kernel D {t_k * 1e3:.1f} us "
+          f"({12 * n / 1e6 / t_k:.0f} GB/s, {t_b / t_k:.1%} of the bound) | "
+          f"bound {t_b * 1e3:.1f} us ({by}) | plain {t_p * 1e3:.1f} us  "
+          f"[{power}]")
+    print(f"  one evaluation (model by torch.einsum, kernel D, mttkrp3 mode 0) "
+          f"{t_e * 1e3:.1f} us; the model alone {t_m * 1e3:.1f} us; mttkrp3 "
+          f"of gh modes 0/1/2 {' / '.join(f'{t * 1e3:.1f}' for t in t_g)} us  "
+          f"[{power}]")
+    del flush, M, Y
+    done(14, t0)
+
+    # ---- 15. the KL workload --------------------------------------------------
+    t0 = phase(15, f"KL workload, {KL_ITERS} outer iterations, float32")
+    print(f"X {tuple(X.shape)} Poisson counts ({n * 4 / 1e6:.1f} MB), rank "
+          f"{spec.datasets[0].rank}, max count {float(X.max()):.0f}")
+    opts = klw.kl_options(KL_ITERS, AbsFuncTol=0.0, OuterRelTol=0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss_fg_cuda.launches = mttkrp3.launches = to_host.calls = 0
+    to_host.seconds = 0.0
+    zhat, _, _, out = cmtf_aoadmm(spec, data, opts, init=state0)
+    n_d, n_m = loss_fg_cuda.launches, mttkrp3.launches
+    syncs, sync_s = to_host.calls, to_host.seconds
+    streams = np.stack([out.func_val_conv, out.func_coupl_conv,
+                        out.func_constr_conv, out.func_PAR2_coupl])
+    if out.OuterIterations != KL_ITERS or not np.all(np.isfinite(streams)) \
+            or not out.func_val_conv[-1] < out.func_val_conv[0]:
+        raise RuntimeError(f"KL workload: {out.OuterIterations} iterations, "
+                           f"f_tensors {out.func_val_conv}")
+    R = spec.datasets[0].rank
+    if [f.shape for f in zhat[0]["factors"]] != [(d, R) for d in X.shape] \
+            or min(float(f.min()) for f in zhat[0]["factors"]) < 0:
+        raise RuntimeError("KL workload: unexpected or negative factors")
+    if n_d == 0 or n_m == 0:
+        raise RuntimeError(f"KL workload: kernel D {n_d}, mttkrp3 {n_m} launches")
+    med, p90 = fit_times(out)
+    lb = out.lbfgsb_iterations
+    print(f"f_tensors {out.func_val_conv[0]:.6e} -> {out.f_tensors:.6e}; "
+          f"f_constraints {out.f_constraints:.3e}")
+    print(f"ms per outer iteration: median {med:.3f}, p90 {p90:.3f}; device "
+          f"reads {syncs / KL_ITERS:.2f} an iteration ({syncs} in all, the "
+          f"data check's one included), {sync_s * 1e3:.1f} ms waiting in "
+          f"them = {sync_s / out.time_total:.1%} of the "
+          f"{out.time_total * 1e3:.1f} ms fit; launches an iteration: kernel "
+          f"D {n_d / KL_ITERS:.2f} (one an evaluation, one an objective), "
+          f"mttkrp3 {n_m / KL_ITERS:.2f}; L-BFGS-B iterations by iteration "
+          f"{lb.sum(axis=0)[1:].tolist()} (by mode {lb.sum(axis=1).tolist()}); "
+          f"inner iterations {out.innerIters.sum(axis=0)[1:].tolist()}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB  "
+          f"[{power}]")
+    profile_fit(spec, data, state0,
+                klw.kl_options(2, AbsFuncTol=0.0, OuterRelTol=0.0))
+    del data, zhat
+    # the same in float64, where the default factr (1e-6 / float64's eps)
+    # lets L-BFGS-B run past its first iteration (float32's eps makes it a
+    # relative change of 537: every run stops after one iteration)
+    spec, data, state0, _ = klw.build_problem(dev, torch.float64)
+    loss_fg_cuda.launches = to_host.calls = 0
+    to_host.seconds = 0.0
+    _, _, _, out = cmtf_aoadmm(spec, data, opts, init=state0)
+    med, p90 = fit_times(out)
+    if not np.all(np.isfinite(out.func_val_conv)):
+        raise RuntimeError("KL workload, float64: non-finite f_tensors")
+    print(f"  float64: ms per outer iteration median {med:.3f}, p90 {p90:.3f}; "
+          f"device reads {to_host.calls / KL_ITERS:.2f} an iteration, "
+          f"{to_host.seconds / out.time_total:.1%} of the wall clock; kernel D "
+          f"{loss_fg_cuda.launches / KL_ITERS:.2f} an iteration; L-BFGS-B "
+          f"iterations by iteration "
+          f"{out.lbfgsb_iterations.sum(axis=0)[1:].tolist()}; f_tensors "
+          f"{out.func_val_conv[0]:.6e} -> {out.f_tensors:.6e}  [{power}]")
+    del data, state0
+    # the card against the CPU in float64 at script 07's widths
+    tc = time.perf_counter()
+    spec7, data_c = klw.script07_problem("cpu", torch.float64, seed=S07_SEED)
+    init_np = state_to_numpy(init_coupled(spec7, data_c,
+                                          klw.script07_init_options(), seed=2))
+    o3 = klw.script07_options(S07_ITERS, AbsFuncTol=0.0, OuterRelTol=0.0)
+    _, data_g = klw.script07_problem(dev, torch.float64, seed=S07_SEED)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the data are not counts
+        _, out_cpu = fit(spec7, data_c, state_from_numpy(init_np, "cpu"), o3)
+        before = (loss_fg_cuda.launches, mttkrp3.launches)
+        _, out_gpu = fit(spec7, data_g, state_from_numpy(init_np, dev), o3)
+    if loss_fg_cuda.launches == before[0] or mttkrp3.launches == before[1]:
+        raise RuntimeError("script 07 on the card: kernel D or mttkrp3 not "
+                           "launched")
+    same_inner = np.array_equal(out_gpu.innerIters, out_cpu.innerIters)
+    same_lb = np.array_equal(out_gpu.lbfgsb_iterations,
+                             out_cpu.lbfgsb_iterations)
+    print(f"  script 07, {S07_ITERS} iterations: inner iterations equal "
+          f"{same_inner}, L-BFGS-B iterations equal {same_lb} (card "
+          f"{out_gpu.lbfgsb_iterations.sum(axis=1).tolist()}, CPU "
+          f"{out_cpu.lbfgsb_iterations.sum(axis=1).tolist()} by mode)")
+    hold_streams(out_gpu, out_cpu, "script 07")
+    if not (same_inner and same_lb):
+        raise RuntimeError("script 07: the card's inner or L-BFGS-B iteration "
+                           "counts differ from the CPU's")
+    print(f"  card vs CPU in float64: {time.perf_counter() - tc:.1f} s")
+    done(15, t0)
+    return {"mttkrp3_launches": n_m,
+            "D": {"name": "loss_fg_cuda", "route": "cuda",
+                  "source": LOSS_SOURCE, "replaces": LOSS_REPLACES,
+                  "launches": n_d, "max_abs_err": max_abs_err, "ms": t_k,
+                  "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
+                  "library_ms": None, "evaluation_ms": t_e}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1312,7 +1533,8 @@ def main():
     from matlab_code_tpu_torch.convert import state_from_numpy, state_to_numpy
     from matlab_code_tpu_torch.models.admm import _resolve_inner_solve, to_host
     from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit
-    from matlab_code_tpu_torch.ops import _build, mttkrp_cuda, prox_cuda, sparse_cuda
+    from matlab_code_tpu_torch.ops import (
+        _build, loss_cuda, mttkrp_cuda, prox_cuda, sparse_cuda)
     from matlab_code_tpu_torch.ops import tensor as tensor_ops
     from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3, mttkrp3_reference
     from matlab_code_tpu_torch.options import apply_matmul_precision
@@ -1342,9 +1564,10 @@ def main():
     # ---- 2. kernel vs plain -------------------------------------------------
     t0 = phase(2, "MTTKRP kernel vs plain")
     tb = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:    # one nvcc per source, together
+    with ThreadPoolExecutor(5) as pool:    # one nvcc per source, together
         for fut in [pool.submit(mttkrp_cuda._lib), pool.submit(sparse_cuda._lib),
-                    pool.submit(prox_cuda._lib), pool.submit(prox_cuda._lib_c)]:
+                    pool.submit(prox_cuda._lib), pool.submit(prox_cuda._lib_c),
+                    pool.submit(loss_cuda._lib)]:
             fut.result()
     print(f"kernel libraries built and loaded in {time.perf_counter() - tb:.1f} s")
     for log in _build.BUILD_LOGS.values():
@@ -1569,6 +1792,7 @@ def main():
     sparse = sparse_phases(dev, power)
     prox_entries = prox_phases(dev, power)
     par2 = par2_phases(dev, power)
+    kl = kl_phases(dev, power)
     for e in prox_entries:
         e.update(par2["batched"][
             "A" if e["name"] == "project_isotonic_cols" else "B"])
@@ -1579,8 +1803,9 @@ def main():
         "replaces": REPLACES, "launches": launches,
         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": max(bound_by_ms, key=bound_by_ms.get),
-        "library_ms": lib_ms, "par2_launches": par2["mttkrp3_launches"]},
-        sparse] + prox_entries}))
+        "library_ms": lib_ms, "par2_launches": par2["mttkrp3_launches"],
+        "kl_launches": kl["mttkrp3_launches"]},
+        sparse] + prox_entries + [kl["D"]]}))
     print(power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))

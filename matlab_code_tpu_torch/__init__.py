@@ -5,13 +5,15 @@ matrix/tensor factorizations.
 It mirrors the JAX package's layout (ops/, models/, utils/) and function
 names, imports torch and never jax, and carries these paths so far: CP
 datasets, dense or sparse COO (SparseTensor), and PARAFAC2 datasets
-(Parafac2Tensor, regular or ragged slices), with Frobenius loss, coupling
-types 0-5, every constraint and regularizer, random or nvecs init.  On a
-CUDA card every dense 3-way MTTKRP runs the hand-written Hopper kernel
-ops/mttkrp_cuda.mttkrp3 (csrc/mttkrp3.cu), every sparse MTTKRP the
-hand-written kernel ops/sparse_cuda.mttkrp_sparse_cuda
-(csrc/mttkrp_sparse.cu), and the sequential proxes the kernels of
-ops/prox_cuda (csrc/prox_seq.cu, csrc/t_smooth.cu).  What is not ported
+(Parafac2Tensor, regular or ragged slices), with Frobenius loss, dense CP
+datasets with KL, Itakura-Saito or beta-divergence loss (L-BFGS-B factor
+steps), coupling types 0-5, every constraint and regularizer, random or
+nvecs init.  On a CUDA card every dense 3-way MTTKRP runs the
+hand-written Hopper kernel ops/mttkrp_cuda.mttkrp3 (csrc/mttkrp3.cu),
+every sparse MTTKRP the hand-written kernel ops/sparse_cuda.
+mttkrp_sparse_cuda (csrc/mttkrp_sparse.cu), the sequential proxes the
+kernels of ops/prox_cuda (csrc/prox_seq.cu, csrc/t_smooth.cu), and the
+non-Frobenius loss pass ops/loss_cuda.loss_fg_cuda (csrc/loss_fg.cu).  What is not ported
 yet raises NotImplementedError naming its slice in ROADMAP.md.
 """
 

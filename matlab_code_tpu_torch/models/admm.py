@@ -8,12 +8,14 @@ condition `it <= MaxInnerIters and (residual > tol)` is tested before each
 body, residuals start at inf, and the loop returns it - 1.  Each test after
 the first reads one flag from the device (one host sync, counted by
 to_host).  The PARAFAC2 per-slice work (Bk systems, polar factors, the
-slice-wise prox, par2C rows) is batched over the K slices.  Non-Frobenius
-losses come with slice 5.
+slice-wise prox, par2C rows) is batched over the K slices.  A mode of a
+non-Frobenius dataset takes its factor step by L-BFGS-B
+(models/lbfgs_bridge.py) inside the same loops.
 """
 from __future__ import annotations
 
 import math
+import time
 
 import torch
 
@@ -30,12 +32,18 @@ PORTED_COUPLING_TYPES = (0, 1, 2, 3, 4, 5)
 def to_host(t):
     """t.tolist(): one device-to-host copy, a sync on CUDA.  Every read of a
     device value that steers the host loops goes through here and is counted
-    in to_host.calls, so a run can report its syncs per outer iteration."""
+    in to_host.calls, and its host-clock seconds (the wait for the device
+    included) in to_host.seconds, so a run can report its syncs per outer
+    iteration and their share of the wall clock."""
+    t0 = time.perf_counter()
+    out = t.tolist()
+    to_host.seconds += time.perf_counter() - t0
     to_host.calls += 1
-    return t.tolist()
+    return out
 
 
 to_host.calls = 0
+to_host.seconds = 0.0
 
 
 def _safe_div(a, b):
@@ -158,29 +166,36 @@ def eval_res_constr(spec: ProblemSpec, state: SolverState, modes, oldZ: dict):
 
 
 def admm_constrained_only(spec: ProblemSpec, state: SolverState, m: int, p: int,
-                          A, solve, rho, options, proxes):
+                          A, solve, rho, options, proxes, lbfgs_step=None,
+                          data=None):
     """Constrained, uncoupled CP, PARAFAC2-A or par2C mode
-    (cmtf_fun_AOADMM.m:591-623), Frobenius loss.  solve: make_spd_solver's
-    right solver (its rowleft solver for a par2C mode, whose rows take
-    their own rho).  Returns (state, inner_iters)."""
-    if spec.datasets[p].loss != "Frobenius":
-        raise NotImplementedError(
-            "admm_constrained_only is ported for Frobenius loss; other "
-            "losses come with slice 5")
+    (cmtf_fun_AOADMM.m:591-623).  Frobenius loss: solve is
+    make_spd_solver's right solver (its rowleft solver for a par2C mode,
+    whose rows take their own rho).  Other losses: A and solve are None and
+    each step runs lbfgs_step (models/lbfgs_bridge.make_lbfgs_step) on
+    `data`.  Returns (state, inner_iters, lbfgsb_total, (pr, dr)): the
+    L-BFGS-B iterations summed over the steps, and the last residuals."""
     upd = make_update_constraint(spec, proxes)
+    frob = spec.datasets[p].loss == "Frobenius"
     rho_b = rho[:, None] if spec.mode_role(m) == "par2_C" else rho
     it = 1
+    lb = 0
     pr = dr = math.inf
     while it <= options.MaxInnerIters and (
             it == 1 or to_host((pr > options.innerRelPrTol_constr)
                                | (dr > options.innerRelDualTol_constr))):
-        A_inner = A + 0.5 * rho_b * (
-            state.constraint_fac[m] - state.constraint_dual_fac[m])
-        state = state.replace(fac=tuple_set(state.fac, m, solve(A_inner)))
+        if frob:
+            A_inner = A + 0.5 * rho_b * (
+                state.constraint_fac[m] - state.constraint_dual_fac[m])
+            state = state.replace(fac=tuple_set(state.fac, m, solve(A_inner)))
+        else:
+            state, nit = lbfgs_step(state, data, constrained=True,
+                                    coupling_type=-1, rho=rho)
+            lb += nit
         state, oldZ = upd(state, m, rho)
         pr, dr = eval_res_constr(spec, state, (m,), {m: oldZ})
         it += 1
-    return state, it - 1
+    return state, it - 1, lb, (pr, dr)
 
 
 def _fro_slices(X):
@@ -489,19 +504,21 @@ def eval_res_coupling(spec, state, data, cmodes, cid, ctype, oldDelta):
 
 
 def admm_coupled(spec: ProblemSpec, state: SolverState, data, cmodes, cid,
-                 ctype, As, rhos, options, proxes, solvers):
+                 ctype, As, rhos, options, proxes, solvers, lbfgs_steps=None):
     """Coupled-ADMM loop for coupling types 0-5 (cmtf_fun_AOADMM.m:625-1075)
     on CP, PARAFAC2-A and par2C modes.  As/rhos/solvers: dicts keyed by
-    mode; solvers holds the solvers prebuilt once an outer iteration
-    (_factor_update_case).  Returns (state, inner_iters)."""
+    mode; solvers holds the solvers of the Frobenius modes, prebuilt once
+    an outer iteration (_factor_update_case); a mode of another loss takes
+    its step from lbfgs_steps.  Returns (state, inner_iters, lbfgsb_totals,
+    (pr, dr)): the L-BFGS-B iterations of each non-Frobenius mode summed
+    over the steps, and the larger of the last coupling and constraint
+    residuals."""
     _check_ctype(ctype)
-    for mm in cmodes:
-        if spec.datasets[spec.which_p(mm)].loss != "Frobenius":
-            raise NotImplementedError(
-                "admm_coupled is ported for Frobenius loss; other losses come "
-                "with slice 5 (ROADMAP.md)")
     upd = make_update_constraint(spec, proxes)
     constrained_modes = tuple(m for m in cmodes if spec.is_constrained(m))
+    frob = {m: spec.datasets[spec.which_p(m)].loss == "Frobenius"
+            for m in cmodes}
+    lb = {m: 0 for m in cmodes if not frob[m]}
     it = 1
     prc = drc = prk = drk = math.inf
     while it <= options.MaxInnerIters and (
@@ -510,10 +527,16 @@ def admm_coupled(spec: ProblemSpec, state: SolverState, data, cmodes, cid,
                                | (drk > options.innerRelDualTol_coupl)
                                | (drc > options.innerRelDualTol_constr))):
         for mm in cmodes:
-            fac = _factor_update_case(
-                spec, state, data, mm, cid, ctype, As[mm], rhos[mm],
-                spec.is_constrained(mm), solvers[mm])
-            state = state.replace(fac=tuple_set(state.fac, mm, fac))
+            if frob[mm]:
+                fac = _factor_update_case(
+                    spec, state, data, mm, cid, ctype, As[mm], rhos[mm],
+                    spec.is_constrained(mm), solvers[mm])
+                state = state.replace(fac=tuple_set(state.fac, mm, fac))
+            else:
+                state, nit = lbfgs_steps[mm](
+                    state, data, constrained=spec.is_constrained(mm),
+                    coupling_type=ctype, rho=rhos[mm])
+                lb[mm] += nit
         oldDelta = state.coupling_fac[cid - 1]
         Delta = _delta_update(spec, state, data, cmodes, cid, ctype, rhos)
         state = state.replace(
@@ -532,4 +555,14 @@ def admm_coupled(spec: ProblemSpec, state: SolverState, data, cmodes, cid,
         else:
             prc = drc = 0.0
         it += 1
-    return state, it - 1
+    return (state, it - 1, lb,
+            (_larger(prc, prk), _larger(drc, drk)))
+
+
+def _larger(a, b):
+    """max of two residuals, each a number or a 0-d tensor."""
+    if not isinstance(a, torch.Tensor):
+        a, b = b, a
+    if not isinstance(a, torch.Tensor):
+        return max(a, b)
+    return torch.maximum(a, torch.as_tensor(b, dtype=a.dtype, device=a.device))

@@ -1,7 +1,8 @@
 """Objective / residual-stream evaluation (CMTF_AOADMM_func_eval,
-cmtf_fun_AOADMM.m:1213-1363), counterpart of the Frobenius part of
-matlab_code_tpu/models/objective.py: data terms of CP and PARAFAC2
-datasets, the constraints' regularizer terms (ops/prox.make_prox's reg),
+cmtf_fun_AOADMM.m:1213-1363), counterpart of
+matlab_code_tpu/models/objective.py without its missing-data branches:
+data terms of CP datasets (any loss) and PARAFAC2 datasets, the
+constraints' regularizer terms (ops/prox.make_prox's reg),
 ridge, the coupling gaps of types 0-5 and the PARAFAC2 internal coupling
 gaps.
 
@@ -9,15 +10,17 @@ Returns the four streams (f_tensors, f_couplings, f_constraints,
 f_PAR2_couplings) as 0-d tensors.  A CP data term reads the cached MTTKRP
 of the last updated mode (no extra data pass), as does a PARAFAC2 one whose
 A mode was updated last; otherwise (iteration 0, or a PARAFAC2 dataset
-whose C mode came last) it is evaluated afresh.
+whose C mode came last) it is evaluated afresh.  A non-Frobenius data term
+is w (Znorm_const + sum fh(X, M)) with the model M materialized.
 """
 from __future__ import annotations
 
 import torch
 
 from matlab_code_tpu_torch.models.admm import _check_ctype, _fro_slices
+from matlab_code_tpu_torch.ops import losses
 from matlab_code_tpu_torch.ops.tensor import (
-    gram, hadamard_grams, mttkrp, mttkrp_sparse)
+    gram, hadamard_grams, ktensor_full, mttkrp, mttkrp_sparse)
 from matlab_code_tpu_torch.problem import (
     CP, PAR2, ProblemData, ProblemSpec, SparseTensor)
 
@@ -44,16 +47,14 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
               znorm_consts, reg_fns, cached=None, options=None):
     """The four objective streams.  cached: None (fresh eval) or
     {p: (last_mttkrp, last_had, last_local_mode)} for Frobenius datasets
-    (for a PARAFAC2 dataset last_local_mode is 0, 1 or 2: A, Bk, C)."""
+    (for a PARAFAC2 dataset last_local_mode is 0, 1 or 2: A, Bk, C).
+    options: the AlgOptions (eps_log), needed where a loss is not
+    Frobenius."""
     like = state.fac[0]
     zero = torch.zeros((), dtype=like.dtype, device=like.device)
     fps = []
     for p, ds in enumerate(spec.datasets):
         X = data.objects[p]
-        if ds.loss != "Frobenius":
-            raise NotImplementedError(
-                f"func_eval is ported for Frobenius loss; dataset {p} has "
-                f"{ds.loss} (other losses: slice 5)")
         if data.miss[p] is not None:
             raise NotImplementedError(
                 "missing data (EM imputation) comes with slice 6 (ROADMAP.md)")
@@ -69,6 +70,14 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
                 D = X.slices - par2_model_slices(spec, state, p)
                 fp = torch.sum(D * D)
             fps.append(ds.weight * fp)
+            continue
+        if ds.loss != "Frobenius":
+            # the model materialized, as the reference does; on the card
+            # the loss pass is kernel D
+            M = ktensor_full([state.fac[j] for j in ds.modes]).contiguous()
+            fh_sum, _ = losses.loss_fg(ds.loss, X, M, options.eps_log,
+                                       ds.loss_param)
+            fps.append(ds.weight * (znorm_consts[p] + fh_sum))
             continue
         if cached is not None and p in cached:
             last_mk, last_had, last_m = cached[p]

@@ -6,8 +6,10 @@ The JAX package runs the whole fit as one compiled while_loop.  Here the
 outer loop is an eager host loop with the same exit rule and the same
 per-iteration streams; it reads one combined stop / ill-conditioning flag
 from the device per outer iteration, and the inner loops read their
-residuals (models/admm.to_host counts every such read).  Per-iteration wall
-times are exact, as in the JAX package's fit_stepwise.  A delayed PARAFAC2
+residuals (models/admm.to_host counts every such read), as does the
+L-BFGS-B loop of a non-Frobenius mode (ops/lbfgsb.py: one read a
+line-search try).  Per-iteration wall times are exact, as in the JAX
+package's fit_stepwise.  A delayed PARAFAC2
 Bk constraint (options.iter_start_PAR2Bkconstraint, script 9) switches the
 sweep at that iteration, as the JAX fit's two phases do.
 """
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Any
 
@@ -24,10 +27,12 @@ import torch
 from matlab_code_tpu_torch.models.admm import (
     _check_ctype, _chol_rcond_bad, admm_b_parafac2, admm_constrained_only,
     admm_coupled, make_spd_solver, to_host)
+from matlab_code_tpu_torch.models.lbfgs_bridge import make_lbfgs_step
 from matlab_code_tpu_torch.models.objective import func_eval
 from matlab_code_tpu_torch.models.updates import (
-    cp_mode_precompute, mode_gram, par2A_precompute, par2B_precompute,
-    par2C_precompute, refresh_gram)
+    ModePre, cp_mode_precompute, mode_gram, nonfrob_rho, par2A_precompute,
+    par2B_precompute, par2C_precompute, refresh_colnorm_init,
+    refresh_colnorm_update, refresh_gram)
 from matlab_code_tpu_torch.ops import losses
 from matlab_code_tpu_torch.ops.linalg import (
     block_diag, chol_lower, rsolve, solve, solve_spd_left, sylvester_solver)
@@ -42,11 +47,6 @@ STREAMS = ("f_tensors", "f_couplings", "f_constraints", "f_PAR2_couplings")
 
 
 def _check_ported(spec: ProblemSpec) -> None:
-    for p, ds in enumerate(spec.datasets):
-        if ds.loss != "Frobenius":
-            raise NotImplementedError(
-                f"dataset {p} has loss {ds.loss!r}: non-Frobenius losses come "
-                "with slice 5 (ROADMAP.md)")
     for ctype in spec.coupling.coupling_type:
         _check_ctype(ctype)
 
@@ -67,12 +67,22 @@ def build_proxes(spec: ProblemSpec):
 
 
 def init_cache(spec: ProblemSpec, state: SolverState) -> tuple:
-    """Initial Grams (cmtf_fun_AOADMM.m:62-81): of every CP and PARAFAC2-A
-    mode, the per-slice Grams (K, R, R) of a Bk mode, None for a par2C
-    mode (never read as a Gram)."""
+    """Initial Grams and column norms (cmtf_fun_AOADMM.m:62-81): (grams,
+    colnorms).  grams: of every CP and PARAFAC2-A mode of a Frobenius
+    dataset, the per-slice Grams (K, R, R) of a Bk mode, None for a par2C
+    mode (never read as a Gram) and for a mode of another loss.  colnorms:
+    a 0-d tensor a mode, the sum of squared column norms of a mode of a
+    non-Frobenius dataset, 0 for every other mode."""
     _check_ported(spec)
-    return tuple(None if spec.mode_role(m) == "par2_C"
-                 else mode_gram(spec, state, m) for m in range(spec.nb_modes))
+    like = state.fac[0]
+    grams, colnorms = [], []
+    for m in range(spec.nb_modes):
+        frob = spec.datasets[spec.which_p(m)].loss == "Frobenius"
+        grams.append(mode_gram(spec, state, m)
+                     if frob and spec.mode_role(m) != "par2_C" else None)
+        colnorms.append(torch.zeros((), dtype=like.dtype, device=like.device)
+                        if frob else refresh_colnorm_init(state, m))
+    return tuple(grams), tuple(colnorms)
 
 
 def compute_znorm_consts(spec: ProblemSpec, data: ProblemData,
@@ -121,7 +131,9 @@ def attach_sparse_plans(spec: ProblemSpec, data: ProblemData,
     kernel.  Set-up work with torch ops on the card, once per sparsity
     pattern.  A dense 3-way dataset on the card that is not contiguous is
     copied once here, since the dense kernel (ops/mttkrp_cuda.mttkrp3)
-    never copies X.  Data on the CPU is returned as it is."""
+    never copies X, and so is a dense dataset of a non-Frobenius loss (the
+    loss pass, ops/loss_cuda.loss_fg_cuda, takes contiguous X only).  Data
+    on the CPU is returned as it is."""
     objs = list(data.objects)
     for p, X in enumerate(objs):
         if isinstance(X, Parafac2Tensor):
@@ -132,8 +144,8 @@ def attach_sparse_plans(spec: ProblemSpec, data: ProblemData,
                 objs[p] = X.with_plans(
                     tuple(spec.mode_sizes[m] for m in spec.datasets[p].modes),
                     spec.datasets[p].rank)
-        elif X.dim() == 3 and X.device.type == "cuda" \
-                and not X.is_contiguous():
+        elif X.device.type == "cuda" and not X.is_contiguous() and (
+                X.dim() == 3 or spec.datasets[p].loss != "Frobenius"):
             objs[p] = X.contiguous()
     if all(a is b for a, b in zip(objs, data.objects)):
         return data
@@ -151,6 +163,20 @@ def _check_devices(data: ProblemData, state: SolverState) -> None:
                 f"{dev}")
 
 
+def _warn_loss_data(spec: ProblemSpec, data: ProblemData) -> None:
+    """Data-vs-loss warnings (cmtf_AOADMM.m:162-175): KL expects count data,
+    IS positive data.  One device read (to_host) a KL or IS dataset."""
+    for p, ds in enumerate(spec.datasets):
+        if ds.loss not in ("KL", "IS"):
+            continue
+        X = data.objects[p]   # dense: check_data_input refuses the rest
+        if ds.loss == "KL":
+            if to_host(torch.any(X < 0) | torch.any(X != torch.round(X))):
+                warnings.warn(f"Using 'KL' but dataset {p} is not count data")
+        elif to_host(torch.any(X <= 0)):
+            warnings.warn(f"Using 'IS' but dataset {p} is not positive")
+
+
 def _has_bk_constraint(spec: ProblemSpec) -> bool:
     return any(ds.model == PAR2 and spec.is_constrained(ds.modes[1])
                for ds in spec.datasets)
@@ -159,16 +185,28 @@ def _has_bk_constraint(spec: ProblemSpec) -> bool:
 def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
                     bk_constraint_active: bool = True):
     """One AO sweep over the coupling ids (cmtf_fun_AOADMM.m:87-407) for CP
-    and PARAFAC2 datasets with Frobenius loss.  bk_constraint_active: False
-    before options.iter_start_PAR2Bkconstraint, when a PARAFAC2 Bk mode
-    runs unconstrained.  outer_step(state, data, grams) returns (state,
-    grams, cached, inner_its, illc): cached feeds func_eval's cached-MTTKRP
-    branch, inner_its maps mode -> inner iterations (int), illc is the
-    ill-conditioning flag (0-d bool tensor)."""
-    _check_ported(spec)
+    and PARAFAC2 datasets.  A mode of a non-Frobenius (KL, IS, beta)
+    dataset takes its factor steps by L-BFGS-B (models/lbfgs_bridge.py)
+    with rho from the other modes' column norms (updates.nonfrob_rho),
+    scaled by rho_scale where options.adaptive_rho_nonfrob holds.
+    bk_constraint_active: False before options.iter_start_PAR2Bkconstraint,
+    when a PARAFAC2 Bk mode runs unconstrained.
 
-    def outer_step(state, data, grams):
+    outer_step(state, data, grams, colnorms, rho_scale) returns (state,
+    grams, colnorms, rho_scale, cached, inner_its, lbfgs_its, illc):
+    colnorms and rho_scale hold a 0-d tensor a mode, cached feeds
+    func_eval's cached-MTTKRP branch, inner_its and lbfgs_its map mode ->
+    inner and L-BFGS-B iterations (ints), illc is the ill-conditioning flag
+    (0-d bool tensor)."""
+    _check_ported(spec)
+    lbfgs_steps = {m: make_lbfgs_step(spec, p, m, options)
+                   for p, ds in enumerate(spec.datasets)
+                   if ds.loss != "Frobenius" for m in ds.modes}
+    adaptive = options.adaptive_rho_nonfrob and spec.has_non_frobenius()
+
+    def outer_step(state, data, grams, colnorms, rho_scale):
         inner_its: dict[int, Any] = {}
+        lbfgs_its: dict[int, int] = {}
         cached: dict[int, Any] = {}
         partials: dict = {}
         illc = torch.zeros((), dtype=torch.bool, device=state.fac[0].device)
@@ -198,11 +236,28 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
             return torch.eye(pre.B.shape[-1], dtype=pre.A.dtype,
                              device=pre.A.device)
 
+        def balance_rho(m, res):
+            """Residual balancing of mode m's rho factor (Boyd et al. 2011,
+            sec. 3.4.1), options.adaptive_rho_nonfrob: x2 where the primal
+            residual is 10x the dual, x0.5 the other way, kept in
+            [1e-6, 1e6]."""
+            nonlocal rho_scale
+            if not adaptive:
+                return
+            kw = dict(dtype=rho_scale[m].dtype, device=rho_scale[m].device)
+            pr, dr = (torch.as_tensor(r, **kw) for r in res)
+            f = torch.where(pr > 10.0 * dr, torch.tensor(2.0, **kw),
+                            torch.where(dr > 10.0 * pr, torch.tensor(0.5, **kw),
+                                        torch.tensor(1.0, **kw)))
+            rho_scale = tuple_set(rho_scale, m, torch.clamp(
+                rho_scale[m] * f, 1e-6, 1e6))
+
         for cid in spec.coupling_ids():
             cmodes = spec.coupled_modes_of(cid)
             pres = {}
             for p in sorted({spec.which_p(m) for m in cmodes}):
                 ds = spec.datasets[p]
+                frob = ds.loss == "Frobenius"
                 for m in (m for m in cmodes if spec.which_p(m) == p):
                     role = spec.mode_role(m)
                     constrained = spec.is_constrained(m)
@@ -219,7 +274,12 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
                             sizes=spec.par2_slice_sizes(p))
                         grams = refresh_gram(spec, state, grams, m)
                         continue
-                    if role == "cp":
+                    if role == "cp" and not frob:
+                        rho_nf = nonfrob_rho(colnorms, m)
+                        if adaptive:
+                            rho_nf = rho_nf * rho_scale[m]
+                        pre = ModePre(None, None, rho_nf, None, None)
+                    elif role == "cp":
                         pre = cp_mode_precompute(spec, data, state, grams, p, m,
                                                  options, partials)
                         cached[p] = (pre.last_mttkrp, pre.last_had,
@@ -234,6 +294,19 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
                         cached[p] = (None, None, 2)
                     if cid != 0:
                         pres[m] = pre
+                    elif not frob:
+                        if constrained:
+                            state, inner_its[m], lbfgs_its[m], res = \
+                                admm_constrained_only(
+                                    spec, state, m, p, None, None, pre.rho,
+                                    options, proxes, lbfgs_steps[m], data)
+                            balance_rho(m, res)
+                        else:
+                            state, lbfgs_its[m] = lbfgs_steps[m](
+                                state, data, False, -1, pre.rho)
+                            inner_its[m] = 1
+                        colnorms = tuple_set(colnorms, m,
+                                             refresh_colnorm_update(state, m))
                     elif not constrained:
                         screen(pre.B)
                         if role == "par2_C":
@@ -248,13 +321,13 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
                         right, rowleft = spd_checked(
                             pre.B + 0.5 * rho_b * eye_of(pre),
                             lmin=0.5 * pre.rho)
-                        state, inner_its[m] = admm_constrained_only(
+                        state, inner_its[m], _, _ = admm_constrained_only(
                             spec, state, m, p, pre.A,
                             rowleft if role == "par2_C" else right, pre.rho,
                             options, proxes)
                     # a PARAFAC2 A mode's Gram is refreshed even where it is
                     # coupled and not yet updated (cmtf_fun_AOADMM.m:190)
-                    if role == "par2_A" or (role == "cp" and cid == 0):
+                    if role == "par2_A" or (role == "cp" and cid == 0 and frob):
                         grams = refresh_gram(spec, state, grams, m)
 
             if cid != 0:
@@ -263,6 +336,8 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
                 for m in cmodes:
                     pre = pres[m]
                     As[m], rhos[m] = pre.A, pre.rho
+                    if spec.datasets[spec.which_p(m)].loss != "Frobenius":
+                        continue   # an L-BFGS-B step: no system to build
                     par2C = spec.mode_role(m) == "par2_C"
                     constrained = spec.is_constrained(m)
                     H = data.coupl_trafo[m] if data.coupl_trafo else None
@@ -302,14 +377,20 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
                         B = B + 0.5 * rho_b * eye
                     right, rowleft = spd_checked(B, lmin=lmin)
                     solvers[m] = rowleft if par2C else right
-                state, nin = admm_coupled(
+                state, nin, lb, res = admm_coupled(
                     spec, state, data, cmodes, cid, ctype, As, rhos, options,
-                    proxes, solvers)
+                    proxes, solvers, lbfgs_steps)
                 for m in cmodes:
                     inner_its[m] = nin
-                    if spec.mode_role(m) != "par2_C":
+                    if m in lb:
+                        lbfgs_its[m] = lb[m]
+                        balance_rho(m, res)
+                        colnorms = tuple_set(colnorms, m,
+                                             refresh_colnorm_update(state, m))
+                    elif spec.mode_role(m) != "par2_C":
                         grams = refresh_gram(spec, state, grams, m)
-        return state, grams, cached, inner_its, illc
+        return (state, grams, colnorms, rho_scale, cached, inner_its,
+                lbfgs_its, illc)
 
     return outer_step
 
@@ -356,9 +437,12 @@ def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
     sparse COO data on a CUDA card gets its kernel plans first, and dense
     3-way data on the card is made contiguous once (attach_sparse_plans).
     Raises NotImplementedError where cp_pairwise_perturbation would take a
-    dataset (eligible_pp_datasets)."""
+    dataset (eligible_pp_datasets).  With validate, the data are checked
+    (check_data_input) and KL or IS data that do not suit the loss are
+    warned of (_warn_loss_data)."""
     if validate:
         check_data_input(spec, data)
+        _warn_loss_data(spec, data)
     _check_ported(spec)
     _check_devices(data, state)
     data = attach_sparse_plans(spec, data, options)
@@ -379,11 +463,13 @@ def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
     start = options.iter_start_PAR2Bkconstraint
     T = options.MaxOuterIters
 
-    grams = init_cache(spec, state)
+    grams, colnorms = init_cache(spec, state)
+    rho_scale = tuple(torch.ones_like(c) for c in colnorms)
     f4 = func_eval(spec, data, state, grams, znorms, reg_fns, cached=None,
                    options=options)
     hist = [torch.stack(f4)]
     inner_hist = [np.zeros((spec.nb_modes,), np.int32)]
+    lb_hist = [np.zeros((spec.nb_modes,), np.int32)]
     times = [0.0]
     if options.Display in ("iter", "final"):
         print(" Iter  f total      f tensors      f couplings    "
@@ -396,7 +482,8 @@ def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
     stop = illc = False
     while it <= T and not stop:
         outer_step = steps[(not bk) or it >= start]
-        state, grams, cached, inner_its, illc_t = outer_step(state, data, grams)
+        (state, grams, colnorms, rho_scale, cached, inner_its, lbfgs_its,
+         illc_t) = outer_step(state, data, grams, colnorms, rho_scale)
         f4_new = func_eval(spec, data, state, grams, znorms, reg_fns,
                            cached=cached, options=options)
         f4_vec = torch.stack(f4_new)
@@ -405,10 +492,11 @@ def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
         stop, illc_now = to_host(torch.stack([stop_t, illc_t]))
         illc = illc or illc_now
         hist.append(f4_vec)
-        col = np.zeros((spec.nb_modes,), np.int32)
-        for m, v in inner_its.items():
-            col[m] = v
-        inner_hist.append(col)
+        for h, its in ((inner_hist, inner_its), (lb_hist, lbfgs_its)):
+            col = np.zeros((spec.nb_modes,), np.int32)
+            for m, v in its.items():
+                col[m] = v
+            h.append(col)
         times.append(time.perf_counter() - t0)
         if options.Display == "iter" and it % options.DisplayIters == 0:
             v = to_host(f4_vec)
@@ -437,7 +525,9 @@ def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
         func_val_conv=harr[:, 0], func_coupl_conv=harr[:, 1],
         func_constr_conv=harr[:, 2], func_PAR2_coupl=harr[:, 3],
         func_rel_missing=None, innerIters=np.stack(inner_hist, axis=1),
-        time_total=t_total, time_at_it=np.asarray(times))
+        time_total=t_total, time_at_it=np.asarray(times),
+        lbfgsb_iterations=(np.stack(lb_hist, axis=1)
+                           if spec.has_non_frobenius() else None))
     if options.Display in ("iter", "final"):
         print(f"{n_iter:6d} {sum(f4):12.8f} {f4[0]:12.8f} {f4[1]:12.8f} "
               f"{f4[2]:12.8f} {f4[3]:12.8f}")

@@ -193,3 +193,23 @@ def refresh_gram(spec: ProblemSpec, state, grams: tuple, m: int) -> tuple:
     """G_transp_G refresh after a mode update (cmtf_fun_AOADMM.m:148, 190,
     216, 396)."""
     return grams[:m] + (mode_gram(spec, state, m),) + grams[m + 1:]
+
+
+def nonfrob_rho(colnorms, m: int) -> torch.Tensor:
+    """rho of a non-Frobenius mode: the sum of the squared column norms of
+    every OTHER mode (cmtf_fun_AOADMM.m:129), the zero entries of Frobenius
+    modes included.  colnorms: one 0-d tensor a mode."""
+    return torch.sum(torch.stack(list(colnorms))) - colnorms[m]
+
+
+def refresh_colnorm_init(state, m: int) -> torch.Tensor:
+    """Initial sum of squared column norms (cmtf_fun_AOADMM.m:77-80)."""
+    return torch.sum(state.fac[m] ** 2)
+
+
+def refresh_colnorm_update(state, m: int) -> torch.Tensor:
+    """The refresh after an update.  The reference overwrites instead of
+    accumulating inside its loop over r (cmtf_fun_AOADMM.m:151-153,
+    399-401), so the refreshed value is the squared norm of the LAST column
+    only; kept for the trajectories' sake."""
+    return torch.sum(state.fac[m][:, -1] ** 2)

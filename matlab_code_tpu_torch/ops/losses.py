@@ -1,10 +1,29 @@
-"""Loss constants (counterpart of matlab_code_tpu/ops/losses.py).  Only the
-Frobenius loss is ported; KL, IS and beta come with slice 5."""
+"""Loss functions: squared Frobenius and the beta-divergence family
+(counterpart of matlab_code_tpu/ops/losses.py; cmtf_AOADMM.m:123-190).
+
+Each non-Frobenius loss has an elementwise fh(X, M) and its gradient
+gh(X, M) = d fh / d M, and a data-only constant Znorm_const, so that
+loss = Znorm_const + sum(fh(X, M)).  The formulas are the JAX module's,
+literally: eps_log inside the logs and divisions of KL and IS, none in
+the beta terms.
+
+loss_fg(loss, X, M, eps_log, beta) is the one pass every non-Frobenius
+evaluation makes: (sum fh, gh).  On a CUDA tensor it launches kernel D
+(ops/loss_cuda.loss_fg_cuda, csrc/loss_fg.cu); on a CPU tensor it takes the
+plain version, loss_fg_reference.
+"""
 from __future__ import annotations
+
+import math
 
 import torch
 
+from matlab_code_tpu_torch.ops.loss_cuda import loss_fg_cuda
+
 FROBENIUS = "Frobenius"
+KL = "KL"
+IS = "IS"
+BETA = "beta"
 
 
 def znorm_const(loss: str, X: torch.Tensor, eps_log: float,
@@ -15,6 +34,58 @@ def znorm_const(loss: str, X: torch.Tensor, eps_log: float,
         Xm = X if mask is None else torch.where(
             mask, X, torch.zeros((), dtype=X.dtype, device=X.device))
         return torch.sum(Xm * Xm)
-    raise NotImplementedError(
-        f"loss {loss!r} is not ported yet: the port has the Frobenius loss "
-        "only; KL/IS/beta come with slice 5 (ROADMAP.md, non-Frobenius losses)")
+    if loss == KL:
+        return torch.sum(X * torch.log(X + eps_log) - X)
+    if loss == IS:
+        return torch.sum(-torch.log(X + eps_log) - 1.0)
+    if loss == BETA:
+        return torch.sum(X ** beta) / (beta * (beta - 1.0))
+    raise ValueError(f"Unknown loss {loss!r}")
+
+
+def loss_fh(loss: str, X, M, eps_log: float, beta: float | None = None):
+    """Elementwise fh(X, M) (cmtf_AOADMM.m:168, 178, 185)."""
+    if loss == KL:
+        return M - X * torch.log(M + eps_log)
+    if loss == IS:
+        return X / (M + eps_log) + torch.log(M + eps_log)
+    if loss == BETA:
+        return (1.0 / beta) * M ** beta - (1.0 / (beta - 1.0)) * X * M ** (beta - 1.0)
+    raise ValueError(f"No fh for loss {loss!r}")
+
+
+def loss_gh(loss: str, X, M, eps_log: float, beta: float | None = None):
+    """Elementwise gradient gh(X, M) with respect to M (cmtf_AOADMM.m:169,
+    179, 186)."""
+    if loss == KL:
+        return 1.0 - X / (M + eps_log)
+    if loss == IS:
+        return -X / ((M + eps_log) ** 2) + 1.0 / (M + eps_log)
+    if loss == BETA:
+        return M ** (beta - 1.0) - X * M ** (beta - 2.0)
+    raise ValueError(f"No gh for loss {loss!r}")
+
+
+def loss_bounds(loss: str) -> tuple[float, float]:
+    """Box bounds of the L-BFGS-B factor subproblem (cmtf_AOADMM.m:170-188)."""
+    if loss == FROBENIUS:
+        return (-math.inf, math.inf)
+    return (0.0, math.inf)
+
+
+def loss_fg_reference(loss: str, X: torch.Tensor, M: torch.Tensor,
+                      eps_log: float, beta: float | None = None):
+    """The plain version of kernel D: (sum fh(X, M), gh(X, M)), a 0-d tensor
+    and a tensor of X's shape, in X's dtype."""
+    return (torch.sum(loss_fh(loss, X, M, eps_log, beta)),
+            loss_gh(loss, X, M, eps_log, beta))
+
+
+def loss_fg(loss: str, X: torch.Tensor, M: torch.Tensor, eps_log: float,
+            beta: float | None = None):
+    """(sum fh(X, M), gh(X, M)): kernel D for CUDA tensors (which raises on
+    what it does not take: another dtype, a non-contiguous X or M), the
+    plain version for CPU tensors."""
+    if X.device.type == "cuda":
+        return loss_fg_cuda(loss, X, M, eps_log, beta)
+    return loss_fg_reference(loss, X, M, eps_log, beta)

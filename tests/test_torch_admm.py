@@ -85,7 +85,7 @@ def test_torch_cp_mode_precompute_matches_jax():
     spec, data, state, tspec, tdata, tstate = _problem()
     opts = AlgOptions()
     jgrams, _ = jinit_cache(spec, state)
-    tgrams = tinit_cache(tspec, tstate)
+    tgrams, _ = tinit_cache(tspec, tstate)
     for m in (1, 2, 7):   # 3-way modes and a matrix mode
         p = spec.which_p(m)
         jp = jprecompute(spec, data, state, jgrams, p, m, opts)
@@ -111,7 +111,7 @@ def test_torch_admm_constrained_only_matches_jax():
         torch.tensor(np.asarray(Bmat)), topts, illtol=topts.IllCondTol)
     assert not bool(tillc)
     tproxes, _ = tbuild_proxes(tspec)
-    tst, tnin = tadmm.admm_constrained_only(
+    tst, tnin, _, _ = tadmm.admm_constrained_only(
         tspec, tstate, m, p, torch.tensor(np.asarray(pre.A)), tsolve,
         torch.tensor(float(pre.rho), dtype=torch.float64), topts, tproxes)
     assert tnin == int(jnin)
@@ -142,7 +142,7 @@ def test_torch_admm_coupled_type4_matches_jax(inner_solve):
     jst, jnin, _, _ = jadmm.admm_coupled(
         spec, state, data, cmodes, 1, 4, As, {m: None for m in cmodes}, {}, {},
         rhos, opts, jproxes, solvers=solvers)
-    tst, tnin = tadmm.admm_coupled(
+    tst, tnin, _, _ = tadmm.admm_coupled(
         tspec, tstate, tdata, cmodes, 1, 4, tAs, trhos, topts, tproxes,
         tsolvers)
     assert tnin == int(jnin)
@@ -207,9 +207,17 @@ def test_torch_unported_parts_raise_not_implemented():
     data = tp.ProblemData(objects=(X, torch.ones((4, 6), dtype=torch.float64)),
                           coupl_trafo=(torch.eye(4, dtype=torch.float64), None,
                                        torch.eye(4, dtype=torch.float64), None))
-    state = tp.SolverState.empty(4, 1, 2)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tp.fit(spec, data, state, tp.AlgOptions())
+    # the KL fit that raised until slice 5 now runs (its L-BFGS-B steps
+    # coupled by type 3 to a Frobenius dataset)
+    state = tp.init_coupled(
+        spec, data, tp.InitOptions(distr=("rand",) * 4, normalize=True,
+                                   lambdas_init=((1, 1), (1, 1))),
+        generator=torch.Generator().manual_seed(0))
+    _, out = tp.fit(spec, data, state, tp.AlgOptions(MaxOuterIters=3))
+    assert out.OuterIterations >= 1 and np.isfinite(out.f_tensors)
+    assert out.lbfgsb_iterations.shape == (4, out.OuterIterations + 1)
+    assert out.lbfgsb_iterations[2:, 1].min() >= 1
+    assert out.lbfgsb_iterations[:2].max() == 0   # the Frobenius modes
     with pytest.raises(NotImplementedError, match="slice 6"):
         tp.fit(tp.ProblemSpec(mode_sizes=(4, 5),
                               datasets=(tp.DatasetSpec("CP", (0, 1), 2),)),
@@ -243,7 +251,7 @@ def test_torch_func_eval_matches_jax_fresh_and_cached():
     spec, data, state, tspec, tdata, tstate = _problem()
     opts = AlgOptions()
     jgrams, _ = jinit_cache(spec, state)
-    tgrams = tinit_cache(tspec, tstate)
+    tgrams, _ = tinit_cache(tspec, tstate)
     _, jreg = jbuild_proxes(spec)
     _, treg = tbuild_proxes(tspec)
     jz = jznorms(spec, data, opts)

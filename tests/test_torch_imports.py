@@ -28,6 +28,9 @@ PORT_MODULES = [
     "matlab_code_tpu_torch.utils.time_mttkrp3", "matlab_code_tpu_torch.utils.timing",
     "matlab_code_tpu_torch.utils.par2_workload",
     "matlab_code_tpu_torch.utils.par2_surface",
+    "matlab_code_tpu_torch.ops.loss_cuda", "matlab_code_tpu_torch.ops.lbfgsb",
+    "matlab_code_tpu_torch.models.lbfgs_bridge",
+    "matlab_code_tpu_torch.utils.kl_workload",
 ]
 
 
@@ -55,12 +58,13 @@ def test_torch_port_builds_nothing_at_import():
     code = ("import matlab_code_tpu_torch.ops.mttkrp_cuda as k, "
             "matlab_code_tpu_torch.ops.sparse_cuda as s, "
             "matlab_code_tpu_torch.ops.prox_cuda as q, "
+            "matlab_code_tpu_torch.ops.loss_cuda as d, "
             "matlab_code_tpu_torch.ops._build as b\n"
             "print('STATE', k._LIB is None, s._LIB is None, q._LIB is None, "
-            "q._LIB_C is None, b.BUILD_LOGS == {})\n")
+            "q._LIB_C is None, d._LIB is None, b.BUILD_LOGS == {})\n")
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
-    assert "STATE True True True True True" in proc.stdout
+    assert "STATE True True True True True True" in proc.stdout
 
 
 def _run_smoke(cwd):

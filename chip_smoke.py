@@ -6,7 +6,7 @@ NVIDIA GPU.  Usage, from the root of a checkout:
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
 started together, into the git-ignored matlab_code_tpu_torch/_build/) and
-runs fifteen phases, each printing its seconds; any failure raises and
+runs eighteen phases, each printing its seconds; any failure raises and
 exits non-zero:
 
   1. device and precision: the card, its power limit, the TF32 switches;
@@ -116,13 +116,37 @@ exits non-zero:
      torch.profiler) and in float64, then example script 07's configuration at its
      widths (a 50x30x40 tensor and a 50x70 matrix, both KL, coupled by
      type 0) for 3 iterations on the card and on the CPU in float64: the
-     streams at rtol 1e-8, the inner and L-BFGS-B iteration counts equal.
+     streams at rtol 1e-8, the inner and L-BFGS-B iteration counts equal;
+ 16. EM imputation (utils/em_workload.py): the flagship with 20 % of every
+     dataset missing at random for 100 outer iterations and the PAR2 K=512
+     workload with 20 % missing for 20, through cmtf_aoadmm in float32 (ms
+     an iteration, median and p90, host syncs and mttkrp3 launches an
+     iteration, every one on a freshly imputed tensor, peak memory, the
+     func_rel_missing stream, the device's busy share under
+     torch.profiler), then example script 12's widths (CP and PARAFAC2, 20 %
+     missing, type 0) for 3 iterations on the card and on the CPU in
+     float64: the five streams at rtol 1e-8, the inner iterations equal;
+ 17. the pairwise-perturbation MTTKRP (models/pairwise.py) at its default
+     tolerances: the flagship for 300 iterations and the sparse workload for
+     50, each against the exact fit in turns (exact, PP, PP, exact): ms an
+     iteration, the first approximated sweep, the approximated sweeps, the
+     rebuilds, the launches of mttkrp3 or the sparse kernel, the exact final
+     f_tensors against the exact fit's; then a small dense and a small COO
+     problem with PP for 40 iterations on the card and on the CPU in
+     float64: the streams at rtol 1e-8, the same gate decisions;
+ 18. fit_stepwise against fit on the flagship from one init for 20
+     iterations in float32 (the same iterations, inner iterations and
+     streams, non-decreasing wall times), and save_state of the card state
+     after 10 iterations read back by load_state: every field bit-equal and
+     on the card.
 
-It then prints one JSON line describing the six kernels, the card's name
+It then prints one JSON line describing the six kernels (mttkrp3's and
+the sparse kernel's launches on phases 16-17's paths beside them), the card's name
 and power limit, and as its last line {"ok": true, "device": {...}}.  It
 imports nothing of JAX, and it fails without a CUDA card or without the
 package beside it.
 """
+import dataclasses
 import functools
 import json
 import os
@@ -191,6 +215,14 @@ LOSS_RTOL_F = (1e-5, 1e-12)
 KL_ITERS = 5
 S07_ITERS = 3
 S07_SEED = 2
+EM_ITERS = 100          # the EM flagship (utils/em_workload.py)
+EM_PAR2_ITERS = 20      # the EM PAR2 K=512 workload
+EM_CPU_ITERS = 3        # script 12's widths, card against CPU
+PP_ITERS = 300          # the flagship with the pairwise perturbation
+PP_SPARSE_ITERS = 50    # the sparse workload with it
+PP_SMALL_ITERS = 40     # the small problems, card against CPU
+STEP_ITERS = 20         # fit_stepwise against fit on the flagship
+CKPT_ITERS = 10         # the state checkpointed
 
 
 def phase(n, title):
@@ -1520,6 +1552,300 @@ def kl_phases(dev, power):
                   "library_ms": None, "evaluation_ms": t_e}}
 
 
+def pp_counts():
+    """(first approximated sweep, approximated sweeps, rebuilds) of the
+    pairwise gate since its counts were reset."""
+    from matlab_code_tpu_torch.models import pairwise
+    u = pairwise.pp_sweep_update
+    return u.first_active, u.active, u.rebuilds
+
+
+def pp_probe(label, spec, data, state, dev, power):
+    """Where a PP sweep's device time goes on dataset 0: one rebuild of the
+    three partials and the three first-order MTTKRPs (partials laid out
+    (R, a, b), as models/pairwise.py keeps them, and, as a design probe,
+    (a, b, R), the JAX package's layout) against the exact MTTKRPs, each
+    beside its bytes bound (each input read once, each output written
+    once), factors 1 % off the references."""
+    import torch
+    from matlab_code_tpu_torch.models import pairwise
+    from matlab_code_tpu_torch.ops.tensor import mttkrp, mttkrp_sparse
+    from matlab_code_tpu_torch.problem import SparseTensor
+    from matlab_code_tpu_torch.models.solver import attach_sparse_plans
+    from matlab_code_tpu_torch.options import AlgOptions
+    ds = spec.datasets[0]
+    X = attach_sparse_plans(spec, data, AlgOptions()).objects[0]
+    dims = [spec.mode_sizes[m] for m in ds.modes]
+    R = ds.rank
+    refs = tuple(state.fac[m] for m in ds.modes)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    facs = tuple(f * (1 + 0.01 * torch.randn(f.shape, generator=gen, device=dev))
+                 for f in refs)
+    flush = l2_flush(dev)
+    t_build = time_ms(lambda: pairwise._build_partials(spec, data, 0, refs),
+                      flush, runs=5)
+    parts = pairwise._build_partials(spec, data, 0, refs)
+    cache = dict(zip(("T01", "T02", "T12"), parts), ref0=refs[0], ref1=refs[1],
+                 ref2=refs[2], active=True, seeded=True)
+    t_pp = time_ms(lambda: [pairwise.pp_mttkrp(spec, X, facs, 0, cache, local)
+                            for local in range(3)], flush)
+    abr = [T.permute(1, 2, 0).contiguous() for T in parts]
+    eqs = (("ijr,jr->ir", "ikr,kr->ir"), ("ijr,ir->jr", "jkr,kr->jr"),
+           ("ikr,ir->kr", "jkr,jr->kr"))
+    pairs = ((0, 1), (0, 2), (1, 2))    # the partials each mode reads
+    diffs = (facs[2] - refs[2], facs[2] - refs[2], facs[1] - refs[1])
+
+    def pp_abr():
+        return [torch.einsum(eqs[l][0], abr[pairs[l][0]], facs[(1, 0, 0)[l]])
+                + torch.einsum(eqs[l][1], abr[pairs[l][1]], diffs[l])
+                for l in range(3)]
+
+    t_abr = time_ms(pp_abr, flush)
+    err = max(float((a - pairwise.pp_mttkrp(spec, X, facs, 0, cache, l)).abs().max())
+              for l, a in enumerate(pp_abr()))
+    if isinstance(X, SparseTensor):
+        exact = lambda: [mttkrp_sparse(X.indices, X.values, list(facs), l, dims[l],
+                                       plan=None if X.plans is None
+                                       else X.plans[l]) for l in range(3)]
+        in_bytes = X.values.numel() * (4 + 4 * X.indices.shape[1])
+    else:
+        exact = lambda: [mttkrp(X, list(facs), l) for l in range(3)]
+        in_bytes = X.numel() * 4
+    t_exact = time_ms(exact, flush)
+    fac_bytes = sum(d * R * 4 for d in dims)
+    part_bytes = [T.numel() * 4 for T in parts]
+    b_build = in_bytes + fac_bytes + sum(part_bytes)
+    b_pp = sum(part_bytes[a] + part_bytes[b] for a, b in pairs) + 3 * fac_bytes
+    b_exact = 3 * (in_bytes + fac_bytes)
+    print(f"  {label} dataset 0 {tuple(dims)} R {R}: rebuild of the partials "
+          f"{t_build:.3f} ms (bound {b_build / HBM_BYTES_S * 1e3:.3f}); three "
+          f"PP MTTKRPs {t_pp:.3f} ms (bound {b_pp / HBM_BYTES_S * 1e3:.3f}; "
+          f"(a, b, R) layout {t_abr:.3f} ms, max |diff| {err:.2e}); three exact "
+          f"MTTKRPs {t_exact:.3f} ms (bound {b_exact / HBM_BYTES_S * 1e3:.3f})  "
+          f"[{power}]")
+    del parts, abr, cache, flush
+
+
+def em_phases(dev, power):
+    """Phases 16-18: EM imputation, the pairwise-perturbation MTTKRP,
+    fit_stepwise and checkpoints.  Returns the launches of mttkrp3 and of
+    the sparse kernel on these paths for the kernels line."""
+    import tempfile
+    import torch
+    from matlab_code_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from matlab_code_tpu_torch.models import pairwise
+    from matlab_code_tpu_torch.models.admm import to_host
+    from matlab_code_tpu_torch.models.init import init_coupled
+    from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit, fit_stepwise
+    from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
+    from matlab_code_tpu_torch.ops.sparse_cuda import mttkrp_sparse_cuda
+    from matlab_code_tpu_torch.options import AlgOptions
+    from matlab_code_tpu_torch.state import FIELDS
+    from matlab_code_tpu_torch.utils import (
+        em_workload as emw, flagship, par2_workload, sparse_workload)
+    from matlab_code_tpu_torch.utils.checkpoint import load_state, save_state
+    counts = {}
+
+    # ---- 16. EM imputation ------------------------------------------------------
+    t0 = phase(16, f"EM: the flagship ({EM_ITERS} iterations) and the PAR2 "
+                   f"K=512 workload ({EM_PAR2_ITERS}) with 20 % missing, "
+                   f"float32; script 12's widths on the card and the CPU")
+    for label, build, opts, init_opts in (
+            ("EM flagship", emw.build_flagship,
+             flagship.flagship_options(EM_ITERS, AbsFuncTol=0.0, OuterRelTol=0.0),
+             flagship.flagship_init_options()),
+            ("EM PAR2 K=512", emw.build_par2,
+             par2_workload.par2_options(EM_PAR2_ITERS, AbsFuncTol=0.0,
+                                        OuterRelTol=0.0),
+             par2_workload.par2_init_options())):
+        n = opts.MaxOuterIters
+        spec, data = build(dev, torch.float32)
+        missing = [round(1 - float(m.float().mean()), 4) for m in data.miss]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mttkrp3.launches = to_host.calls = 0
+        _, _, state0, out = cmtf_aoadmm(spec, data, opts, init_options=init_opts,
+                                        generator=gen)
+        launches, syncs = mttkrp3.launches, to_host.calls
+        streams = np.stack([out.func_val_conv, out.func_coupl_conv,
+                            out.func_constr_conv, out.func_PAR2_coupl])
+        frm = out.func_rel_missing
+        if out.OuterIterations != n or not np.all(np.isfinite(streams)) \
+                or frm is None or not np.isnan(frm[0]) \
+                or not np.all(np.isfinite(frm[1:])) \
+                or not out.func_val_conv[-1] < out.func_val_conv[0]:
+            raise RuntimeError(f"{label}: {out.OuterIterations} iterations, "
+                               f"f_tensors {out.func_val_conv[[0, -1]]}, "
+                               f"f_rel_missing {frm}")
+        three_way = sum(1 for X in data.objects if getattr(X, "dim", None)
+                        and X.dim() == 3)
+        if launches != 3 * three_way * n:
+            raise RuntimeError(f"{label}: {launches} mttkrp3 launches in {n} "
+                               f"iterations, {3 * three_way * n} expected")
+        med, p90 = fit_times(out)
+        print(f"{label}: datasets {[tuple(getattr(X, 'slices', X).shape) for X in data.objects]}, "
+              f"missing {missing}; f_tensors {out.func_val_conv[0]:.6e} -> "
+              f"{out.f_tensors:.6e}; f_rel_missing at iteration 1 {frm[1]:.6e}, "
+              f"at {n} {frm[-1]:.6e}")
+        print(f"  ms per outer iteration: median {med:.3f}, p90 {p90:.3f}; host "
+              f"syncs {syncs / n:.2f} an iteration; mttkrp3 launches "
+              f"{launches / n:.2f} an iteration (all on imputed tensors); peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} "
+              f"MiB  [{power}]")
+        profile_fit(spec, data, state0, dataclasses.replace(opts, MaxOuterIters=2))
+        counts[label] = launches
+        del data, state0
+    # the card against the CPU in float64 at script 12's widths
+    spec, data_c, _, init_opts = emw.script12_problem("cpu", torch.float64)
+    _, data_g, _, _ = emw.script12_problem(dev, torch.float64)
+    init_np = state_to_numpy(init_coupled(spec, data_c, init_opts, seed=2))
+    o3 = AlgOptions(MaxOuterIters=EM_CPU_ITERS, AbsFuncTol=0.0, OuterRelTol=0.0)
+    _, out_cpu = fit(spec, data_c, state_from_numpy(init_np, "cpu"), o3)
+    before = mttkrp3.launches
+    _, out_gpu = fit(spec, data_g, state_from_numpy(init_np, dev), o3)
+    if mttkrp3.launches == before:
+        raise RuntimeError("script 12's widths: mttkrp3 not launched")
+    hold_streams(out_gpu, out_cpu, "script 12")
+    rel = np.nanmax(np.abs(out_gpu.func_rel_missing - out_cpu.func_rel_missing)
+                    / np.abs(out_cpu.func_rel_missing))
+    print(f"  script 12 f_rel_missing: card {out_gpu.func_rel_missing[-1]:.12e} "
+          f"cpu {out_cpu.func_rel_missing[-1]:.12e} max rel diff {rel:.3e} "
+          f"(bound 1e-8)")
+    np.testing.assert_allclose(out_gpu.func_rel_missing, out_cpu.func_rel_missing,
+                               rtol=1e-8, atol=0, err_msg="script 12 f_rel_missing")
+    if not np.array_equal(out_gpu.innerIters, out_cpu.innerIters):
+        raise RuntimeError("script 12: the card's inner iterations differ")
+    print(f"  script 12, {EM_CPU_ITERS} iterations: inner iterations equal True")
+    done(16, t0)
+
+    # ---- 17. the pairwise-perturbation MTTKRP -----------------------------------
+    t0 = phase(17, f"pairwise perturbation: the flagship ({PP_ITERS} "
+                   f"iterations) and the sparse workload ({PP_SPARSE_ITERS}) in "
+                   f"turns with the exact fit, float32; small problems on the "
+                   f"card and the CPU")
+    for label, build, options, init_opts, n, kernel in (
+            ("flagship", lambda: flagship.build_problem(dev, torch.float32),
+             flagship.flagship_options, flagship.flagship_init_options(),
+             PP_ITERS, mttkrp3),
+            ("sparse workload", lambda: sparse_workload.build_problem(
+                device=dev, dtype=torch.float32), sparse_workload.sparse_options,
+             sparse_workload.sparse_init_options(), PP_SPARSE_ITERS,
+             mttkrp_sparse_cuda)):
+        spec, data = build()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        init_np = state_to_numpy(init_coupled(spec, data, init_opts,
+                                              generator=gen))
+        runs = {}
+        for pp in (False, True, True, False):
+            opts = options(n, AbsFuncTol=0.0, OuterRelTol=0.0,
+                           cp_pairwise_perturbation=pp)
+            pairwise.reset_counts()
+            kernel.launches = to_host.calls = 0
+            state, out = fit(spec, data,
+                             state_from_numpy(init_np, dev, torch.float32), opts)
+            if out.OuterIterations != n or not np.isfinite(out.f_tensors):
+                raise RuntimeError(f"{label}, pp {pp}: {out.OuterIterations} "
+                                   f"iterations, f_tensors {out.f_tensors}")
+            runs.setdefault(pp, []).append(
+                (fit_times(out) + (out.time_total / n * 1e3,), pp_counts(),
+                 kernel.launches, out.f_tensors, to_host.calls / n))
+        (ex1, ex2), (pp1, pp2) = runs[False], runs[True]
+        first, active, rebuilds = pp1[1]
+        print(f"{label}: ms per outer iteration (median, p90, mean) "
+              + ", ".join(f"{name} {r[0][0]:.3f}/{r[0][1]:.3f}/{r[0][2]:.3f}"
+                          for name, r in (("exact", ex1), ("PP", pp1),
+                                          ("PP", pp2), ("exact", ex2)))
+              + f"; host syncs an iteration exact {ex1[4]:.2f}, PP "
+              f"{pp1[4]:.2f}  [{power}]")
+        pp_probe(label, spec, data, state, dev, power)
+        print(f"  PP first active sweep {first}, active sweeps {active} of {n}, "
+              f"rebuilds {rebuilds}; {kernel.__name__} launches: exact "
+              f"{ex1[2]}, PP {pp1[2]}; exact final f_tensors: PP {pp1[3]:.9e}, "
+              f"exact {ex1[3]:.9e} (rel diff "
+              f"{abs(pp1[3] - ex1[3]) / abs(ex1[3]):.3e})")
+        if first is None:
+            print(f"  finding: PP never switched on in {n} iterations at the "
+                  f"default tolerances (pp_start_tol 0.02)")
+        if ex1[2] == 0 or pp1[2] == 0:
+            raise RuntimeError(f"{label}: {kernel.__name__} not launched on the "
+                               f"exact sweeps")
+        if pp1[1] != pp2[1]:
+            raise RuntimeError(f"{label}: the two PP runs gated differently: "
+                               f"{pp1[1]} and {pp2[1]}")
+        counts[f"pp {label}"] = pp1[2]
+        del data
+    for layout, kernel in (("dense", mttkrp3), ("sparse", mttkrp_sparse_cuda)):
+        spec, data_c, init_opts = emw.pp_problem(layout, "cpu")
+        _, data_g, _ = emw.pp_problem(layout, dev)
+        init_np = state_to_numpy(init_coupled(spec, data_c, init_opts, seed=1))
+        opts = AlgOptions(MaxOuterIters=PP_SMALL_ITERS, AbsFuncTol=0.0,
+                          OuterRelTol=0.0, cp_pairwise_perturbation=True)
+        pairwise.reset_counts()
+        _, out_cpu = fit(spec, data_c, state_from_numpy(init_np, "cpu"), opts)
+        cpu_counts = pp_counts()
+        pairwise.reset_counts()
+        before = kernel.launches
+        _, out_gpu = fit(spec, data_g, state_from_numpy(init_np, dev), opts)
+        gpu_counts = pp_counts()
+        print(f"  small {layout}, {PP_SMALL_ITERS} iterations: (first active, "
+              f"active, rebuilds) card {gpu_counts} cpu {cpu_counts}; "
+              f"{kernel.__name__} launches {kernel.launches - before}")
+        hold_streams(out_gpu, out_cpu, f"small {layout} PP")
+        if gpu_counts != cpu_counts or cpu_counts[0] is None \
+                or kernel.launches == before:
+            raise RuntimeError(f"small {layout} PP: the card gated differently "
+                               f"from the CPU, or PP never switched on")
+    done(17, t0)
+
+    # ---- 18. fit_stepwise and checkpoints ------------------------------------
+    t0 = phase(18, f"fit_stepwise against fit on the flagship ({STEP_ITERS} "
+                   f"iterations, float32); a checkpoint after {CKPT_ITERS}")
+    spec, data = flagship.build_problem(dev, torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    init_np = state_to_numpy(init_coupled(spec, data, flagship.flagship_init_options(),
+                                          generator=gen))
+    opts = flagship.flagship_options(STEP_ITERS, AbsFuncTol=0.0, OuterRelTol=0.0)
+    _, o_fit = fit(spec, data, state_from_numpy(init_np, dev, torch.float32), opts)
+    _, o_sw = fit_stepwise(spec, data, state_from_numpy(init_np, dev, torch.float32),
+                           opts)
+    same = all(np.array_equal(getattr(o_fit, k), getattr(o_sw, k)) for k in (
+        "func_val_conv", "func_coupl_conv", "func_constr_conv", "func_PAR2_coupl"))
+    rel = np.max(np.abs(o_sw.func_val_conv - o_fit.func_val_conv)
+                 / np.abs(o_fit.func_val_conv))
+    print(f"fit {o_fit.OuterIterations} / fit_stepwise {o_sw.OuterIterations} "
+          f"iterations; streams bit-equal {same} (f_tensors max rel diff "
+          f"{rel:.3e}); ms per iteration median fit {fit_times(o_fit)[0]:.3f}, "
+          f"fit_stepwise {fit_times(o_sw)[0]:.3f}  [{power}]")
+    if o_fit.OuterIterations != o_sw.OuterIterations \
+            or not np.array_equal(o_fit.innerIters, o_sw.innerIters) \
+            or not rel <= 1e-6 or not np.all(np.diff(o_sw.time_at_it) >= 0):
+        raise RuntimeError("fit_stepwise disagrees with fit on the flagship")
+    state, _ = fit(spec, data, state_from_numpy(init_np, dev, torch.float32),
+                   flagship.flagship_options(CKPT_ITERS, AbsFuncTol=0.0,
+                                             OuterRelTol=0.0))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        save_state(path, state)
+        back = load_state(path)
+    n_fields = 0
+    for f in FIELDS:
+        for a, b in zip(getattr(state, f), getattr(back, f)):
+            if (a is None) != (b is None) or (a is not None and not (
+                    b.device.type == "cuda" and b.dtype == a.dtype
+                    and torch.equal(a, b))):
+                raise RuntimeError(f"checkpoint: field {f} differs")
+            n_fields += a is not None
+    print(f"checkpoint after {CKPT_ITERS} iterations: {n_fields} arrays "
+          f"bit-equal on the card after load_state")
+    done(18, t0)
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1793,6 +2119,7 @@ def main():
     prox_entries = prox_phases(dev, power)
     par2 = par2_phases(dev, power)
     kl = kl_phases(dev, power)
+    em = em_phases(dev, power)
     for e in prox_entries:
         e.update(par2["batched"][
             "A" if e["name"] == "project_isotonic_cols" else "B"])
@@ -1804,8 +2131,10 @@ def main():
         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": max(bound_by_ms, key=bound_by_ms.get),
         "library_ms": lib_ms, "par2_launches": par2["mttkrp3_launches"],
-        "kl_launches": kl["mttkrp3_launches"]},
-        sparse] + prox_entries + [kl["D"]]}))
+        "kl_launches": kl["mttkrp3_launches"],
+        "em_launches": em["EM flagship"], "pp_launches": em["pp flagship"]},
+        dict(sparse, pp_launches=em["pp sparse workload"])]
+        + prox_entries + [kl["D"]]}))
     print(power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))

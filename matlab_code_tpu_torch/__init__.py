@@ -8,13 +8,14 @@ datasets, dense or sparse COO (SparseTensor), and PARAFAC2 datasets
 (Parafac2Tensor, regular or ragged slices), with Frobenius loss, dense CP
 datasets with KL, Itakura-Saito or beta-divergence loss (L-BFGS-B factor
 steps), coupling types 0-5, every constraint and regularizer, random or
-nvecs init.  On a CUDA card every dense 3-way MTTKRP runs the
+nvecs init, EM imputation of missing entries, the pairwise-perturbation
+MTTKRP (models/pairwise.py), fit_stepwise and checkpoints
+(utils/checkpoint.py).  On a CUDA card every dense 3-way MTTKRP runs the
 hand-written Hopper kernel ops/mttkrp_cuda.mttkrp3 (csrc/mttkrp3.cu),
 every sparse MTTKRP the hand-written kernel ops/sparse_cuda.
 mttkrp_sparse_cuda (csrc/mttkrp_sparse.cu), the sequential proxes the
 kernels of ops/prox_cuda (csrc/prox_seq.cu, csrc/t_smooth.cu), and the
-non-Frobenius loss pass ops/loss_cuda.loss_fg_cuda (csrc/loss_fg.cu).  What is not ported
-yet raises NotImplementedError naming its slice in ROADMAP.md.
+non-Frobenius loss pass ops/loss_cuda.loss_fg_cuda (csrc/loss_fg.cu).
 """
 
 from matlab_code_tpu_torch.problem import (
@@ -24,11 +25,14 @@ from matlab_code_tpu_torch.problem import (
 from matlab_code_tpu_torch.options import AlgOptions, InitOptions
 from matlab_code_tpu_torch.state import SolverState
 from matlab_code_tpu_torch.models.init import init_coupled
-from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit
+from matlab_code_tpu_torch.models.pairwise import eligible_pp_datasets
+from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit, fit_stepwise
+from matlab_code_tpu_torch.utils.checkpoint import load_state, save_state
 
 __all__ = [
     "ProblemSpec", "DatasetSpec", "CouplingSpec", "ConstraintSpec",
     "ProblemData", "SparseTensor", "Parafac2Tensor", "AlgOptions",
     "InitOptions", "SolverState",
-    "init_coupled", "cmtf_aoadmm", "fit", "check_data_input",
+    "init_coupled", "cmtf_aoadmm", "fit", "fit_stepwise",
+    "eligible_pp_datasets", "save_state", "load_state", "check_data_input",
 ]

@@ -1,17 +1,19 @@
 """Objective / residual-stream evaluation (CMTF_AOADMM_func_eval,
 cmtf_fun_AOADMM.m:1213-1363), counterpart of
-matlab_code_tpu/models/objective.py without its missing-data branches:
-data terms of CP datasets (any loss) and PARAFAC2 datasets, the
-constraints' regularizer terms (ops/prox.make_prox's reg),
-ridge, the coupling gaps of types 0-5 and the PARAFAC2 internal coupling
-gaps.
+matlab_code_tpu/models/objective.py: data terms of CP datasets (any loss)
+and PARAFAC2 datasets, masked where entries are missing, the constraints'
+regularizer terms (ops/prox.make_prox's reg), ridge, the coupling gaps of
+types 0-5 and the PARAFAC2 internal coupling gaps.
 
 Returns the four streams (f_tensors, f_couplings, f_constraints,
 f_PAR2_couplings) as 0-d tensors.  A CP data term reads the cached MTTKRP
 of the last updated mode (no extra data pass), as does a PARAFAC2 one whose
 A mode was updated last; otherwise (iteration 0, or a PARAFAC2 dataset
 whose C mode came last) it is evaluated afresh.  A non-Frobenius data term
-is w (Znorm_const + sum fh(X, M)) with the model M materialized.
+is w (Znorm_const + sum fh(X, M)) with the model M materialized.  A
+Frobenius dataset with a missing-data mask (True = observed) is evaluated
+on its observed entries with the model materialized, before any cached
+branch (cmtf_fun_AOADMM.m:1224-1226).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 from matlab_code_tpu_torch.models.admm import _check_ctype, _fro_slices
 from matlab_code_tpu_torch.ops import losses
 from matlab_code_tpu_torch.ops.tensor import (
-    gram, hadamard_grams, ktensor_full, mttkrp, mttkrp_sparse)
+    gram, hadamard_grams, khatri_rao, ktensor_full, mttkrp, mttkrp_sparse)
 from matlab_code_tpu_torch.problem import (
     CP, PAR2, ProblemData, ProblemSpec, SparseTensor)
 
@@ -43,6 +45,15 @@ def par2_model_slices(spec, state, p):
     return (A[None] * C[:, None, :]) @ Bk.transpose(1, 2)
 
 
+def cp_model_full(factors) -> torch.Tensor:
+    """The dense CP model sum_r a_r o b_r o ... (ktensor_full) as one GEMM,
+    the Khatri-Rao product of all but the last factor times the last one's
+    transpose, so that it is laid out row-major: the EM-imputed tensor
+    built from it reaches the MTTKRP kernel contiguous without a copy."""
+    out = khatri_rao(factors[:-1]) @ factors[-1].T
+    return out.reshape(tuple(f.shape[0] for f in factors))
+
+
 def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
               znorm_consts, reg_fns, cached=None, options=None):
     """The four objective streams.  cached: None (fresh eval) or
@@ -55,11 +66,13 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
     fps = []
     for p, ds in enumerate(spec.datasets):
         X = data.objects[p]
-        if data.miss[p] is not None:
-            raise NotImplementedError(
-                "missing data (EM imputation) comes with slice 6 (ROADMAP.md)")
+        msk = data.miss[p]
         if ds.model == PAR2:
-            if cached is not None and p in cached and cached[p][2] == 0:
+            if msk is not None:
+                D = torch.where(msk, X.slices - par2_model_slices(spec, state, p),
+                                zero)
+                fp = torch.sum(D * D)
+            elif cached is not None and p in cached and cached[p][2] == 0:
                 last_mk, last_had, _ = cached[p]
                 mA = ds.modes[0]
                 f2 = torch.sum(last_mk * state.fac[mA])
@@ -79,7 +92,12 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
                                        ds.loss_param)
             fps.append(ds.weight * (znorm_consts[p] + fh_sum))
             continue
-        if cached is not None and p in cached:
+        if msk is not None:
+            M = torch.where(msk, cp_model_full([state.fac[j] for j in ds.modes]),
+                            zero)
+            fp = ds.weight * (znorm_consts[p] - 2.0 * torch.sum(X * M)
+                              + torch.sum(M * M))
+        elif cached is not None and p in cached:
             last_mk, last_had, last_m = cached[p]
             mlast = ds.modes[last_m]
             f2 = torch.sum(last_mk * state.fac[mlast])

@@ -4,14 +4,18 @@ loop :87-476 and cmtf_AOADMM.m).
 
 The JAX package runs the whole fit as one compiled while_loop.  Here the
 outer loop is an eager host loop with the same exit rule and the same
-per-iteration streams; it reads one combined stop / ill-conditioning flag
+per-iteration streams; fit reads one combined stop / ill-conditioning flag
 from the device per outer iteration, and the inner loops read their
 residuals (models/admm.to_host counts every such read), as does the
 L-BFGS-B loop of a non-Frobenius mode (ops/lbfgsb.py: one read a
-line-search try).  Per-iteration wall times are exact, as in the JAX
-package's fit_stepwise.  A delayed PARAFAC2
+line-search try) and the pairwise-perturbation gate (models/pairwise.py:
+one read a sweep once it is seeded).  Per-iteration wall times are exact.
+fit_stepwise runs the same iteration (_FitRun.iterate) and decides the stop
+on host floats, as the JAX package's fit_stepwise does.  A delayed PARAFAC2
 Bk constraint (options.iter_start_PAR2Bkconstraint, script 9) switches the
-sweep at that iteration, as the JAX fit's two phases do.
+sweep at that iteration, as the JAX fit's two phases do.  Missing entries
+(ProblemData.miss) are imputed from the model after every sweep
+(em_impute, cmtf_fun_AOADMM.m:408-441).
 """
 from __future__ import annotations
 
@@ -28,7 +32,10 @@ from matlab_code_tpu_torch.models.admm import (
     _check_ctype, _chol_rcond_bad, admm_b_parafac2, admm_constrained_only,
     admm_coupled, make_spd_solver, to_host)
 from matlab_code_tpu_torch.models.lbfgs_bridge import make_lbfgs_step
-from matlab_code_tpu_torch.models.objective import func_eval
+from matlab_code_tpu_torch.models.objective import (
+    cp_model_full, func_eval, par2_model_slices)
+from matlab_code_tpu_torch.models.pairwise import (
+    eligible_pp_datasets, pp_init, pp_mttkrp, pp_sweep_update)
 from matlab_code_tpu_torch.models.updates import (
     ModePre, cp_mode_precompute, mode_gram, nonfrob_rho, par2A_precompute,
     par2B_precompute, par2C_precompute, refresh_colnorm_init,
@@ -88,38 +95,22 @@ def init_cache(spec: ProblemSpec, state: SolverState) -> tuple:
 def compute_znorm_consts(spec: ProblemSpec, data: ProblemData,
                          options: AlgOptions):
     """Per-dataset data constants (cmtf_AOADMM.m:124-189); sum of squared
-    values for a sparse COO or PARAFAC2 dataset."""
+    values for a sparse COO or PARAFAC2 dataset, of the observed entries
+    where a PARAFAC2 dataset has a missing-data mask."""
     out = []
     for p, ds in enumerate(spec.datasets):
         X = data.objects[p]
         if ds.model == PAR2:
-            out.append(torch.sum(X.slices * X.slices))
+            Xs = X.slices
+            if data.miss[p] is not None:
+                Xs = torch.where(data.miss[p], Xs, torch.zeros(
+                    (), dtype=Xs.dtype, device=Xs.device))
+            out.append(torch.sum(Xs * Xs))
         elif isinstance(X, SparseTensor):
             out.append(torch.sum(X.values * X.values))
         else:
             out.append(losses.znorm_const(ds.loss, X, options.eps_log,
                                           ds.loss_param, data.miss[p]))
-    return tuple(out)
-
-
-def eligible_pp_datasets(spec: ProblemSpec, data: ProblemData,
-                         options: AlgOptions) -> tuple:
-    """Datasets the pairwise-perturbation MTTKRP would take when
-    options.cp_pairwise_perturbation is set: 3-way CP with Frobenius loss,
-    no missing mask, dense 3-way or SparseTensor data (the rule of
-    matlab_code_tpu/models/pairwise.py::eligible_pp_datasets, without its
-    mesh)."""
-    if not options.cp_pairwise_perturbation:
-        return ()
-    out = []
-    for p, ds in enumerate(spec.datasets):
-        if ds.model != CP or len(ds.modes) != 3 or ds.loss != "Frobenius":
-            continue
-        if data.miss and data.miss[p] is not None:
-            continue
-        X = data.objects[p]
-        if isinstance(X, SparseTensor) or getattr(X, "ndim", 0) == 3:
-            out.append(p)
     return tuple(out)
 
 
@@ -183,28 +174,37 @@ def _has_bk_constraint(spec: ProblemSpec) -> bool:
 
 
 def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
-                    bk_constraint_active: bool = True):
+                    bk_constraint_active: bool = True, pp_datasets=()):
     """One AO sweep over the coupling ids (cmtf_fun_AOADMM.m:87-407) for CP
     and PARAFAC2 datasets.  A mode of a non-Frobenius (KL, IS, beta)
     dataset takes its factor steps by L-BFGS-B (models/lbfgs_bridge.py)
     with rho from the other modes' column norms (updates.nonfrob_rho),
     scaled by rho_scale where options.adaptive_rho_nonfrob holds.
     bk_constraint_active: False before options.iter_start_PAR2Bkconstraint,
-    when a PARAFAC2 Bk mode runs unconstrained.
+    when a PARAFAC2 Bk mode runs unconstrained.  pp_datasets: the datasets
+    whose MTTKRPs go through the pairwise-perturbation MTTKRP
+    (models/pairwise.py, options.cp_pairwise_perturbation).
 
-    outer_step(state, data, grams, colnorms, rho_scale) returns (state,
-    grams, colnorms, rho_scale, cached, inner_its, lbfgs_its, illc):
-    colnorms and rho_scale hold a 0-d tensor a mode, cached feeds
+    outer_step(state, data, grams, colnorms, rho_scale, pp=None) returns
+    (state, grams, colnorms, rho_scale, cached, inner_its, lbfgs_its, illc,
+    pp): colnorms and rho_scale hold a 0-d tensor a mode, cached feeds
     func_eval's cached-MTTKRP branch, inner_its and lbfgs_its map mode ->
     inner and L-BFGS-B iterations (ints), illc is the ill-conditioning flag
-    (0-d bool tensor)."""
+    (0-d bool tensor), pp the pairwise caches {p: cache} after the sweep's
+    gate (pairwise.pp_sweep_update), None without pp_datasets."""
     _check_ported(spec)
     lbfgs_steps = {m: make_lbfgs_step(spec, p, m, options)
                    for p, ds in enumerate(spec.datasets)
                    if ds.loss != "Frobenius" for m in ds.modes}
     adaptive = options.adaptive_rho_nonfrob and spec.has_non_frobenius()
 
-    def outer_step(state, data, grams, colnorms, rho_scale):
+    def outer_step(state, data, grams, colnorms, rho_scale, pp=None):
+        impls = {}
+        if pp_datasets:
+            pp = pp_sweep_update(spec, data, state, pp, options)
+            impls = {(p, local): (lambda X, facs, p=p, local=local: pp_mttkrp(
+                spec, X, facs, p, pp[p], local))
+                for p in pp_datasets for local in range(3)}
         inner_its: dict[int, Any] = {}
         lbfgs_its: dict[int, int] = {}
         cached: dict[int, Any] = {}
@@ -280,8 +280,9 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
                             rho_nf = rho_nf * rho_scale[m]
                         pre = ModePre(None, None, rho_nf, None, None)
                     elif role == "cp":
-                        pre = cp_mode_precompute(spec, data, state, grams, p, m,
-                                                 options, partials)
+                        pre = cp_mode_precompute(
+                            spec, data, state, grams, p, m, options, partials,
+                            mttkrp_impl=impls.get((p, ds.modes.index(m))))
                         cached[p] = (pre.last_mttkrp, pre.last_had,
                                      ds.modes.index(m))
                     elif role == "par2_A":
@@ -390,7 +391,7 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
                     elif spec.mode_role(m) != "par2_C":
                         grams = refresh_gram(spec, state, grams, m)
         return (state, grams, colnorms, rho_scale, cached, inner_its,
-                lbfgs_its, illc)
+                lbfgs_its, illc, pp)
 
     return outer_step
 
@@ -430,73 +431,170 @@ class FitOutput:
     lbfgsb_iterations: np.ndarray | None = None
 
 
+def em_impute(spec: ProblemSpec, data: ProblemData, state: SolverState):
+    """EM imputation (cmtf_fun_AOADMM.m:408-441): every missing entry
+    (mask False) of a masked dataset takes the current model's value.
+    Returns (data, f_rel_missing): the new ProblemData and the relative
+    change of the imputed entries, sqrt(num / max(den, 1e-300)) where den
+    > 0, else sqrt(num) (num: the squared change, den: the squared previous
+    imputation), a 0-d tensor.  A CP model is built row-major
+    (objective.cp_model_full) and a PARAFAC2 one as batched products, so
+    the new data tensors are contiguous; a ragged PARAFAC2 dataset's padded
+    columns take the model's, which are zero where Bk's padded rows are."""
+    like = state.fac[0]
+    zero = torch.zeros((), dtype=like.dtype, device=like.device)
+    num = den = zero
+    objects = list(data.objects)
+    for p, ds in enumerate(spec.datasets):
+        msk = data.miss[p]
+        if msk is None:
+            continue
+        X = objects[p]
+        if ds.model == CP:
+            M, Xd = cp_model_full([state.fac[j] for j in ds.modes]), X
+        else:
+            M, Xd = par2_model_slices(spec, state, p), X.slices
+        d = torch.where(msk, zero, M - Xd)
+        num = num + torch.sum(d * d)
+        held = torch.where(msk, zero, Xd)
+        den = den + torch.sum(held * held)
+        new = torch.where(msk, Xd, M)
+        objects[p] = new if ds.model == CP else Parafac2Tensor(new, X.mask)
+    frm = torch.where(den > 0, torch.sqrt(num / torch.clamp(den, min=1e-300)),
+                      torch.sqrt(num))
+    return dataclasses.replace(data, objects=tuple(objects)), frm
+
+
+class _FitRun:
+    """What fit and fit_stepwise share: the set-up, one outer iteration
+    (iterate) and the output (output), so the two cannot drift apart."""
+
+    def __init__(self, spec, data, state, options, validate):
+        if validate:
+            check_data_input(spec, data)
+            _warn_loss_data(spec, data)
+        _check_ported(spec)
+        _check_devices(data, state)
+        apply_matmul_precision(options)
+        self.spec, self.options, self.state = spec, options, state
+        self.data = data = attach_sparse_plans(spec, data, options)
+        self.miss = has_missing(data)
+        self.znorms = compute_znorm_consts(spec, data, options)
+        self.proxes, self.reg_fns = build_proxes(spec)
+        self.pp_ds = eligible_pp_datasets(spec, data, options)
+        self.bk = _has_bk_constraint(spec)
+        self.steps = {
+            active: make_outer_step(spec, options, self.proxes, self.reg_fns,
+                                    active, pp_datasets=self.pp_ds)
+            for active in ((False, True) if self.bk else (True,))}
+        self.grams, self.colnorms = init_cache(spec, state)
+        self.rho_scale = tuple(torch.ones_like(c) for c in self.colnorms)
+        self.pp = pp_init(spec, data, state, self.pp_ds) if self.pp_ds else None
+        like = state.fac[0]
+        self.nan = torch.full((), float("nan"), dtype=like.dtype,
+                              device=like.device)
+        self.inner_hist = [np.zeros((spec.nb_modes,), np.int32)]
+        self.lb_hist = [np.zeros((spec.nb_modes,), np.int32)]
+
+    def evaluate(self, cached=None):
+        """The four streams at the current state (func_eval)."""
+        return func_eval(self.spec, self.data, self.state, self.grams,
+                         self.znorms, self.reg_fns, cached=cached,
+                         options=self.options)
+
+    def iterate(self, it: int):
+        """Outer iteration `it`: the sweep (the pairwise gate at its start),
+        then the EM imputation, then the objective on the imputed data (the
+        JAX order, solver.py:496-514).  Returns (f4, frm, illc): the
+        streams, the EM change (NaN without missing data) and the sweep's
+        ill-conditioning flag, all on the device."""
+        step = self.steps[(not self.bk)
+                          or it >= self.options.iter_start_PAR2Bkconstraint]
+        (self.state, self.grams, self.colnorms, self.rho_scale, cached,
+         inner_its, lbfgs_its, illc, self.pp) = step(
+            self.state, self.data, self.grams, self.colnorms, self.rho_scale,
+            self.pp)
+        frm = self.nan
+        if self.miss:
+            self.data, frm = em_impute(self.spec, self.data, self.state)
+        for h, its in ((self.inner_hist, inner_its), (self.lb_hist, lbfgs_its)):
+            col = np.zeros((self.spec.nb_modes,), np.int32)
+            for m, v in its.items():
+                col[m] = v
+            h.append(col)
+        return self.evaluate(cached), frm, illc
+
+    def output(self, harr, frm, n_iter, stop, illc, times, t_total):
+        """The FitOutput of a run: harr the (n_iter + 1, 4) streams, frm the
+        (n_iter + 1,) EM changes.  After a pairwise-perturbation fit the
+        last entry is the exact objective (the cached one is approximate
+        while the approximation runs)."""
+        options, T = self.options, self.options.MaxOuterIters
+        if self.pp_ds:
+            harr[-1] = to_host(torch.stack(self.evaluate()))
+        f4 = tuple(float(v) for v in harr[-1])
+        if illc:
+            exit_flag = "illconditioned lin system"
+        elif n_iter >= T and not stop:
+            exit_flag = "maxIterations"
+        elif not all(np.isfinite(f4)):
+            exit_flag = "illconditioned lin system"
+        else:
+            exit_flag = {n: ("AbsFuncTol" if v < options.AbsFuncTol
+                             else "RelFuncTol") for n, v in zip(STREAMS, f4)}
+        out = FitOutput(
+            f_tensors=f4[0], f_couplings=f4[1], f_constraints=f4[2],
+            f_PAR2_couplings=f4[3],
+            f_rel_missing=float(frm[-1]) if self.miss else float("nan"),
+            exit_flag=exit_flag, OuterIterations=n_iter,
+            func_val_conv=harr[:, 0], func_coupl_conv=harr[:, 1],
+            func_constr_conv=harr[:, 2], func_PAR2_coupl=harr[:, 3],
+            func_rel_missing=np.asarray(frm) if self.miss else None,
+            innerIters=np.stack(self.inner_hist, axis=1),
+            time_total=t_total, time_at_it=np.asarray(times),
+            lbfgsb_iterations=(np.stack(self.lb_hist, axis=1)
+                               if self.spec.has_non_frobenius() else None))
+        return self.state, out
+
+
 def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
         options: AlgOptions, validate: bool = True):
     """Run AO-ADMM until the stopping rule holds or MaxOuterIters.  Returns
     (state, FitOutput).  Runs on the device and in the dtype of the data;
     sparse COO data on a CUDA card gets its kernel plans first, and dense
     3-way data on the card is made contiguous once (attach_sparse_plans).
-    Raises NotImplementedError where cp_pairwise_perturbation would take a
-    dataset (eligible_pp_datasets).  With validate, the data are checked
-    (check_data_input) and KL or IS data that do not suit the loss are
-    warned of (_warn_loss_data)."""
-    if validate:
-        check_data_input(spec, data)
-        _warn_loss_data(spec, data)
-    _check_ported(spec)
-    _check_devices(data, state)
-    data = attach_sparse_plans(spec, data, options)
-    if has_missing(data):
-        raise NotImplementedError(
-            "missing data (EM imputation) comes with slice 6 (ROADMAP.md)")
-    pp = eligible_pp_datasets(spec, data, options)
-    if pp:
-        raise NotImplementedError(
-            f"cp_pairwise_perturbation on datasets {list(pp)}: the "
-            "pairwise-perturbation MTTKRP comes with slice 7 (ROADMAP.md)")
-    apply_matmul_precision(options)
-    znorms = compute_znorm_consts(spec, data, options)
-    proxes, reg_fns = build_proxes(spec)
-    bk = _has_bk_constraint(spec)
-    steps = {active: make_outer_step(spec, options, proxes, reg_fns, active)
-             for active in ((False, True) if bk else (True,))}
-    start = options.iter_start_PAR2Bkconstraint
+    Missing entries are imputed after every sweep (em_impute) and the stop
+    also needs their relative change below OuterRelTol; eligible datasets
+    take the pairwise-perturbation MTTKRP where options.
+    cp_pairwise_perturbation is set (models/pairwise.py).  The stop is
+    decided on the device and read with the ill-conditioning flag, one read
+    an iteration.  With validate, the data are checked (check_data_input)
+    and KL or IS data that do not suit the loss are warned of
+    (_warn_loss_data)."""
+    run = _FitRun(spec, data, state, options, validate)
     T = options.MaxOuterIters
-
-    grams, colnorms = init_cache(spec, state)
-    rho_scale = tuple(torch.ones_like(c) for c in colnorms)
-    f4 = func_eval(spec, data, state, grams, znorms, reg_fns, cached=None,
-                   options=options)
-    hist = [torch.stack(f4)]
-    inner_hist = [np.zeros((spec.nb_modes,), np.int32)]
-    lb_hist = [np.zeros((spec.nb_modes,), np.int32)]
-    times = [0.0]
+    f4 = run.evaluate()
+    hist = [torch.stack(f4 + (run.nan,))]
     if options.Display in ("iter", "final"):
         print(" Iter  f total      f tensors      f couplings    "
               "f constraints    f PAR2 couplings")
         print("------ ------------ -------------  -------------- "
               "---------------- ----------------")
 
+    times = [0.0]
     t0 = time.perf_counter()
     it = 1
     stop = illc = False
     while it <= T and not stop:
-        outer_step = steps[(not bk) or it >= start]
-        (state, grams, colnorms, rho_scale, cached, inner_its, lbfgs_its,
-         illc_t) = outer_step(state, data, grams, colnorms, rho_scale)
-        f4_new = func_eval(spec, data, state, grams, znorms, reg_fns,
-                           cached=cached, options=options)
+        f4_new, frm, illc_t = run.iterate(it)
         f4_vec = torch.stack(f4_new)
-        stop_t = stopping(f4_new, f4, options) | ~torch.isfinite(
-            torch.sum(f4_vec)) | illc_t
+        stop_t = stopping(f4_new, f4, options)
+        if run.miss:
+            stop_t = stop_t & (frm < options.OuterRelTol)
+        stop_t = stop_t | ~torch.isfinite(torch.sum(f4_vec)) | illc_t
         stop, illc_now = to_host(torch.stack([stop_t, illc_t]))
         illc = illc or illc_now
-        hist.append(f4_vec)
-        for h, its in ((inner_hist, inner_its), (lb_hist, lbfgs_its)):
-            col = np.zeros((spec.nb_modes,), np.int32)
-            for m, v in its.items():
-                col[m] = v
-            h.append(col)
+        hist.append(torch.cat([f4_vec, frm[None]]))
         times.append(time.perf_counter() - t0)
         if options.Display == "iter" and it % options.DisplayIters == 0:
             v = to_host(f4_vec)
@@ -504,34 +602,52 @@ def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
                   f"{v[2]:12.8f} {v[3]:12.8f}")
         f4 = f4_new
         it += 1
-    n_iter = it - 1
     harr = torch.stack(hist).cpu().numpy()
-    t_total = time.perf_counter() - t0
-    f4 = tuple(float(v) for v in harr[-1])
-
-    if illc:
-        exit_flag = "illconditioned lin system"
-    elif n_iter >= T and not stop:
-        exit_flag = "maxIterations"
-    elif not all(np.isfinite(f4)):
-        exit_flag = "illconditioned lin system"
-    else:
-        exit_flag = {n: ("AbsFuncTol" if v < options.AbsFuncTol
-                         else "RelFuncTol") for n, v in zip(STREAMS, f4)}
-    out = FitOutput(
-        f_tensors=f4[0], f_couplings=f4[1], f_constraints=f4[2],
-        f_PAR2_couplings=f4[3], f_rel_missing=float("nan"),
-        exit_flag=exit_flag, OuterIterations=n_iter,
-        func_val_conv=harr[:, 0], func_coupl_conv=harr[:, 1],
-        func_constr_conv=harr[:, 2], func_PAR2_coupl=harr[:, 3],
-        func_rel_missing=None, innerIters=np.stack(inner_hist, axis=1),
-        time_total=t_total, time_at_it=np.asarray(times),
-        lbfgsb_iterations=(np.stack(lb_hist, axis=1)
-                           if spec.has_non_frobenius() else None))
+    state, out = run.output(harr[:, :4], harr[:, 4], it - 1, stop, illc,
+                            times, time.perf_counter() - t0)
     if options.Display in ("iter", "final"):
-        print(f"{n_iter:6d} {sum(f4):12.8f} {f4[0]:12.8f} {f4[1]:12.8f} "
-              f"{f4[2]:12.8f} {f4[3]:12.8f}")
+        f4 = (out.f_tensors, out.f_couplings, out.f_constraints,
+              out.f_PAR2_couplings)
+        print(f"{out.OuterIterations:6d} {sum(f4):12.8f} {f4[0]:12.8f} "
+              f"{f4[1]:12.8f} {f4[2]:12.8f} {f4[3]:12.8f}")
     return state, out
+
+
+def fit_stepwise(spec: ProblemSpec, data: ProblemData, state: SolverState,
+                 options: AlgOptions, validate: bool = True):
+    """fit() with the stop decided on the host (counterpart of the JAX
+    package's fit_stepwise): one outer sweep a call of the shared iteration,
+    then one device read of its streams, EM change and ill-conditioning
+    flag, and the stopping rule on those host floats (the JAX function's
+    rule, which in float32 may stop where fit's on-device rule does not).
+    Keeps the PARAFAC2 two-phase switch, EM imputation and the pairwise
+    perturbation; records true per-iteration wall times."""
+    run = _FitRun(spec, data, state, options, validate)
+    f4 = tuple(to_host(torch.stack(run.evaluate())))
+    hist, frm_hist, times = [f4], [float("nan")], [0.0]
+    t0 = time.perf_counter()
+    it = 1
+    stop = illc = False
+    while it <= options.MaxOuterIters and not stop:
+        f4_t, frm_t, illc_t = run.iterate(it)
+        vals = to_host(torch.cat([torch.stack(f4_t), frm_t[None],
+                                  illc_t[None].to(frm_t.dtype)]))
+        f4_new, frm = tuple(vals[:4]), vals[4]
+        stop = bool(stopping(*(torch.tensor(v, dtype=torch.float64)
+                               for v in (f4_new, f4)), options))
+        if run.miss:
+            stop = stop and frm < options.OuterRelTol
+        if not all(np.isfinite(f4_new)):
+            stop = True
+        if vals[5]:
+            illc = stop = True
+        hist.append(f4_new)
+        frm_hist.append(frm)
+        times.append(time.perf_counter() - t0)
+        f4 = f4_new
+        it += 1
+    return run.output(np.asarray(hist), np.asarray(frm_hist), it - 1, stop,
+                      illc, times, times[-1])
 
 
 def cmtf_aoadmm(spec: ProblemSpec, data: ProblemData, options: AlgOptions,

@@ -36,19 +36,28 @@ def _ridge_eye(spec: ProblemSpec, m: int, R: int, like: torch.Tensor
 
 def cp_mode_precompute(spec: ProblemSpec, data: ProblemData, state, grams,
                        p: int, m: int, options,
-                       partials: dict | None = None) -> ModePre:
+                       partials: dict | None = None,
+                       mttkrp_impl=None) -> ModePre:
     """CP / matrix mode precompute (cmtf_fun_AOADMM.m:96-127).
 
     partials: optional per-sweep dimension-tree cache (options.
     cp_dimension_tree).  For 3-way tensors T1 = X x_0 A is shared by the
     mode-1 and mode-2 MTTKRPs; it is reused only while the mode-0 factor is
-    the same tensor object (factors are never updated in place)."""
+    the same tensor object (factors are never updated in place).
+
+    mttkrp_impl: optional MTTKRP fn(X, factors) of this (dataset, mode)
+    that replaces the dispatch below for sparse and >= 3-way data (the
+    pairwise-perturbation MTTKRP, models/pairwise.pp_mttkrp)."""
     ds = spec.datasets[p]
     X = data.objects[p]
     w = ds.weight
     R = ds.rank
     local = ds.modes.index(m)
-    if isinstance(X, SparseTensor):
+    if mttkrp_impl is not None and (isinstance(X, SparseTensor)
+                                    or X.dim() >= 3):
+        A = w * mttkrp_impl(X, tuple(state.fac[j] for j in ds.modes))
+        C = hadamard_grams([grams[j] for j in ds.modes if j != m])
+    elif isinstance(X, SparseTensor):
         # before the dimension tree: a sparse dataset never touches partials
         A = w * mttkrp_sparse(X.indices, X.values,
                               [state.fac[j] for j in ds.modes], local,

@@ -218,14 +218,25 @@ def test_torch_unported_parts_raise_not_implemented():
     assert out.lbfgsb_iterations.shape == (4, out.OuterIterations + 1)
     assert out.lbfgsb_iterations[2:, 1].min() >= 1
     assert out.lbfgsb_iterations[:2].max() == 0   # the Frobenius modes
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tp.fit(tp.ProblemSpec(mode_sizes=(4, 5),
-                              datasets=(tp.DatasetSpec("CP", (0, 1), 2),)),
-               tp.ProblemData(objects=(X,), miss=(X > 0,)),
-               tp.SolverState.empty(2, 0, 1).replace(
-                   fac=(torch.ones((4, 2), dtype=torch.float64),
-                        torch.ones((5, 2), dtype=torch.float64))),
-               tp.AlgOptions(), validate=False)
+    # missing data, which raised until slice 6, now runs (EM imputation):
+    # a matrix with one entry missing
+    miss = torch.ones((4, 5), dtype=torch.bool)
+    miss[1, 2] = False
+    _, out = tp.fit(tp.ProblemSpec(mode_sizes=(4, 5),
+                                   datasets=(tp.DatasetSpec("CP", (0, 1), 2),)),
+                    tp.ProblemData(objects=(torch.rand(
+                        (4, 5), dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(2)),),
+                        miss=(miss,)),
+                    tp.SolverState.empty(2, 0, 1).replace(
+                        fac=(torch.rand((4, 2), dtype=torch.float64,
+                                        generator=torch.Generator().manual_seed(0)),
+                             torch.rand((5, 2), dtype=torch.float64,
+                                        generator=torch.Generator().manual_seed(1)))),
+                    tp.AlgOptions(MaxOuterIters=3, AbsFuncTol=0.0,
+                                  OuterRelTol=0.0), validate=False)
+    assert out.OuterIterations == 3 and np.isnan(out.func_rel_missing[0])
+    assert np.all(np.isfinite(out.func_rel_missing[1:]))
     with pytest.raises(NotImplementedError, match="bfloat16"):
         apply_matmul_precision(tp.AlgOptions(matmul_precision="bfloat16"))
 

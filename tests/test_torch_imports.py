@@ -31,6 +31,9 @@ PORT_MODULES = [
     "matlab_code_tpu_torch.ops.loss_cuda", "matlab_code_tpu_torch.ops.lbfgsb",
     "matlab_code_tpu_torch.models.lbfgs_bridge",
     "matlab_code_tpu_torch.utils.kl_workload",
+    "matlab_code_tpu_torch.models.pairwise",
+    "matlab_code_tpu_torch.utils.checkpoint",
+    "matlab_code_tpu_torch.utils.em_workload",
 ]
 
 

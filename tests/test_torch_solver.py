@@ -249,20 +249,31 @@ def test_torch_reference_seeded_replays(mod, noise_fms, monkeypatch):
 @pytest.mark.parametrize("layout", ["dense", "sparse"])
 def test_torch_fit_pairwise_perturbation_raises_where_eligible(layout):
     """cp_pairwise_perturbation on a 3-way CP dataset with Frobenius loss
-    (dense or COO): the JAX fit would switch it to the approximate pairwise
-    MTTKRP, which the port does not have yet, so the port raises instead of
-    running the exact trajectory."""
-    spec, data, state0 = _to_port(*_jax_problem("cp_nonneg_coupled"))
+    (dense or COO), which raised until the pairwise-perturbation MTTKRP
+    was ported: the dataset is eligible, and the port's fit follows the
+    JAX fit with the same flag (8 iterations, before the approximation
+    switches on, plus the exact final objective)."""
+    jspec, jdata, jstate0 = _jax_problem("cp_nonneg_coupled")
     if layout == "sparse":
-        objs = (tp.SparseTensor.from_dense(data.objects[0]),) + data.objects[1:]
-        data = tp.ProblemData(objects=objs, coupl_trafo=data.coupl_trafo,
-                              coupl_trafo2=data.coupl_trafo2)
-    from matlab_code_tpu_torch.models.solver import eligible_pp_datasets
-    opts = tp.AlgOptions(MaxOuterIters=2, cp_pairwise_perturbation=True)
-    assert eligible_pp_datasets(spec, data, opts) == (0,)
+        from matlab_code_tpu.problem import SparseTensor as JSparseTensor
+        import dataclasses
+        jdata = dataclasses.replace(jdata, objects=(
+            JSparseTensor.from_dense(np.asarray(jdata.objects[0])),)
+            + tuple(jdata.objects[1:]))
+    spec, data, state0 = _to_port(jspec, jdata, jstate0)
+    from matlab_code_tpu_torch.models.pairwise import eligible_pp_datasets
+    opts = AlgOptions(MaxOuterIters=8, AbsFuncTol=0.0, OuterRelTol=0.0,
+                      cp_pairwise_perturbation=True)
+    topts = options_from_reference(opts)
+    assert eligible_pp_datasets(spec, data, topts) == (0,)
     assert eligible_pp_datasets(spec, data, tp.AlgOptions()) == ()
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tfit(spec, data, state0, opts)
+    _, out_ref = fit(jspec, jdata, jstate0, opts)
+    _, out = tfit(spec, data, state0, topts)
+    for a, b in [(out.func_val_conv, out_ref.func_val_conv),
+                 (out.func_coupl_conv, out_ref.func_coupl_conv),
+                 (out.func_constr_conv, out_ref.func_constr_conv)]:
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-14)
+    np.testing.assert_array_equal(out.innerIters, out_ref.innerIters)
 
 
 def test_torch_fit_pairwise_perturbation_without_eligible_dataset():

@@ -76,13 +76,17 @@ exits non-zero:
      column, a warp 32 columns), and on a ragged stack of 64 slices through
      prox_slicewise_ragged (one lanes launch a call, padded rows zero), and
      kernel C (csrc/t_smooth.cu, the tPARAFAC2 prox; both routes: a tile
-     staged in shared memory, or r' streamed through the output) at (512,
-     256, 32) and K in {1, 2, 3}, against their plain versions (float64:
-     the same bits; float32 those rounded once, kernel C the same bits),
-     each timed after the L2 flush beside its bound: A and B's lanes route
-     against the block route (a block a column) in turns (lanes, block,
-     block, lanes), kernel C's routes in turns, and torch.linalg.solve of
-     kernel C's dense K x K system as its library call;
+     staged in shared memory, or r' streamed through the output; one warp
+     walks the recurrence beside the walkers) at (512, 256, 32) and K in
+     {1, 2, 3}, against their plain versions (float64: the same bits;
+     float32 those rounded once, kernel C the same bits, also on wide
+     operands: B across 2^+-60 with zeros and subnormals, rho in [1e-6,
+     1e6], eta 1e-3, 1 and 1e6), each timed after the L2 flush beside its
+     bound: A and B's lanes route against the block route (a block a
+     column) in turns (lanes, block, block, lanes), kernel C's routes in
+     turns in float32 and float64 with its recurrence alone (the floor),
+     and torch.linalg.solve of kernel C's dense K x K system as its
+     library call;
  12. the PAR2 K=512 workload (bench.py:235-263, utils/par2_workload.py:
      512 slices of 256 x 256, rank 32, non-negative A and C) through
      cmtf_aoadmm for 100 outer iterations in float32 (ms per iteration,
@@ -854,6 +858,84 @@ def slice_stack(K, n, R, seed):
     return X.astype(np.float32).astype(np.float64)
 
 
+C_WIDE_ETAS = (1e-3, 1.0, 1e6)   # kernel C's bit check on wide operands
+
+
+def t_smooth_operands(X, rho, dt, dev, wide, seed):
+    """Kernel C's (B, rho) on the card in dt: X and rho as they are, or wide
+    ones of X's shape: B across 2^-60..2^60 with zeros, negative zeros and
+    subnormals, rho in [1e-6, 1e6] (log-uniform)."""
+    import torch
+    if not wide:
+        return (torch.tensor(X, dtype=dt, device=dev),
+                torch.tensor(rho, dtype=dt, device=dev))
+    npdt = np.float64 if dt == torch.float64 else np.float32
+    rng = np.random.default_rng(seed)
+    B = (rng.standard_normal(X.shape)
+         * 2.0 ** rng.integers(-60, 61, X.shape)).astype(npdt)
+    u = rng.random(X.shape)
+    B[u < 0.05] = 0.0
+    B[(u >= 0.05) & (u < 0.08)] = -0.0
+    sub = (u >= 0.08) & (u < 0.11)
+    B[sub] = (np.finfo(npdt).smallest_subnormal
+              * rng.integers(1, 1000, int(sub.sum()))).astype(npdt)
+    r = (10.0 ** rng.uniform(-6.0, 6.0, X.shape[0])).astype(npdt)
+    return torch.tensor(B, device=dev), torch.tensor(r, device=dev)
+
+
+def same_bits(a, b):
+    """a and b hold the same bits (a negative zero is not a zero)."""
+    import torch
+    iv = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.cpu().view(iv), b.cpu().view(iv))
+
+
+def t_smooth_times(prox_cuda, X, rho, eta, flush, power):
+    """Kernel C at X's shape in float32 and float64: the planned route
+    (t_smooth_cols) and the other one in turns (other, planned, planned,
+    other), and the recurrence warps alone on the staged route's grid (the
+    bit-exact floor: K dependent steps of an IEEE division, a multiply and
+    a subtract), ms."""
+    import torch
+    from matlab_code_tpu_torch.ops.mttkrp_cuda import _sms
+    from matlab_code_tpu_torch.utils.time_prox_seq import phase_stamps
+    K = X.shape[0]
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        Xd, rd = X.to(dt), rho.to(dt)
+        planned = prox_cuda.plan_t_smooth(K, Xd[0].numel(), dt,
+                                          _sms(Xd.device))[0]
+        other = (prox_cuda.STREAM if planned == prox_cuda.STAGED
+                 else prox_cuda.STAGED)
+        kernel = functools.partial(prox_cuda.t_smooth_cols, Xd, rd, eta)
+        alt = functools.partial(prox_cuda._t_smooth, Xd, rd, eta, other)
+        t_a1 = time_ms(alt, flush)
+        t_k = (time_ms(kernel, flush) + time_ms(kernel, flush)) / 2
+        t_a = (t_a1 + time_ms(alt, flush)) / 2
+        dbg = torch.zeros(4 * K, dtype=dt, device=Xd.device)
+        floor = time_ms(functools.partial(
+            prox_cuda._t_smooth_phase, prox_cuda.PHASE_RECURRENCE, Xd, rd, eta,
+            dbg, torch.empty_like(Xd)), flush)
+        # one staged launch with the kernel's clock stamps: the SM clock the
+        # card ran this kernel at (latency-bound, its time scales with it),
+        # and the medians over blocks of its spans
+        spans = phase_stamps(prox_cuda, prox_cuda.PHASE_ALL, Xd, rd, dbg,
+                             torch.empty_like(Xd))
+        name = str(dt).split(".")[-1]
+        out[name] = {"route": planned, "ms": t_k, f"{planned}_ms": t_k,
+                     f"{other}_ms": t_a, "floor_ms": floor,
+                     "staged_stamps_us": spans}
+        print(f"  kernel C {tuple(X.shape)} {name}: {planned} route (planned) "
+              f"{t_k * 1e3:.1f} us, {other} route {t_a * 1e3:.1f} us (in "
+              f"turns); the recurrence alone (the floor) {floor * 1e3:.1f} us, "
+              f"{floor / t_k:.0%} of the planned route; the staged route's "
+              f"stamps: SM clock {spans['clock_ghz']:.2f} GHz, recurrence "
+              f"{spans['recurrence']:.2f} us, back substitution "
+              f"{spans['back substitution']:.2f} us, first block start to "
+              f"last end {spans['first start to last end']:.2f} us  [{power}]")
+    return out
+
+
 def fit_times(out):
     """(median, p90) ms of the outer iterations of a fit."""
     dts = np.diff(out.time_at_it) * 1e3
@@ -975,19 +1057,28 @@ def par2_phases(dev, power):
                 err["B"] = max(err["B"], e)
         rho = np.random.default_rng(K).uniform(0.2, 3.0, K)
         for dt in (torch.float64, torch.float32):
-            Bd = torch.tensor(X, dtype=dt, device=dev)
-            rd = torch.tensor(rho, dtype=dt, device=dev)
-            tc = time.perf_counter()
-            want = prox.t_smoothness_reference(Bd.cpu(), rd.cpu(), 1000.0)
-            if full and dt == torch.float32:
-                plain_ms["C"] = (time.perf_counter() - tc) * 1e3
-            got = t_smooth_cols(Bd, rd, 1000.0)
-            stream = prox_cuda._t_smooth(Bd, rd, 1000.0, prox_cuda.STREAM)
-            torch.cuda.synchronize()
-            if not (torch.equal(got.cpu(), want) and torch.equal(stream, got)):
-                raise RuntimeError(f"kernel C {shape} {dt}: a route gives other "
-                                   "bits than the plain version")
-            err["C"] = max(err["C"], float((got.cpu() - want).abs().max()))
+            for wide, etas in ((False, (1000.0,)), (True, C_WIDE_ETAS)):
+                Bd, rd = t_smooth_operands(X, rho, dt, dev, wide, K + n)
+                for eta in etas:
+                    tc = time.perf_counter()
+                    want = prox.t_smoothness_reference(Bd.cpu(), rd.cpu(), eta)
+                    if full and dt == torch.float32 and not wide:
+                        plain_ms["C"] = (time.perf_counter() - tc) * 1e3
+                    got = t_smooth_cols(Bd, rd, eta)
+                    routes = [prox_cuda._t_smooth(Bd, rd, eta, prox_cuda.STREAM)]
+                    if prox_cuda.t_smooth_smem(prox_cuda.STAGED, K, dt) \
+                            <= prox_cuda.SMEM_LIMIT:
+                        routes.append(prox_cuda._t_smooth(Bd, rd, eta,
+                                                          prox_cuda.STAGED))
+                    torch.cuda.synchronize()
+                    if not all(same_bits(r, want) for r in [got] + routes):
+                        raise RuntimeError(
+                            f"kernel C {shape} {dt} eta {eta} (wide operands "
+                            f"{wide}): a route gives other bits than the plain "
+                            "version")
+                    if not wide:
+                        err["C"] = max(err["C"],
+                                       float((got.cpu() - want).abs().max()))
         checked.append(shape)
     # a ragged stack: one lanes launch a call, padded rows exactly zero, the
     # bits of the CPU's size buckets
@@ -1014,7 +1105,9 @@ def par2_phases(dev, power):
     print(f"kernels A, B and C (both routes) held to their plain versions on "
           f"stacks {checked} (A and B on their planned route and on the lanes "
           f"route, {lanes_checked} cases: float64 the same bits, float32 those "
-          f"rounded once; C the same bits in both dtypes) and kernels A and B "
+          f"rounded once; C the same bits in both dtypes, on normal draws at eta "
+          f"1000 and on wide ones at eta {C_WIDE_ETAS}: B across 2^+-60 with "
+          f"zeros and subnormals, rho in [1e-6, 1e6]) and kernels A and B "
           f"on 64 ragged slices of {len(set(sizes))} sizes (one lanes launch "
           f"a call, padded rows zero, the bits of the CPU's size buckets); "
           f"float32 max abs diff A {err['A']:.3e}, B {err['B']:.3e}, C "
@@ -1034,17 +1127,12 @@ def par2_phases(dev, power):
             ("B", lambda: prox_tv_cols(X, lam_d), n),
             ("C", lambda: t_smooth_cols(X, rho_d, 1000.0), 2 * K)):
         if name == "C":
-            # the two routes in turns: stream, staged, staged, stream
-            stream = functools.partial(prox_cuda._t_smooth, X, rho_d, 1000.0,
-                                       prox_cuda.STREAM)
-            if prox_cuda.plan_t_smooth(K, n * R, X.dtype)[0] != prox_cuda.STAGED:
-                raise RuntimeError("kernel C: the PAR2 shape is not staged")
-            t_s1 = time_ms(stream, flush)
-            t_k = (time_ms(fn, flush) + time_ms(fn, flush)) / 2
-            t_stream = (t_s1 + time_ms(stream, flush)) / 2
-            print(f"  kernel C, stream route (the first design): "
-                  f"{t_stream * 1e3:.1f} us; staged route {t_k * 1e3:.1f} us: "
-                  f"{t_stream / t_k:.2f}x  [{power}]")
+            c_times = t_smooth_times(prox_cuda, X, rho_d, 1000.0, flush, power)
+            if c_times["float32"]["route"] != prox_cuda.STAGED:
+                raise RuntimeError("kernel C: the PAR2 shape is not staged in "
+                                   "float32")
+            t_k = c_times["float32"]["ms"]
+            t_stream = c_times["float32"]["stream_ms"]
         else:
             # the lanes route (planned) against the block route in turns:
             # lanes, block, block, lanes
@@ -1264,7 +1352,9 @@ def par2_phases(dev, power):
                   "launches": total["C"], "max_abs_err": err["C"], "ms": t_k,
                   "plain_ms": plain_ms["C"], "bound_ms": t_b, "bound_by": by,
                   "library_ms": t_lib_c, "kernel_routes": c_routes,
-                  "stream_route_ms": t_stream}}
+                  "stream_route_ms": t_stream,
+                  "recurrence_floor_ms": c_times["float32"]["floor_ms"],
+                  "float64": c_times["float64"]}}
 
 
 def stream_variant(plan, shape, R, sms, stages=None, stage_rows=None,

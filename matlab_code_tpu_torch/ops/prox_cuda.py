@@ -29,10 +29,17 @@ count K R and the dtype before the launch (plan_isotonic, plan_tv):
             padded slices), in one launch.
 
 Kernel C takes a contiguous (K, J, R) stack and rho (K,) on the card and
-computes in the stack's dtype, in the plain version's order
+computes in the stack's dtype, the plain version's bits
 (ops/prox.t_smoothness_reference), on one of two routes chosen before the
 launch (plan_t_smooth): "staged", a tile of elements over all K slices in
-shared memory, or "stream", for longer K, r' kept in the output.
+shared memory, or "stream", for longer K and where the staged grid would
+take a second wave, r' kept in the output.  On both one warp of a block
+walks the scalar recurrence and publishes it in chunks of 32 steps while
+the walkers follow, and the back substitution divides through the
+reciprocal of d'_k with two fma corrections (csrc/t_smooth.cu).
+_t_smooth_phase and _t_smooth_div run the source's test-only entries: the
+staged route's phases alone, and the division step beside the full
+division.
 
 A build or launch error raises on every route; nothing falls back to the
 plain version.  Each launch is counted in the wrapper's `launches` and in
@@ -50,7 +57,8 @@ _LIB_C = None
 KERNEL_DTYPES = (torch.float32, torch.float64)
 SHARED, GLOBAL, LANES = "shared", "global", "lanes"
 STAGED, STREAM = "staged", "stream"     # kernel C's routes
-T_TILE = 32              # kernel C's staged route: elements a block (kTile)
+T_TILE = 32              # kernel C's staged route: elements a block
+T_CHUNK = 32             # kernel C: recurrence steps a published chunk (kChunk)
 THREADS = 256            # threads a block (kThreads)
 LANE_COLS = 32           # columns a warp of the lanes route (kLanes)
 # The lanes route from this many columns (K R) on.  A warp of the lanes
@@ -90,8 +98,13 @@ def _lib_c():
         from matlab_code_tpu_torch.ops._build import load_library
         lib = load_library("t_smooth", ["t_smooth.cu"])
         p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        lib.t_smooth_run.argtypes = [i, i, p, p, p, i, l, ctypes.c_double, l, p]
-        lib.t_smooth_run.restype = i
+        d = ctypes.c_double
+        lib.t_smooth_run.argtypes = [i, i, p, p, p, i, l, d, l, p]
+        lib.t_smooth_phase_run.argtypes = [i, i, p, p, p, p, p, i, l, d, l, p]
+        lib.t_smooth_div_run.argtypes = [i, p, p, p, p, l, p]
+        for f in (lib.t_smooth_run, lib.t_smooth_phase_run,
+                  lib.t_smooth_div_run):
+            f.restype = i
         _LIB_C = lib
     return _LIB_C
 
@@ -147,23 +160,55 @@ def workspace_stride(state_bytes: int) -> int:
     return -(-state_bytes // 128) * 128
 
 
-def plan_t_smooth(K: int, E: int, dtype: torch.dtype) -> tuple[str, int]:
-    """(route, bytes of shared memory a block) of kernel C on K slices of E
-    elements: the "staged" route (a tile of T_TILE elements over all K
-    slices in shared memory with the recurrence's d'_k and m_k, (2 +
-    T_TILE) K values) while that fits a block, else the "stream" route
-    (the recurrence only, 2 K values; r' kept in the output); ValueError
-    past even that (K > 14464 in float64, 28928 in float32)."""
+def t_smooth_smem(route: str, K: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory a block of kernel C's `route` takes on K
+    slices: on the staged route two one-shot mbarriers (the staging's and
+    the recurrence's) a published chunk of the recurrence, {rho_k, m_k,
+    d'_k, y_k} a slice and the tile of T_TILE elements a slice; on the
+    stream route d'_k and m_k (y_k after the forward walk) a slice, its
+    count of published chunks being a static 4 bytes."""
     item = _itemsize(dtype)
+    if route == STAGED:
+        return 16 * -(-K // T_CHUNK) + (4 + T_TILE) * K * item
+    return 2 * K * item
+
+
+# shared memory of an SM that its blocks share, and what each block costs
+# beyond its own (Hopper: 228 KB; 1 KB a block is the system's)
+SMEM_SM = 233472
+SMEM_BLOCK_RESERVED = 1024
+
+
+def plan_t_smooth(K: int, E: int, dtype: torch.dtype, sms: int = 132
+                  ) -> tuple[str, int]:
+    """(route, bytes of shared memory a block) of kernel C on K slices of E
+    elements on a card of `sms` SMs (t_smooth_smem).  The "staged" route
+    while its (4 + T_TILE) K values and chunk barriers fit a block (K <=
+    1601 in float32, 802 in float64) and its ceil(E / T_TILE) blocks run
+    in one wave (as many as the SMs' shared memory holds at once: each
+    wave walks the whole recurrence again); else the "stream" route (2 K
+    values a block; r' kept in the output), which holds 64 elements a
+    block in a few KB.  ValueError past even that (K > 14464 in float64,
+    28928 in float32).  At the PAR2 shape (512, 256, 32) float32 stages
+    (256 blocks of 74 KB, three an SM) and float64 streams (256 blocks of
+    148 KB would take two waves).  The one-wave rule as measured in turns
+    on an H100 80GB HBM3 at 700 W (utils/time_prox_seq.py --c-stacks):
+    float64 at (512, 256, 32) 121.3 us staged in two waves, 77.6 streamed;
+    float32 at (512, 512, 32), 512 blocks past a wave's 396, 76.7 us
+    staged, 70.8 streamed; float32 at the PAR2 shape 39.6 staged, 55.9
+    streamed."""
+    _itemsize(dtype)
     if K < 1 or E < 1:
         raise ValueError(f"kernel C takes K, J R >= 1, got ({K}, {E})")
-    staged = (2 + T_TILE) * K * item
-    if staged <= SMEM_LIMIT:
+    staged = t_smooth_smem(STAGED, K, dtype)
+    per_sm = SMEM_SM // (staged + SMEM_BLOCK_RESERVED)
+    if staged <= SMEM_LIMIT and -(-E // T_TILE) <= sms * per_sm:
         return STAGED, staged
-    if 2 * K * item > SMEM_LIMIT:
+    stream = t_smooth_smem(STREAM, K, dtype)
+    if stream > SMEM_LIMIT:
         raise ValueError(f"kernel C keeps 2 K values in shared memory: K = {K} "
-                         f"needs {2 * K * item} bytes, a block has {SMEM_LIMIT}")
-    return STREAM, 2 * K * item
+                         f"needs {stream} bytes, a block has {SMEM_LIMIT}")
+    return STREAM, stream
 
 
 def _check(X: torch.Tensor, name: str, dims=(2, 3)) -> None:
@@ -354,21 +399,17 @@ def t_smooth_cols(Bs: torch.Tensor, rho, eta: float) -> torch.Tensor:
 def _t_smooth(Bs: torch.Tensor, rho, eta: float,
               route: str | None = None) -> torch.Tensor:
     """Kernel C on plan_t_smooth's route, or on `route` (STREAM at any K:
-    the card tests and chip_smoke.py's timing of the two routes)."""
+    the card tests and the timing of the two routes)."""
     K = Bs.shape[0]
     E = Bs.numel() // K if K else 0
     out = torch.empty_like(Bs)
     if Bs.numel() == 0:
         return out
-    planned, smem = plan_t_smooth(K, E, Bs.dtype)
-    route = route or planned
-    if route == STREAM:
-        smem = 2 * K * _itemsize(Bs.dtype)
-    rho_t = torch.as_tensor(rho).to(device=Bs.device, dtype=Bs.dtype).reshape(-1)
-    if rho_t.numel() != K:
-        raise ValueError(f"t_smooth_cols: {rho_t.numel()} rho values for {K} "
-                         "slices")
-    rho_t = rho_t.contiguous()
+    if route is None:
+        from matlab_code_tpu_torch.ops.mttkrp_cuda import _sms
+        route = plan_t_smooth(K, E, Bs.dtype, _sms(Bs.device))[0]
+    smem = t_smooth_smem(route, K, Bs.dtype)
+    rho_t = _rho_on(rho, Bs)
     err = _lib_c().t_smooth_run(int(Bs.dtype == torch.float64),
                                 int(route == STAGED), Bs.data_ptr(),
                                 rho_t.data_ptr(), out.data_ptr(), K, E,
@@ -380,6 +421,74 @@ def _t_smooth(Bs: torch.Tensor, rho, eta: float,
     t_smooth_cols.launches += 1
     t_smooth_cols.route_launches[route] += 1
     return out
+
+
+def _rho_on(rho, Bs: torch.Tensor) -> torch.Tensor:
+    rho_t = torch.as_tensor(rho).to(device=Bs.device, dtype=Bs.dtype).reshape(-1)
+    if rho_t.numel() != Bs.shape[0]:
+        raise ValueError(f"t_smooth_cols: {rho_t.numel()} rho values for "
+                         f"{Bs.shape[0]} slices")
+    return rho_t.contiguous()
+
+
+PHASE_ALL, PHASE_RECURRENCE, PHASE_STAGING, PHASE_WALK = 0, 1, 2, 3
+# the stamps of a block (kStamps in csrc/t_smooth.cu): SM clocks at the
+# start, the recurrence's end, the staging's end, the forward walk's end and
+# the back substitution's end, then the global timer (ns) at the start and
+# at the back substitution's end
+T_STAMPS = 8
+
+
+def _t_smooth_phase(mode: int, Bs: torch.Tensor, rho, eta: float,
+                    dbg: torch.Tensor | None, out: torch.Tensor,
+                    stamps: torch.Tensor | None = None) -> None:
+    """Kernel C's staged route, whole or one phase alone, on its own grid
+    (the phase breakdown of utils/time_prox_seq.py --phases and
+    chip_smoke.py phase 11): PHASE_ALL the whole kernel (out: the prox),
+    PHASE_RECURRENCE the recurrence warps alone (block 0 writes {rho_k,
+    m_k, d'_k, 0} to dbg, 4 K values of Bs's dtype; y_k is the walkers'),
+    PHASE_STAGING the staging of the tiles alone, PHASE_WALK the staging
+    and the walks with dbg's recurrence published at once (out: the
+    prox).  stamps: an int64 CUDA tensor of T_STAMPS values a block, or
+    None.  Not counted in t_smooth_cols.launches."""
+    _check(Bs, "_t_smooth_phase", dims=(3,))
+    K = Bs.shape[0]
+    E = Bs.numel() // K
+    if (dbg is None and mode != PHASE_ALL) or (dbg is not None and (
+            dbg.dtype != Bs.dtype or dbg.numel() < 4 * K or not dbg.is_cuda)) \
+            or out.shape != Bs.shape or out.dtype != Bs.dtype:
+        raise ValueError("_t_smooth_phase: dbg takes 4 K values and out Bs's "
+                         "shape, both in Bs's dtype on the card")
+    if stamps is not None and (stamps.dtype != torch.int64 or not stamps.is_cuda
+                               or stamps.numel() < T_STAMPS * -(-E // T_TILE)):
+        raise ValueError("_t_smooth_phase: stamps takes T_STAMPS int64 a block")
+    err = _lib_c().t_smooth_phase_run(
+        mode, int(Bs.dtype == torch.float64), Bs.data_ptr(),
+        _rho_on(rho, Bs).data_ptr(), out.data_ptr(),
+        None if dbg is None else dbg.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), K, E, float(eta),
+        t_smooth_smem(STAGED, K, Bs.dtype), _stream(Bs))
+    if err != 0:
+        raise RuntimeError(f"_t_smooth_phase {mode} launch failed: cudaError {err}")
+
+
+def _t_smooth_div(n: torch.Tensor, d: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel C's back-substitution division step on the pairs (n, d) of
+    two contiguous CUDA vectors of one dtype: (the step as the kernel takes
+    it, from d's correctly rounded reciprocal, and the full IEEE division
+    __fdiv_rn / __ddiv_rn), for the card test that holds them bit-equal."""
+    _check(n, "_t_smooth_div", dims=(1,))
+    if d.shape != n.shape or d.dtype != n.dtype or not d.is_cuda \
+            or not d.is_contiguous():
+        raise ValueError("_t_smooth_div: n and d take one shape and dtype")
+    q, ref = torch.empty_like(n), torch.empty_like(n)
+    err = _lib_c().t_smooth_div_run(int(n.dtype == torch.float64),
+                                    n.data_ptr(), d.data_ptr(), q.data_ptr(),
+                                    ref.data_ptr(), n.numel(), _stream(n))
+    if err != 0:
+        raise RuntimeError(f"_t_smooth_div launch failed: cudaError {err}")
+    return q, ref
 
 
 t_smooth_cols.launches = 0

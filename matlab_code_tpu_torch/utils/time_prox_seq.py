@@ -1,10 +1,12 @@
 """Time the sequential-prox kernels (ops/prox_cuda: kernel A,
-project_isotonic_cols; kernel B, prox_tv_cols) through their public
-wrappers, on the route each checkout's own plan takes, the L2 flushed
+project_isotonic_cols; kernel B, prox_tv_cols; kernel C, t_smooth_cols)
+through their wrappers, on the route each checkout's own plan takes (and
+kernel C on both), the L2 flushed
 before each run, on one CUDA card.  It serves to compare two checkouts in
 one call, in turns (A, B, B, A):
 
     python3 matlab_code_tpu_torch/utils/time_prox_seq.py [--root DIR] [--label NAME]
+        [--kernels A,B,C] [--c-stacks 512x256x32,...] [--phases]
 
 Each (n, R) is timed in float32 on two kinds of column: "normal" (standard
 normal draws) and "smooth" (a unimodal bump plus noise of 0.05, what a
@@ -27,6 +29,18 @@ median ms an outer iteration of a 20-iteration float32 fit of each
 through cmtf_aoadmm, host included (what the prox calls cost end to end;
 the iteration is host-bound, so compare checkouts only in one call).
 
+--kernels (default A,B,C) names the kernels timed.  Kernel C
+(t_smooth_cols, the tPARAFAC2 prox at eta 1000, rho in [0.5, 1.5)) is
+timed at the PAR2 stack (512, 256, 32), or at each K x J x R of
+--c-stacks, in float32 and float64 on both of its routes, through the
+checkout's private _t_smooth(X, rho, eta, route).
+--phases (this checkout's kernel C only): the staged route's phases alone
+on its own grid (the recurrence warps alone, the bit-exact floor; the
+staging alone; the staging and the walks with the recurrence already
+published) beside the whole kernel, the medians over blocks of the
+kernel's clock stamps (each phase's span inside a launch, and the SM
+clock), in both dtypes.
+
 --root is the checkout whose matlab_code_tpu_torch is timed (by default
 the one this file is in); its kernels build into that checkout.  Prints a
 line a case (µs, ns a row) and one JSON line: the label, the card's name
@@ -36,6 +50,7 @@ n, R, column, lam).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -46,6 +61,7 @@ RAGGED = (512, (192, 256), 32)      # K, J_k range, R
 COLUMNS = ("normal", "smooth")
 TV_LAMS = (1e-3, 1.0)
 CROSS_KS = (1, 2, 4, 8, 16, 24, 33, 48, 66, 99, 132)
+T_SMOOTH_ETA = 1000.0
 
 
 def columns(kind: str, n: int, R: int, seed: int = 3, K: int = 0):
@@ -82,7 +98,11 @@ def main() -> None:
     ap.add_argument("--crossover", action="store_true")
     ap.add_argument("--candidates", action="store_true")
     ap.add_argument("--fit", default="")
+    ap.add_argument("--kernels", default="A,B,C")
+    ap.add_argument("--c-stacks", default="x".join(map(str, STACKS[0])))
+    ap.add_argument("--phases", action="store_true")
     args = ap.parse_args()
+    kernels = set(args.kernels.split(","))
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     # the timer beside this file: --root may be a checkout that has none
@@ -106,16 +126,17 @@ def main() -> None:
         print(f"{args.label} kernel {key}: {t * 1e3:.1f} us "
               f"({t / n * 1e6:.1f} ns a row)", flush=True)
 
-    for shape in SHAPES + STACKS:
+    for shape in (SHAPES + STACKS) if kernels & {"A", "B"} else ():
         n = shape[-2]
         K = shape[0] if len(shape) == 3 else 0
         name = "x".join(map(str, shape))
         for col in COLUMNS:
             X = torch.tensor(columns(col, n, shape[-1], K=K),
                              dtype=torch.float32, device=dev)
-            run(f"A {name} {col}",
-                lambda: prox_cuda.project_isotonic_cols(X, 2, True), n)
-            for lam in TV_LAMS:
+            if "A" in kernels:
+                run(f"A {name} {col}",
+                    lambda: prox_cuda.project_isotonic_cols(X, 2, True), n)
+            for lam in TV_LAMS if "B" in kernels else ():
                 lam_d = torch.tensor(lam, dtype=torch.float64, device=dev)
                 run(f"B {name} {col} lam {lam}",
                     lambda lam_d=lam_d: prox_cuda.prox_tv_cols(X, lam_d), n)
@@ -135,9 +156,15 @@ def main() -> None:
     for label, spec in (("A", prox.ConstraintSpec("unimodality", (True,))),
                         ("B", prox.ConstraintSpec("TV regularization",
                                                   (1e-3,)))):
+        if label not in kernels:
+            continue
         pf, _ = prox.make_prox(spec, hi)
         run(f"{label} ragged {K}x{lo}-{hi}x{R} normal ({len(set(sizes))} sizes)",
             lambda pf=pf: prox_slicewise_ragged(pf, Xr, rho, sizes), hi)
+    if "C" in kernels:
+        t_smooth(prox_cuda, dev, flush, args, times)
+    if args.phases:
+        t_smooth_phases(prox_cuda, dev, flush, args, times)
     if args.fit:
         fits(args, times)
     if args.crossover:
@@ -146,6 +173,110 @@ def main() -> None:
         candidates(prox_cuda, dev, flush, args, times)
     print(json.dumps({"label": args.label, "root": root,
                       "power": power_line(), "ms": times}))
+
+
+def t_smooth_inputs(dev, dtype, shape=STACKS[0]):
+    """A (K, n, R) stack of normal draws (the PAR2 stack by default) and
+    rho in [0.5, 1.5) in dtype."""
+    import torch
+    K, n, R = shape
+    X = torch.tensor(columns("normal", n, R, K=K), dtype=dtype, device=dev)
+    rho = torch.rand(K, generator=torch.Generator(device=dev).manual_seed(2),
+                     device=dev, dtype=dtype) + 0.5
+    return X, rho
+
+
+def t_smooth(prox_cuda, dev, flush, args, times):
+    """Kernel C at each of --c-stacks on both routes in turns (staged,
+    stream, stream, staged), float32 and float64."""
+    import torch
+    for name, dtype in ((n, d) for n in args.c_stacks.split(",")
+                        for d in (torch.float32, torch.float64)):
+        shape = tuple(int(v) for v in name.split("x"))
+        X, rho = t_smooth_inputs(dev, dtype, shape)
+        dt = str(dtype).split(".")[-1]
+        planned = prox_cuda.plan_t_smooth(X.shape[0], X[0].numel(), dtype)[0]
+        ts = in_turns(*(functools.partial(prox_cuda._t_smooth, X, rho,
+                                          T_SMOOTH_ETA, route)
+                        for route in (prox_cuda.STAGED, prox_cuda.STREAM)),
+                      flush, args.runs, args.warmup)
+        for route, t in zip((prox_cuda.STAGED, prox_cuda.STREAM), ts):
+            times[f"C {name} {dt} {route}"] = t
+            print(f"{args.label} kernel C {name} {dt} {route} route"
+                  f"{' (planned)' if route == planned else ''}: "
+                  f"{t * 1e3:.1f} us", flush=True)
+
+
+def t_smooth_phases(prox_cuda, dev, flush, args, times):
+    """Kernel C's staged route phase by phase on its own grid, float32 and
+    float64."""
+    import torch
+    from timing import time_ms
+    K = STACKS[0][0]
+    for dtype in (torch.float32, torch.float64):
+        X, rho = t_smooth_inputs(dev, dtype)
+        dt = str(dtype).split(".")[-1]
+        dbg = torch.zeros(4 * K, dtype=dtype, device=dev)
+        out = torch.empty_like(X)
+        full = prox_cuda._t_smooth(X, rho, T_SMOOTH_ETA, prox_cuda.STAGED)
+        for label, mode in (("recurrence alone", prox_cuda.PHASE_RECURRENCE),
+                            ("staging alone", prox_cuda.PHASE_STAGING),
+                            ("walk, recurrence published",
+                             prox_cuda.PHASE_WALK)):
+            fn = functools.partial(prox_cuda._t_smooth_phase, mode, X, rho,
+                                   T_SMOOTH_ETA, dbg, out)
+            t = time_ms(fn, flush, args.runs, args.warmup)
+            times[f"C phase {dt} {label}"] = t
+            print(f"{args.label} kernel C phase {dt}: {label} {t * 1e3:.1f} us",
+                  flush=True)
+        if not torch.equal(out, full):
+            raise SystemExit("kernel C: the walk phase gives other bits")
+        for label, mode in (("whole kernel", prox_cuda.PHASE_ALL),
+                            ("walk, recurrence published",
+                             prox_cuda.PHASE_WALK)):
+            spans = phase_stamps(prox_cuda, mode, X, rho, dbg, out)
+            times[f"C stamps {dt} {label}"] = spans
+            print(f"{args.label} kernel C stamps {dt} {label} (median over "
+                  f"blocks, us at the clock the stamps give, "
+                  f"{spans['clock_ghz']:.2f} GHz): "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in spans.items()
+                              if k != "clock_ghz"), flush=True)
+        t_all = time_ms(functools.partial(prox_cuda._t_smooth, X, rho,
+                                          T_SMOOTH_ETA, prox_cuda.STAGED),
+                        flush, args.runs, args.warmup)
+        times[f"C phase {dt} whole kernel"] = t_all
+        print(f"{args.label} kernel C phase {dt}: whole kernel {t_all * 1e3:.1f} us",
+              flush=True)
+
+
+def phase_stamps(prox_cuda, mode, X, rho, dbg, out):
+    """The median over blocks of each span of one staged launch of kernel C
+    at eta T_SMOOTH_ETA (after a warm-up run), from the kernel's clock
+    stamps: the recurrence, the staging of the block's copies, the forward
+    walk and the back substitution, in us at the SM clock the block's
+    global-timer stamps give (clock_ghz), and the spread of the blocks'
+    starts and the first start to the last end (global timer, us).  Also
+    chip_smoke.py phase 11's."""
+    import numpy as np
+    import torch
+    blocks = -(-X[0].numel() // prox_cuda.T_TILE)
+    st = torch.zeros((blocks, prox_cuda.T_STAMPS), dtype=torch.int64,
+                     device=X.device)
+    for _ in range(2):
+        prox_cuda._t_smooth_phase(mode, X, rho, T_SMOOTH_ETA, dbg, out,
+                                  stamps=st)
+    torch.cuda.synchronize()
+    s = st.cpu().numpy().astype(np.float64)
+    ghz = float(np.median((s[:, 4] - s[:, 0]) / (s[:, 6] - s[:, 5])))
+    span = {"clock_ghz": ghz}
+    span["block start spread"] = float(s[:, 5].max() - s[:, 5].min()) / 1e3
+    span["first start to last end"] = float(s[:, 6].max() - s[:, 5].min()) / 1e3
+    for name, a, b in (("recurrence", 0, 1), ("staging", 0, 2),
+                       ("start to forward end", 0, 3),
+                       ("back substitution", 3, 4), ("whole block", 0, 4)):
+        d = s[:, b] - s[:, a]
+        span[name] = float(np.median(d)) / ghz / 1e3 if (d > 0).all() else 0.0
+    return span
 
 
 def fits(args, times):

@@ -236,20 +236,41 @@ def test_torch_parafac2_tensor_from_list_defaults_to_the_card():
 
 
 def test_torch_t_smooth_plan_and_cpu_dispatch():
-    """Kernel C's plan: the staged route ((2 + T_TILE) K values of shared
-    memory a block) while it fits, the stream route (2 K values) after,
-    ValueError past a block's limit; the wrappers refuse CPU tensors (a CPU
-    tensor takes the plain version in ops/prox.t_smoothness_prox)."""
+    """Kernel C's plan: the staged route (two mbarriers a chunk of 32
+    recurrence steps, {rho, m, d', y} and a tile of T_TILE elements a
+    slice: 16 ceil(K / 32) + (4 + T_TILE) K itemsize bytes a block) while
+    it fits and its grid runs in one wave on the card's SMs (by their 228
+    KB of shared memory), the stream route (d' and m a slice, 2 K values)
+    after, ValueError past a block's limit; the wrappers refuse
+    CPU tensors (a CPU tensor takes the plain version in
+    ops/prox.t_smoothness_prox)."""
     from matlab_code_tpu_torch.ops import prox_cuda
     S, T = prox_cuda.STAGED, prox_cuda.STREAM
-    assert prox_cuda.plan_t_smooth(512, 8192, torch.float32) == (S, 34 * 512 * 4)
-    assert prox_cuda.plan_t_smooth(1701, 7, torch.float32)[0] == S
-    assert prox_cuda.plan_t_smooth(1702, 7, torch.float32)[0] == T
-    assert prox_cuda.plan_t_smooth(850, 7, torch.float64)[0] == S
-    assert prox_cuda.plan_t_smooth(851, 7, torch.float64) == (T, 2 * 851 * 8)
+    assert prox_cuda.T_TILE == 32 and prox_cuda.T_CHUNK == 32
+    assert prox_cuda.plan_t_smooth(512, 8192, torch.float32) == \
+        (S, 16 * 16 + 36 * 512 * 4)
+    # float64 at the PAR2 shape: 256 blocks of 148 KB, one an SM, would
+    # take two waves on 132 SMs; 132 blocks take one
+    assert prox_cuda.plan_t_smooth(512, 8192, torch.float64) == \
+        (T, 2 * 512 * 8)
+    assert prox_cuda.plan_t_smooth(512, 132 * 32, torch.float64) == \
+        (S, 16 * 16 + 36 * 512 * 8)
+    assert prox_cuda.plan_t_smooth(512, 132 * 32 + 1, torch.float64)[0] == T
+    assert prox_cuda.plan_t_smooth(512, 8192, torch.float64, sms=256)[0] == S
+    # float32: three 74 KB blocks an SM, 396 blocks a wave
+    assert prox_cuda.plan_t_smooth(512, 396 * 32, torch.float32)[0] == S
+    assert prox_cuda.plan_t_smooth(512, 396 * 32 + 1, torch.float32)[0] == T
+    assert prox_cuda.plan_t_smooth(1601, 7, torch.float32)[0] == S
+    assert prox_cuda.plan_t_smooth(1602, 7, torch.float32)[0] == T
+    assert prox_cuda.plan_t_smooth(802, 7, torch.float64)[0] == S
+    assert prox_cuda.plan_t_smooth(803, 7, torch.float64) == \
+        (T, 2 * 803 * 8)
     assert prox_cuda.plan_t_smooth(14464, 1, torch.float64)[1] <= prox_cuda.SMEM_LIMIT
+    assert prox_cuda.plan_t_smooth(28928, 1, torch.float32)[1] <= prox_cuda.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         prox_cuda.plan_t_smooth(14465, 1, torch.float64)
+    with pytest.raises(ValueError, match="shared memory"):
+        prox_cuda.plan_t_smooth(28929, 1, torch.float32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         prox_cuda.t_smooth_cols(torch.zeros((2, 3, 4)), torch.ones(2), 1.0)
     with pytest.raises(ValueError, match="CUDA tensor"):

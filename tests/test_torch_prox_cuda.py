@@ -403,29 +403,217 @@ def test_torch_ragged_stack_is_one_launch(cuda_device, R):
         A(Xd, 0, False, (41,) + sizes[1:])
 
 
+def _staged_limit(dt):
+    """The largest K kernel C's plan stages in dtype dt."""
+    K = 1
+    while prox_cuda.plan_t_smooth(K + 1, 1, dt)[0] == prox_cuda.STAGED:
+        K += 1
+    return K
+
+
+def _t_smooth_operands(K, J, R, dt, operands, rng):
+    """(B, rho) as numpy arrays of dt: "normal" draws, or "wide" ones: B
+    across 2^-60..2^60 with zeros, negative zeros and subnormals, rho in
+    [1e-6, 1e6] (a log-uniform draw)."""
+    npdt = np.float64 if dt == torch.float64 else np.float32
+    if operands == "normal":
+        return (rng.standard_normal((K, J, R)).astype(npdt),
+                rng.uniform(0.2, 3.0, K).astype(npdt))
+    B = rng.standard_normal((K, J, R)) * 2.0 ** rng.integers(-60, 61, (K, J, R))
+    B = B.astype(npdt)
+    u = rng.random((K, J, R))
+    tiny = np.finfo(npdt).smallest_subnormal
+    B[u < 0.05] = 0.0
+    B[(u >= 0.05) & (u < 0.08)] = -0.0
+    sub = (u >= 0.08) & (u < 0.11)
+    B[sub] = (tiny * rng.integers(1, 1000, int(sub.sum()))).astype(npdt)
+    return B, (10.0 ** rng.uniform(-6.0, 6.0, K)).astype(npdt)
+
+
+def _same_bits(a, b):
+    iv = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.cpu().view(iv), b.cpu().view(iv))
+
+
+@pytest.mark.parametrize("operands", ["normal", "wide"])
 @pytest.mark.parametrize("K,J,R", [(1, 5, 3), (2, 30, 4), (3, 7, 2),
-                                   (512, 256, 32), (900, 3, 5)])
-def test_torch_t_smooth_kernel_matches_plain(cuda_device, K, J, R):
-    """Kernel C on both routes against its plain version
-    (ops/prox.t_smoothness_reference): the same bits in float64 and in
-    float32 (K = 900 in float64 is past the staged route's limit)."""
-    rng = np.random.default_rng(K + J)
-    B = rng.standard_normal((K, J, R))
-    rho = rng.uniform(0.2, 3.0, K)
+                                   (511, 9, 7), (512, 256, 32), (900, 3, 5),
+                                   ("limit", 3, 5), ("past", 3, 5)])
+def test_torch_t_smooth_kernel_matches_plain(cuda_device, K, J, R, operands):
+    """Kernel C on both routes against its plain version (ops/prox.t_smoothness_reference): the same
+    bits in float64 and in float32, on normal draws at eta 10 and on wide
+    ones (B across 2^+-60 with zeros and subnormals, rho in [1e-6, 1e6])
+    at eta 1e-3, 1 and 1e6, which take the back substitution's full
+    division where the correction's window ends.  "limit" is the staged
+    route's largest K in each dtype, "past" one more (the stream route);
+    K = 900 is past the staged limit in float64 only."""
+    rng = np.random.default_rng((J + R) * (2 if operands == "wide" else 1))
+    etas = (10.0,) if operands == "normal" else (1e-3, 1.0, 1e6)
     for dt in (torch.float64, torch.float32):
-        Bd = torch.tensor(B, dtype=dt, device=cuda_device)
-        rd = torch.tensor(rho, dtype=dt, device=cuda_device)
-        want = prox.t_smoothness_reference(Bd.cpu(), rd.cpu(), 10.0)
-        route = prox_cuda.plan_t_smooth(K, J * R, dt)[0]
-        before = prox_cuda.t_smooth_cols.route_launches[route]
-        got = prox.t_smoothness_prox(Bd, rd, 10.0)
-        torch.cuda.synchronize()
-        assert prox_cuda.t_smooth_cols.route_launches[route] == before + 1
-        assert got.dtype == dt and torch.equal(got.cpu(), want)
-        stream = prox_cuda._t_smooth(Bd, rd, 10.0, prox_cuda.STREAM)
-        assert torch.equal(stream.cpu(), want)
+        k = {"limit": _staged_limit(dt), "past": _staged_limit(dt) + 1}.get(K, K)
+        B, rho = _t_smooth_operands(k, J, R, dt, operands, rng)
+        Bd = torch.tensor(B, device=cuda_device)
+        rd = torch.tensor(rho, device=cuda_device)
+        route = prox_cuda.plan_t_smooth(k, J * R, dt, torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count)[0]
+        for eta in etas:
+            want = prox.t_smoothness_reference(Bd.cpu(), rd.cpu(), eta)
+            before = prox_cuda.t_smooth_cols.route_launches[route]
+            got = prox.t_smoothness_prox(Bd, rd, eta)
+            torch.cuda.synchronize()
+            assert prox_cuda.t_smooth_cols.route_launches[route] == before + 1
+            assert got.dtype == dt and _same_bits(got, want), (k, dt, eta)
+            stream = prox_cuda._t_smooth(Bd, rd, eta, prox_cuda.STREAM)
+            assert _same_bits(stream, want), (k, dt, eta, "stream")
     with pytest.raises(ValueError, match="rho values"):
         prox_cuda.t_smooth_cols(Bd, torch.cat([rd, rd]), 1.0)
+
+
+def test_torch_t_smooth_stream_route_reaches_its_limit(cuda_device):
+    """The stream route at its largest K in each dtype (2 K values of
+    shared memory a block: 14464 in float64, 28928 in float32) gives the
+    plain version's bits; one more slice is refused before the launch."""
+    rng = np.random.default_rng(7)
+    for dt, K in ((torch.float64, 14464), (torch.float32, 28928)):
+        assert prox_cuda.plan_t_smooth(K, 6, dt)[0] == prox_cuda.STREAM
+        B = torch.tensor(rng.standard_normal((K, 3, 2)), dtype=dt,
+                         device=cuda_device)
+        rho = torch.tensor(rng.uniform(0.2, 3.0, K), dtype=dt,
+                           device=cuda_device)
+        want = prox.t_smoothness_reference(B.cpu(), rho.cpu(), 10.0)
+        assert _same_bits(prox_cuda.t_smooth_cols(B, rho, 10.0), want), dt
+        with pytest.raises(ValueError, match="shared memory"):
+            prox_cuda.t_smooth_cols(torch.cat([B, B[:1]]),
+                                    torch.cat([rho, rho[:1]]), 10.0)
+
+
+def test_torch_t_smooth_phases_walk_the_recurrence(cuda_device):
+    """The staged route's phases alone (the phase breakdown's entry): the
+    recurrence phase writes {rho, m, d'} a slice (y_k is the walkers'),
+    and the walk phase from them gives the kernel's bits; staging alone
+    runs."""
+    rng = np.random.default_rng(5)
+    for dt in (torch.float32, torch.float64):
+        B = torch.tensor(rng.standard_normal((512, 16, 32)), dtype=dt,
+                         device=cuda_device)
+        rho = torch.tensor(rng.uniform(0.5, 1.5, 512), dtype=dt,
+                           device=cuda_device)
+        dbg = torch.zeros(4 * 512, dtype=dt, device=cuda_device)
+        out = torch.zeros_like(B)
+        for mode in (prox_cuda.PHASE_RECURRENCE, prox_cuda.PHASE_STAGING,
+                     prox_cuda.PHASE_WALK):
+            prox_cuda._t_smooth_phase(mode, B, rho, 1000.0, dbg, out)
+        torch.cuda.synchronize()
+        coef = dbg.view(512, 4).cpu()
+        assert torch.equal(coef[:, 0], rho.cpu()) and bool((coef[:, 2] > 0).all())
+        assert coef[0, 1] == 0 and bool((coef[1:, 1] < 0).all())   # m_0, m_k
+        assert _same_bits(out, prox_cuda.t_smooth_cols(B, rho, 1000.0))
+        # the whole kernel with its stamps: every span of every block ends
+        # after it starts, and the prox is the kernel's
+        stamps = torch.zeros((16, prox_cuda.T_STAMPS), dtype=torch.int64,
+                             device=cuda_device)
+        whole = torch.zeros_like(B)
+        prox_cuda._t_smooth_phase(prox_cuda.PHASE_ALL, B, rho, 1000.0, None,
+                                  whole, stamps=stamps)
+        st = stamps.cpu()
+        assert _same_bits(whole, out)
+        for a, b in ((0, 1), (0, 2), (0, 3), (3, 4), (5, 6)):
+            assert bool((st[:, b] > st[:, a]).all()), (a, b)
+
+
+def _near_midpoint(p, count, seed):
+    """(A, B) significand pairs of precision p, as float64 numpy arrays of
+    integers, whose quotient lies within |t| / B of a rounding midpoint
+    (t odd, |t| <= 5), as close as two p-bit numbers' quotient comes: B
+    odd, M = t / B modulo 2^(p + 1) an odd p + 1-bit integer, A = (B M -
+    t) / 2^(p + 1), so A / B = (M - t / B) / 2^(p + 1)."""
+    rng = np.random.default_rng(seed)
+    mod = 2 ** (p + 1)
+    A, B = [], []
+    while len(A) < count:
+        b = int(rng.integers(2 ** (p - 2), 2 ** (p - 1))) * 2 + 1
+        t = int(rng.choice([-5, -3, -1, 1, 3, 5]))
+        m = t * pow(b, -1, mod) % mod
+        if m >= 2 ** p:
+            A.append((b * m - t) // mod)
+            B.append(b)
+    return np.array(A, dtype=np.float64), np.array(B, dtype=np.float64)
+
+
+def _division_pairs(dt, n_per_class, gen, device):
+    """(n, d) pairs of the classes that reach the correction's hard cases
+    and its guard: random numerators across 2^+-70 over divisors in the
+    range d'_k takes ([1e-6, 5e6]), divisors with all-ones significands,
+    quotients within a few ulps of a power of two, quotients next to a
+    rounding midpoint (built on purpose, 400,000 a dtype), both operands
+    across the whole exponent range, and zeros, negative zeros,
+    subnormals, infinities, NaN, zero and negative divisors."""
+    p = 53 if dt == torch.float64 else 24
+    emax = 1023 if dt == torch.float64 else 127
+
+    def u(lo, hi):
+        return torch.rand(n_per_class, generator=gen, device=device,
+                          dtype=torch.float64) * (hi - lo) + lo
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (n_per_class,), generator=gen,
+                             device=device).to(torch.float64)
+
+    sign = torch.where(u(0, 1) < 0.5, -1.0, 1.0)
+    pairs = []
+    # random numerators over the divisors d'_k takes
+    pairs.append((sign * u(1, 2) * 2.0 ** ints(-70, 71),
+                  10.0 ** u(-6, 6.7)))
+    # all-ones significands
+    ones = (2.0 ** p - 1) * 2.0 ** ints(-p - 20, -p + 23)
+    pairs.append((sign * u(1, 2) * 2.0 ** ints(-30, 31), ones))
+    # quotients near powers of two: n = d 2^k, moved a few ulps
+    d = u(1, 4000).to(dt)
+    n = (d.double() * 2.0 ** ints(-30, 31)).to(dt)
+    for _ in range(3):
+        step = u(0, 1) < 0.5
+        n = torch.where(step, torch.nextafter(n, torch.zeros_like(n)),
+                        torch.nextafter(n, torch.full_like(n, float("inf"))))
+    pairs.append((n, d))
+    # both across the whole exponent range
+    pairs.append((sign * u(1, 2) * 2.0 ** ints(-emax, emax),
+                  u(1, 2) * 2.0 ** ints(-emax, emax)))
+    # quotients next to a midpoint, scaled into the window
+    A, B = (torch.tensor(v, device=device) for v in _near_midpoint(p, 400_000, p))
+    m = A.numel()
+    pairs.append((torch.where(u(0, 1)[:m] < 0.5, -1.0, 1.0) * A
+                  * 2.0 ** (ints(-40, 41)[:m] - p),
+                  B * 2.0 ** (ints(-20, 21)[:m] - p)))
+    out_n, out_d = [], []
+    for a, b in pairs:
+        out_n.append(a.to(dt))
+        out_d.append(b.to(dt))
+    tiny = torch.finfo(dt).tiny
+    sp = torch.tensor([0.0, -0.0, tiny / 8, -tiny / 3, float("inf"),
+                       -float("inf"), float("nan"), 1.0, -1.5, 3.0],
+                      dtype=dt, device=device)
+    sn, sd = torch.meshgrid(sp, torch.cat([sp, torch.tensor(
+        [-2.0, 2.0 ** 61, 2.0 ** -61], dtype=dt, device=device)]),
+        indexing="ij")
+    out_n.append(sn.reshape(-1))
+    out_d.append(sd.reshape(-1))
+    return torch.cat(out_n).contiguous(), torch.cat(out_d).contiguous()
+
+
+def test_torch_t_smooth_division_step_is_ieee(cuda_device):
+    """The back substitution's division step (the reciprocal correction,
+    or the full division outside its window) against __fdiv_rn and
+    __ddiv_rn, bit for bit, on more than 10^7 pairs a dtype."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(14)
+    for dt in (torch.float32, torch.float64):
+        n, d = _division_pairs(dt, 2_600_000, gen, cuda_device)
+        assert n.numel() >= 10_000_000
+        q, ref = prox_cuda._t_smooth_div(n, d)
+        iv = torch.int64 if dt == torch.float64 else torch.int32
+        differ = q.view(iv) != ref.view(iv)
+        assert not bool(differ.any()), (
+            dt, int(differ.sum()), n[differ][:4].tolist(), d[differ][:4].tolist())
 
 
 @pytest.mark.parametrize("config", par2_surface.CONFIGS)

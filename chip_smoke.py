@@ -6,7 +6,7 @@ NVIDIA GPU.  Usage, from the root of a checkout:
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
 started together, into the git-ignored matlab_code_tpu_torch/_build/) and
-runs eighteen phases, each printing its seconds; any failure raises and
+runs nineteen phases, each printing its seconds; any failure raises and
 exits non-zero:
 
   1. device and precision: the card, its power limit, the TF32 switches;
@@ -142,10 +142,21 @@ exits non-zero:
      iterations in float32 (the same iterations, inner iterations and
      streams, non-decreasing wall times), and save_state of the card state
      after 10 iterations read back by load_state: every field bit-equal and
-     on the card.
+     on the card;
+ 19. fit_multistart (models/multistart.py): one mttkrp3 call with 20
+     starts' columns side by side at the flagship's shapes against each
+     start's plain MTTKRP in float64 (and timed against 20 calls of one
+     start's width); the flagship with 20 starts for 30 outer iterations
+     in float32 in turns with one start's fit (ms an iteration, host reads
+     and mttkrp3 launches an iteration, peak memory), 3 iterations of each
+     under torch.profiler (the device's busy share); then example script
+     15's widths with 4 starts for 3 iterations in float64 on the card
+     against the CPU, and each card start against its own card fit: the
+     streams at rtol 1e-8, the inner iterations equal.
 
 It then prints one JSON line describing the six kernels (mttkrp3's and
-the sparse kernel's launches on phases 16-17's paths beside them), the card's name
+the sparse kernel's launches on phases 16-17's paths beside them, and
+mttkrp3's on phase 19's), the card's name
 and power limit, and as its last line {"ok": true, "device": {...}}.  It
 imports nothing of JAX, and it fails without a CUDA card or without the
 package beside it.
@@ -227,6 +238,10 @@ PP_SPARSE_ITERS = 50    # the sparse workload with it
 PP_SMALL_ITERS = 40     # the small problems, card against CPU
 STEP_ITERS = 20         # fit_stepwise against fit on the flagship
 CKPT_ITERS = 10         # the state checkpointed
+MS_STARTS = 20          # fit_multistart on the flagship (example_script15:113)
+MS_ITERS = 30
+MS_S15_STARTS = 4       # script 15's widths, card against CPU
+MS_S15_ITERS = 3
 
 
 def phase(n, title):
@@ -535,17 +550,20 @@ def check_close(got, want, rtol, label):
     return float(diff.max())
 
 
-def profile_fit(spec, data, state, opts, top=8):
-    """Run fit under torch.profiler and print the device time by kernel
-    (top `top`) and the device's busy share of the wall clock (both under
-    the profiler's own overhead)."""
+def profile_fit(spec, data, state, opts, top=8, run=None):
+    """Run fit (or run(), where given) under torch.profiler and print the
+    device time by kernel (top `top`) and the device's busy share of the
+    wall clock (both under the profiler's own overhead)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from matlab_code_tpu_torch.models.solver import fit
     torch.cuda.synchronize()
     t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fit(spec, data, state, opts)
+        if run is None:
+            fit(spec, data, state, opts)
+        else:
+            run()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t) * 1e6
     from torch.autograd import DeviceType
@@ -1936,6 +1954,153 @@ def em_phases(dev, power):
     return counts
 
 
+def multistart_phase(dev, power):
+    """Phase 19: fit_multistart, the starts on one start axis.  Returns the
+    mttkrp3 launches of its flagship run for the kernels line."""
+    import torch
+    from matlab_code_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from matlab_code_tpu_torch.models.admm import to_host
+    from matlab_code_tpu_torch.models.init import init_coupled
+    from matlab_code_tpu_torch.models.multistart import _fit_lanes, fit_multistart
+    from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit
+    from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3, mttkrp3_reference
+    from matlab_code_tpu_torch.ops.tensor import mttkrp_columns
+    from matlab_code_tpu_torch.utils import multistart_workload as mw
+
+    t0 = phase(19, f"fit_multistart: the flagship with {MS_STARTS} starts "
+                   f"({MS_ITERS} iterations, float32) against one start's fit; "
+                   f"one batched mttkrp3 call; script 15's widths, "
+                   f"{MS_S15_STARTS} starts, on the card and the CPU")
+    # one mttkrp3 call with the starts' columns side by side against each
+    # start's plain MTTKRP in float64, at the flagship's tensor shapes
+    flush = l2_flush(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    for shape, R in FLAGSHIP_SHAPES:
+        X = torch.rand(shape, generator=gen, device=dev, dtype=torch.float64)
+        F = [torch.rand((MS_STARTS, n, R), generator=gen, device=dev,
+                        dtype=torch.float64) for n in shape]
+        X32, F32 = X.float(), [f.float() for f in F]
+        for mode in range(3):
+            mttkrp3.launches = 0
+            got = mttkrp_columns(X, F, mode)
+            n_l = mttkrp3.launches
+            want = torch.stack([mttkrp3_reference(X, [f[s] for f in F], mode)
+                                for s in range(MS_STARTS)])
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            t_wide = time_ms(lambda: mttkrp_columns(X32, F32, mode), flush)
+            t_each = time_ms(lambda: [mttkrp3(X32, [f[s] for f in F32], mode)
+                                      for s in range(MS_STARTS)], flush)
+            print(f"{shape} {MS_STARTS} starts x R {R}, mode {mode}: one call, "
+                  f"{n_l} launches (ceil({MS_STARTS * R}/32)); max|wide-plain| "
+                  f"{err:.3e} (bound {1e-12 * scale:.3e}); float32 {t_wide * 1e3:.1f}"
+                  f" us against {MS_STARTS} calls of R {R} {t_each * 1e3:.1f} us  "
+                  f"[{power}]")
+            if n_l != -(-MS_STARTS * R // 32) or not err <= 1e-12 * scale:
+                raise RuntimeError(f"the batched mttkrp3 call disagrees: {shape} "
+                                   f"mode {mode}")
+        del X, F, X32, F32
+    del flush
+
+    # the flagship: one start's fit, the starts together, one start's fit
+    spec, data, opts, init = mw.flagship_problem(dev, torch.float32, MS_ITERS)
+    opts = dataclasses.replace(opts, AbsFuncTol=0.0, OuterRelTol=0.0)
+    inits = sum(-(-MS_STARTS * ds.rank // 32) for p, ds in
+                enumerate(spec.datasets) if data.objects[p].dim() == 3)
+    runs = {}
+    for label in ("fit", "multistart", "multistart", "fit"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mttkrp3.launches = to_host.calls = 0
+        if label == "fit":
+            _, _, _, out = cmtf_aoadmm(spec, data, opts, init_options=init,
+                                       seed=0)
+            n_it, init_l = out.OuterIterations, 0
+            finals = [out.f_tensors]
+        else:
+            _, out, finals, stops = fit_multistart(
+                spec, data, opts, init, MS_STARTS, keys=range(MS_STARTS))
+            n_it, init_l = max(stops), inits
+        launches, reads = mttkrp3.launches, to_host.calls
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        ms_it = out.time_total / n_it * 1e3
+        runs.setdefault(label, []).append(ms_it)
+        print(f"{label}: {n_it} iterations, {ms_it:.3f} ms an iteration "
+              f"(wall clock / iterations); to_host.calls {reads} "
+              f"({reads / n_it:.2f} an iteration); mttkrp3 launches {launches} "
+              f"({(launches - init_l) / n_it:.2f} an iteration, {init_l} for the "
+              f"initial objective); peak {peak:.0f} MiB; final f_tensors "
+              f"min {np.nanmin(finals):.6e}  [{power}]")
+        if not np.all(np.isfinite(finals)) or n_it != MS_ITERS:
+            raise RuntimeError(f"{label} on the flagship: {n_it} iterations, "
+                               f"finals {finals}")
+        if label == "multistart":
+            want_l = MS_ITERS * 3 * sum(-(-MS_STARTS * ds.rank // 32) for p, ds in
+                                        enumerate(spec.datasets)
+                                        if data.objects[p].dim() == 3)
+            if launches != want_l + inits:
+                raise RuntimeError(f"multistart: {launches} mttkrp3 launches, "
+                                   f"not {want_l + inits}")
+            if reads > MS_ITERS * (1 + 6 * (opts.MaxInnerIters - 1)):
+                raise RuntimeError(f"multistart: {reads} reads in {MS_ITERS} "
+                                   f"iterations")
+            counts = launches
+    print(f"ms an iteration, in turns fit / multistart / multistart / fit: "
+          f"{runs['fit'][0]:.3f} / {runs['multistart'][0]:.3f} / "
+          f"{runs['multistart'][1]:.3f} / {runs['fit'][1]:.3f}: "
+          f"{MS_STARTS} starts at {min(runs['multistart']) / min(runs['fit']):.2f}"
+          f"x one start's time  [{power}]")
+    states = [init_coupled(spec, data, init, seed=k) for k in range(MS_STARTS)]
+    o3 = dataclasses.replace(opts, MaxOuterIters=3)
+    print("one start's fit:")
+    profile_fit(spec, data, states[0], o3)
+    print(f"{MS_STARTS} starts on the start axis:")
+    profile_fit(spec, data, None, o3,
+                run=lambda: _fit_lanes(spec, data, states, o3))
+    del data, states
+
+    # script 15's widths, float64: the card against the CPU, and each start
+    # against its own fit on the card
+    spec, data_c, opts, init = mw.script15_problem("cpu", torch.float64)
+    _, data_g, _, _ = mw.script15_problem(dev, torch.float64)
+    opts = dataclasses.replace(opts, MaxOuterIters=MS_S15_ITERS)
+    init_np = [state_to_numpy(init_coupled(spec, data_c, init, seed=k))
+               for k in range(MS_S15_STARTS)]
+    cpu = _fit_lanes(spec, data_c, [state_from_numpy(s, "cpu") for s in init_np],
+                     opts)
+    mttkrp3.launches = 0
+    gpu = _fit_lanes(spec, data_g, [state_from_numpy(s, dev) for s in init_np],
+                     opts)
+    n_l = mttkrp3.launches
+    worst = worst_fit = 0.0
+    for s in range(MS_S15_STARTS):
+        _, own = fit(spec, data_g, state_from_numpy(init_np[s], dev), opts)
+        for label, a, b in (("cpu", gpu.outs[s], cpu.outs[s]),
+                            ("own fit", gpu.outs[s], own)):
+            if a.OuterIterations != b.OuterIterations \
+                    or not np.array_equal(a.innerIters, b.innerIters):
+                raise RuntimeError(f"script 15 start {s}: the card's lane and "
+                                   f"the {label} ran other iterations")
+            for k in ("func_val_conv", "func_coupl_conv", "func_constr_conv"):
+                x, y = getattr(a, k), getattr(b, k)
+                rel = float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-300)))
+                if label == "cpu":
+                    worst = max(worst, rel)
+                else:
+                    worst_fit = max(worst_fit, rel)
+                np.testing.assert_allclose(x, y, rtol=1e-8, atol=1e-14,
+                                           err_msg=f"start {s} {label} {k}")
+    print(f"script 15's widths, {MS_S15_STARTS} starts, {MS_S15_ITERS} "
+          f"iterations, float64: card lanes against the CPU's max rel diff "
+          f"{worst:.3e}, against each start's own card fit {worst_fit:.3e}; "
+          f"inner iterations equal; mttkrp3 launches {n_l}")
+    if n_l < MS_S15_ITERS * 6:
+        raise RuntimeError(f"script 15 on the card launched mttkrp3 {n_l} times")
+    done(19, t0)
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2210,6 +2375,7 @@ def main():
     par2 = par2_phases(dev, power)
     kl = kl_phases(dev, power)
     em = em_phases(dev, power)
+    ms_launches = multistart_phase(dev, power)
     for e in prox_entries:
         e.update(par2["batched"][
             "A" if e["name"] == "project_isotonic_cols" else "B"])
@@ -2222,7 +2388,8 @@ def main():
         "bound_ms": bound_ms, "bound_by": max(bound_by_ms, key=bound_by_ms.get),
         "library_ms": lib_ms, "par2_launches": par2["mttkrp3_launches"],
         "kl_launches": kl["mttkrp3_launches"],
-        "em_launches": em["EM flagship"], "pp_launches": em["pp flagship"]},
+        "em_launches": em["EM flagship"], "pp_launches": em["pp flagship"],
+        "multistart_launches": ms_launches},
         dict(sparse, pp_launches=em["pp sparse workload"])]
         + prox_entries + [kl["D"]]}))
     print(power)

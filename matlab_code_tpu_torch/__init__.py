@@ -9,9 +9,10 @@ datasets, dense or sparse COO (SparseTensor), and PARAFAC2 datasets
 datasets with KL, Itakura-Saito or beta-divergence loss (L-BFGS-B factor
 steps), coupling types 0-5, every constraint and regularizer, random or
 nvecs init, EM imputation of missing entries, the pairwise-perturbation
-MTTKRP (models/pairwise.py), fit_stepwise and checkpoints
-(utils/checkpoint.py).  On a CUDA card every dense 3-way MTTKRP runs the
-hand-written Hopper kernel ops/mttkrp_cuda.mttkrp3 (csrc/mttkrp3.cu),
+MTTKRP (models/pairwise.py), fit_stepwise, checkpoints
+(utils/checkpoint.py) and fit_multistart (models/multistart.py: the
+starts on one start axis under torch.func.vmap).  On a CUDA card every
+dense 3-way MTTKRP runs the hand-written Hopper kernel ops/mttkrp_cuda.mttkrp3 (csrc/mttkrp3.cu),
 every sparse MTTKRP the hand-written kernel ops/sparse_cuda.
 mttkrp_sparse_cuda (csrc/mttkrp_sparse.cu), the sequential proxes the
 kernels of ops/prox_cuda (csrc/prox_seq.cu, csrc/t_smooth.cu), and the
@@ -27,12 +28,13 @@ from matlab_code_tpu_torch.state import SolverState
 from matlab_code_tpu_torch.models.init import init_coupled
 from matlab_code_tpu_torch.models.pairwise import eligible_pp_datasets
 from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit, fit_stepwise
+from matlab_code_tpu_torch.models.multistart import fit_multistart
 from matlab_code_tpu_torch.utils.checkpoint import load_state, save_state
 
 __all__ = [
     "ProblemSpec", "DatasetSpec", "CouplingSpec", "ConstraintSpec",
     "ProblemData", "SparseTensor", "Parafac2Tensor", "AlgOptions",
     "InitOptions", "SolverState",
-    "init_coupled", "cmtf_aoadmm", "fit", "fit_stepwise",
+    "init_coupled", "cmtf_aoadmm", "fit", "fit_stepwise", "fit_multistart",
     "eligible_pp_datasets", "save_state", "load_state", "check_data_input",
 ]

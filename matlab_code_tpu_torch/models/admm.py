@@ -11,6 +11,12 @@ to_host).  The PARAFAC2 per-slice work (Bk systems, polar factors, the
 slice-wise prox, par2C rows) is batched over the K slices.  A mode of a
 non-Frobenius dataset takes its factor step by L-BFGS-B
 (models/lbfgs_bridge.py) inside the same loops.
+
+Each loop is a step function that run_inner repeats.  Under
+fit_multistart's start axis (models/multistart.py: one start's code under
+torch.func.vmap) run_inner keeps the JAX while_loop's semantics under
+vmap: each start steps while its own exit test held, a start that stopped
+keeps its values, and the read a step is whether any start still steps.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import time
 
 import torch
 
+from matlab_code_tpu_torch.ops.lanes import any_lane, keep, on_start_axis
 from matlab_code_tpu_torch.ops.linalg import (
     chol_lower, polar_orth, polar_orth_ns, solve, solve_spd_left,
     solve_with_chol, spd_inverse_from_chol, spd_inverse_newton)
@@ -44,6 +51,39 @@ def to_host(t):
 
 to_host.calls = 0
 to_host.seconds = 0.0
+
+
+def run_inner(step, carry, options):
+    """The inner loop: step(carry) -> (carry, go), go the exit test of the
+    step's residuals on the device (True: step again).  As the JAX
+    while_loop, at most options.MaxInnerIters steps, and the test is read
+    (one to_host) before each step after the first.  Returns (carry, n),
+    n the steps taken.
+
+    Where the carry holds fit_multistart's start axis (ops/lanes.py), each
+    start steps while its own test held at every step: the read is whether
+    any start still steps (any_lane, one read a step whatever the number of
+    starts), a start that stopped keeps its carry (lanes.keep), and n is
+    each start's own count, a tensor."""
+    if options.MaxInnerIters < 1:
+        return carry, 0
+    carry, go = step(carry)
+    if not on_start_axis(go):
+        it = 2
+        while it <= options.MaxInnerIters and to_host(go):
+            carry, go = step(carry)
+            it += 1
+        return carry, it - 1
+    active = go
+    n = torch.ones_like(go, dtype=torch.int32)
+    it = 2
+    while it <= options.MaxInnerIters and to_host(any_lane(active)):
+        new, go = step(carry)
+        carry = keep(active, new, carry)
+        n = n + active.to(torch.int32)
+        active = active & go
+        it += 1
+    return carry, n
 
 
 def _safe_div(a, b):
@@ -178,12 +218,11 @@ def admm_constrained_only(spec: ProblemSpec, state: SolverState, m: int, p: int,
     upd = make_update_constraint(spec, proxes)
     frob = spec.datasets[p].loss == "Frobenius"
     rho_b = rho[:, None] if spec.mode_role(m) == "par2_C" else rho
-    it = 1
     lb = 0
-    pr = dr = math.inf
-    while it <= options.MaxInnerIters and (
-            it == 1 or to_host((pr > options.innerRelPrTol_constr)
-                               | (dr > options.innerRelDualTol_constr))):
+
+    def step(carry):
+        nonlocal lb
+        state = carry[0]
         if frob:
             A_inner = A + 0.5 * rho_b * (
                 state.constraint_fac[m] - state.constraint_dual_fac[m])
@@ -194,8 +233,12 @@ def admm_constrained_only(spec: ProblemSpec, state: SolverState, m: int, p: int,
             lb += nit
         state, oldZ = upd(state, m, rho)
         pr, dr = eval_res_constr(spec, state, (m,), {m: oldZ})
-        it += 1
-    return state, it - 1, lb, (pr, dr)
+        return (state, pr, dr), ((pr > options.innerRelPrTol_constr)
+                                 | (dr > options.innerRelDualTol_constr))
+
+    (state, pr, dr), n = run_inner(step, (state, math.inf, math.inf),
+                                   options)
+    return state, n, lb, (pr, dr)
 
 
 def _fro_slices(X):
@@ -225,13 +268,8 @@ def admm_b_parafac2(spec: ProblemSpec, state: SolverState, m: int, p: int,
         prox = proxes[m]
     rho3 = rho[:, None, None]
     zero = torch.zeros((), dtype=A.dtype, device=A.device)
-    it = 1
-    prc = drc = prk = drk = math.inf
-    while it <= options.MaxInnerIters and (
-            it == 1 or to_host((prk > options.innerRelPrTol_coupl)
-                               | (prc > options.innerRelPrTol_constr)
-                               | (drk > options.innerRelDualTol_coupl)
-                               | (drc > options.innerRelDualTol_constr))):
+
+    def step(state):
         P_, DB, mu = state.P[p], state.DeltaB[p], state.mu_DeltaB[p]
         A_inner = A + 0.5 * rho3 * (P_ @ DB - mu)
         if constrained:
@@ -270,8 +308,12 @@ def admm_b_parafac2(spec: ProblemSpec, state: SolverState, m: int, p: int,
         prk = torch.sum(_fro_slices(facB - PDB) / _fro_slices(facB)) / K
         drk = torch.sum(_safe_div(_fro_slices(oldP @ oldDB - PDB),
                                   _fro_slices(mu))) / K
-        it += 1
-    return state, it - 1
+        return state, ((prk > options.innerRelPrTol_coupl)
+                       | (prc > options.innerRelPrTol_constr)
+                       | (drk > options.innerRelDualTol_coupl)
+                       | (drc > options.innerRelDualTol_constr))
+
+    return run_inner(step, state, options)
 
 
 def prox_slicewise(prox, Bs, rho):
@@ -519,13 +561,9 @@ def admm_coupled(spec: ProblemSpec, state: SolverState, data, cmodes, cid,
     frob = {m: spec.datasets[spec.which_p(m)].loss == "Frobenius"
             for m in cmodes}
     lb = {m: 0 for m in cmodes if not frob[m]}
-    it = 1
-    prc = drc = prk = drk = math.inf
-    while it <= options.MaxInnerIters and (
-            it == 1 or to_host((prk > options.innerRelPrTol_coupl)
-                               | (prc > options.innerRelPrTol_constr)
-                               | (drk > options.innerRelDualTol_coupl)
-                               | (drc > options.innerRelDualTol_constr))):
+
+    def step(carry):
+        state = carry[0]
         for mm in cmodes:
             if frob[mm]:
                 fac = _factor_update_case(
@@ -554,9 +592,16 @@ def admm_coupled(spec: ProblemSpec, state: SolverState, data, cmodes, cid,
             prc, drc = eval_res_constr(spec, state, constrained_modes, oldZ)
         else:
             prc = drc = 0.0
-        it += 1
-    return (state, it - 1, lb,
-            (_larger(prc, prk), _larger(drc, drk)))
+        return (state, prk, drk, prc, drc), (
+            (prk > options.innerRelPrTol_coupl)
+            | (prc > options.innerRelPrTol_constr)
+            | (drk > options.innerRelDualTol_coupl)
+            | (drc > options.innerRelDualTol_constr))
+
+    inf = math.inf
+    (state, prk, drk, prc, drc), n = run_inner(
+        step, (state, inf, inf, inf, inf), options)
+    return state, n, lb, (_larger(prc, prk), _larger(drc, drk))
 
 
 def _larger(a, b):

@@ -19,8 +19,11 @@ value on the host, so it is never run on a card tensor.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+
+from matlab_code_tpu_torch.ops.lanes import on_start_axis, to_front
 
 INCREASING, DECREASING, UNIMODAL = 0, 1, 2
 
@@ -159,6 +162,9 @@ def ragged_reference(X: torch.Tensor, sizes, fn) -> torch.Tensor:
 
 def _columns(X: torch.Tensor, kind: int, nonneg: bool, sizes=None
              ) -> torch.Tensor:
+    if on_start_axis(X):
+        return _columns_starts(X, kind, nonneg,
+                               None if sizes is None else list(sizes))
     if X.device.type == "cuda":
         from matlab_code_tpu_torch.ops.prox_cuda import project_isotonic_cols
         return project_isotonic_cols(X.contiguous(), kind, nonneg, sizes)
@@ -168,6 +174,25 @@ def _columns(X: torch.Tensor, kind: int, nonneg: bool, sizes=None
         return ragged_reference(
             X, sizes, lambda k, M: columns_reference(M, kind, nonneg))
     return columns_reference(X, kind, nonneg)
+
+
+@torch.library.custom_op("matlab_code_tpu_torch::isotonic_starts",
+                         mutates_args=())
+def _columns_starts(X: torch.Tensor, kind: int, nonneg: bool,
+                    sizes: Optional[list[int]]) -> torch.Tensor:
+    """_columns where X carries fit_multistart's start axis (ops/lanes.py):
+    the batching rule below folds the starts into the slice axis, so the
+    S starts' columns are one kernel launch (one plain walk on the CPU)."""
+    return _columns(X, kind, nonneg, sizes).clone()
+
+
+@torch.library.register_vmap("matlab_code_tpu_torch::isotonic_starts")
+def _columns_starts_vmap(info, in_dims, X, kind, nonneg, sizes):
+    S = info.batch_size
+    X = to_front(X, in_dims[0], S)
+    out = _columns(X.reshape(-1, *X.shape[-2:]), kind, nonneg,
+                   None if sizes is None else list(sizes) * S)
+    return out.reshape(X.shape), 0
 
 
 def project_monotone(X: torch.Tensor, increasing: bool = True, sizes=None

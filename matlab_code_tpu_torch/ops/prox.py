@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from matlab_code_tpu_torch.ops.isotonic import project_monotone, project_unimodal
+from matlab_code_tpu_torch.ops.lanes import on_start_axis, to_front
 from matlab_code_tpu_torch.ops.tv import prox_tv
 
 KNOWN_CONSTRAINT_KINDS = frozenset({
@@ -122,8 +123,8 @@ def prox_normalized_nonneg(x: torch.Tensor) -> torch.Tensor:
     columns map to the indicator of their argmax (prox_normalized_nonneg.m)."""
     y = torch.clamp(x, min=0.0)
     nrm = torch.linalg.vector_norm(y, dim=-2, keepdim=True)
-    onehot = torch.zeros_like(x).scatter_(
-        -2, torch.argmax(x, dim=-2, keepdim=True), 1.0)
+    rows = torch.arange(x.shape[-2], device=x.device)[:, None]
+    onehot = (rows == torch.argmax(x, dim=-2, keepdim=True)).to(x.dtype)
     normalized = y / torch.where(nrm == 0, torch.ones_like(nrm), nrm)
     return torch.where(nrm == 0, onehot, normalized)
 
@@ -216,12 +217,35 @@ def t_smoothness_prox(Bs: torch.Tensor, rho: torch.Tensor, eta: float
     (K, J, R), rho (K,).  A CUDA tensor goes to the hand-written kernel
     ops/prox_cuda.t_smooth_cols (kernel C); a CPU tensor takes the plain
     version, t_smoothness_reference."""
+    if on_start_axis(Bs, rho):
+        return _t_smoothness_starts(Bs, torch.as_tensor(
+            rho, dtype=Bs.dtype, device=Bs.device), float(eta))
     if Bs.device.type == "cuda":
         from matlab_code_tpu_torch.ops.prox_cuda import t_smooth_cols
         return t_smooth_cols(Bs.contiguous(), rho, eta)
     if Bs.device.type != "cpu":
         raise ValueError(f"t_smoothness_prox: unsupported device {Bs.device}")
     return t_smoothness_reference(Bs, rho, eta)
+
+
+@torch.library.custom_op("matlab_code_tpu_torch::t_smoothness_starts",
+                         mutates_args=())
+def _t_smoothness_starts(Bs: torch.Tensor, rho: torch.Tensor, eta: float
+                         ) -> torch.Tensor:
+    """t_smoothness_prox where Bs or rho carries fit_multistart's start axis
+    (ops/lanes.py).  Kernel C takes one rho a slice for all of a slice's
+    elements, and each start has its own rho, so the batching rule below
+    runs one launch a start (one plain version a start on the CPU)."""
+    return t_smoothness_prox(Bs, rho, eta).clone()
+
+
+@torch.library.register_vmap("matlab_code_tpu_torch::t_smoothness_starts")
+def _t_smoothness_starts_vmap(info, in_dims, Bs, rho, eta):
+    S = info.batch_size
+    Bs = to_front(Bs, in_dims[0], S)
+    rho = to_front(rho, in_dims[1], S)
+    return torch.stack([t_smoothness_prox(Bs[s], rho[s], eta)
+                        for s in range(S)]), 0
 
 
 def t_smoothness_reference(Bs: torch.Tensor, rho: torch.Tensor, eta: float

@@ -16,6 +16,7 @@ import string
 
 import torch
 
+from matlab_code_tpu_torch.ops.lanes import on_start_axis, to_front
 from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
 from matlab_code_tpu_torch.ops.sparse_cuda import (
     SparsePlan, mttkrp_sparse_cuda, mttkrp_sparse_reference)
@@ -46,6 +47,8 @@ def mttkrp(X: torch.Tensor, factors, mode: int) -> torch.Tensor:
     n = X.dim()
     if len(factors) != n:
         raise ValueError(f"mttkrp: {len(factors)} factors for a {n}-way tensor")
+    if n == 3 and on_start_axis(X, *factors):
+        return _mttkrp_starts(X, list(factors), mode)
     operands = [X] + [factors[i] for i in range(n) if i != mode]
     if takes_kernel(X):
         dt = functools.reduce(torch.promote_types, (o.dtype for o in operands))
@@ -54,6 +57,39 @@ def mttkrp(X: torch.Tensor, factors, mode: int) -> torch.Tensor:
     factor_subs = [f"{_LETTERS[i]}z" for i in range(n) if i != mode]
     eq = tensor_sub + "," + ",".join(factor_subs) + "->" + _LETTERS[mode] + "z"
     return torch.einsum(eq, *operands)
+
+
+def mttkrp_columns(X: torch.Tensor, factors, mode: int) -> torch.Tensor:
+    """The MTTKRPs of S starts' factors against one 3-way X as ONE mttkrp
+    call: factors (S, n_i, R) laid side by side as (n_i, S*R), so column
+    s*R + r is start s's column r (on the card one mttkrp3 call, in column
+    blocks of 32, column_blocks).  Returns (S, X.shape[mode], R)."""
+    S, _, R = factors[0].shape
+    wide = [f.transpose(0, 1).reshape(f.shape[1], S * R) for f in factors]
+    out = mttkrp(X, wide, mode)
+    return out.reshape(out.shape[0], S, R).transpose(0, 1)
+
+
+@torch.library.custom_op("matlab_code_tpu_torch::mttkrp_starts",
+                         mutates_args=())
+def _mttkrp_starts(X: torch.Tensor, factors: list[torch.Tensor], mode: int
+                   ) -> torch.Tensor:
+    """mttkrp of a 3-way X where X or the factors carry fit_multistart's
+    start axis (ops/lanes.py).  The batching rule below runs
+    mttkrp_columns where only the factors do, and one call a start where X
+    does too (EM imputation gives each start its own X)."""
+    return mttkrp(X, factors, mode).clone()
+
+
+@torch.library.register_vmap("matlab_code_tpu_torch::mttkrp_starts")
+def _mttkrp_starts_vmap(info, in_dims, X, factors, mode):
+    S = info.batch_size
+    facs = [to_front(f, d, S) for f, d in zip(factors, in_dims[1])]
+    if in_dims[0] is None:
+        return mttkrp_columns(X, facs, mode), 0
+    X = to_front(X, in_dims[0], S)
+    return torch.stack([mttkrp(X[s], [f[s] for f in facs], mode)
+                        for s in range(S)]), 0
 
 
 def khatri_rao(factors) -> torch.Tensor:

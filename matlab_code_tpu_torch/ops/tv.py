@@ -18,7 +18,11 @@ a stack of PARAFAC2 slices; lam <= 0 and columns of length 1 return y.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from matlab_code_tpu_torch.ops.lanes import on_start_axis, to_front
 
 
 def tv_list(y: list, lam: float, steps: list | None = None) -> list:
@@ -119,6 +123,10 @@ def prox_tv(X: torch.Tensor, lam, sizes=None) -> torch.Tensor:
     each slice of a (K, n, R) stack with its own lam (K values); of each
     slice's true J_k rows where the stack is ragged (sizes the J_k; padded
     rows zero)."""
+    if on_start_axis(X, lam):
+        return _prox_tv_starts(
+            X, torch.as_tensor(lam, dtype=X.dtype, device=X.device),
+            None if sizes is None else list(sizes))
     if X.device.type == "cuda":
         from matlab_code_tpu_torch.ops.prox_cuda import prox_tv_cols
         return prox_tv_cols(X.contiguous(), lam, sizes)
@@ -131,3 +139,24 @@ def prox_tv(X: torch.Tensor, lam, sizes=None) -> torch.Tensor:
         return ragged_reference(
             X, sizes, lambda k, M: columns_reference(M, lams[k]))
     return columns_reference(X, lam)
+
+
+@torch.library.custom_op("matlab_code_tpu_torch::tv_starts", mutates_args=())
+def _prox_tv_starts(X: torch.Tensor, lam: torch.Tensor,
+                    sizes: Optional[list[int]]) -> torch.Tensor:
+    """prox_tv where X or lam carries fit_multistart's start axis
+    (ops/lanes.py): the batching rule below folds the starts into the slice
+    axis, each slice with its start's lam, so the S starts' columns are one
+    kernel launch (one plain walk on the CPU)."""
+    return prox_tv(X, lam, sizes).clone()
+
+
+@torch.library.register_vmap("matlab_code_tpu_torch::tv_starts")
+def _prox_tv_starts_vmap(info, in_dims, X, lam, sizes):
+    S = info.batch_size
+    X = to_front(X, in_dims[0], S)
+    K = X.shape[1] if X.dim() == 4 else 1
+    lam = to_front(lam, in_dims[1], S).reshape(S, -1).expand(S, K)
+    out = prox_tv(X.reshape(-1, *X.shape[-2:]), lam.reshape(-1),
+                  None if sizes is None else list(sizes) * S)
+    return out.reshape(X.shape), 0

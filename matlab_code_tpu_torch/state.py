@@ -41,5 +41,10 @@ class SolverState:
 FIELDS = tuple(f.name for f in dataclasses.fields(SolverState))
 
 
+def fields_of(state: SolverState) -> tuple:
+    """The state's fields in FIELDS order: SolverState(*fields_of(s)) is s."""
+    return tuple(getattr(state, f) for f in FIELDS)
+
+
 def tuple_set(t: tuple, i: int, v: Any) -> tuple:
     return t[:i] + (v,) + t[i + 1:]

@@ -6,7 +6,7 @@ NVIDIA GPU.  Usage, from the root of a checkout:
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
 started together, into the git-ignored matlab_code_tpu_torch/_build/) and
-runs nineteen phases, each printing its seconds; any failure raises and
+runs twenty phases, each printing its seconds; any failure raises and
 exits non-zero:
 
   1. device and precision: the card, its power limit, the TF32 switches;
@@ -152,11 +152,30 @@ exits non-zero:
      under torch.profiler (the device's busy share); then example script
      15's widths with 4 starts for 3 iterations in float64 on the card
      against the CPU, and each card start against its own card fit: the
-     streams at rtol 1e-8, the inner iterations equal.
+     streams at rtol 1e-8, the inner iterations equal;
+ 20. fit_multistart for the other losses, sparse COO data and the pairwise
+     option: (c) kernel D on the start axis, one launch for 20 starts at
+     the KL workload's shape in float32 and float64, against its plain
+     version and against 20 single-start launches (each start's f and Y
+     bit for bit), timed against them; (a) the KL workload with 20 starts
+     for 5 iterations in float32 in turns with one start's fit (ms an
+     iteration, host reads, kernel D and mttkrp3 launches an iteration,
+     peak memory, the best start's L-BFGS-B iterations; 2 iterations of
+     each under torch.profiler); (b) the sparse workload: one sparse-kernel
+     call of 20 starts' columns a mode against 20 single-start calls
+     (float32 and float64, the partial sums' bytes beside the card's
+     memory), then 20 starts for 10 iterations in turns with one start's
+     fit (one launch a mode an iteration for all starts); (d) script 07's
+     widths with 4 starts for 3 iterations in float64: the card's lanes
+     against the CPU's and each against its own card fit within 1e-12,
+     inner and L-BFGS-B iterations equal; (e) the flagship with 4 starts
+     for 10 iterations with cp_pairwise_perturbation: the finals of the
+     run without it (the JAX function's exact MTTKRPs).
 
 It then prints one JSON line describing the six kernels (mttkrp3's and
-the sparse kernel's launches on phases 16-17's paths beside them, and
-mttkrp3's on phase 19's), the card's name
+the sparse kernel's launches on phases 16-17's paths beside them,
+mttkrp3's on phase 19's, kernel D's and the sparse kernel's on phase
+20's, and kernel D's start-axis times), the card's name
 and power limit, and as its last line {"ok": true, "device": {...}}.  It
 imports nothing of JAX, and it fails without a CUDA card or without the
 package beside it.
@@ -242,6 +261,11 @@ MS_STARTS = 20          # fit_multistart on the flagship (example_script15:113)
 MS_ITERS = 30
 MS_S15_STARTS = 4       # script 15's widths, card against CPU
 MS_S15_ITERS = 3
+MS_KL_ITERS = 5         # fit_multistart on the KL workload, 20 starts
+MS_SPARSE_ITERS = 10    # and on the sparse workload
+MS_S07_ITERS = 3        # script 07's widths, 4 starts, card against CPU
+MS_PP_STARTS = 4        # the flagship with cp_pairwise_perturbation
+MS_PP_ITERS = 10
 
 
 def phase(n, title):
@@ -2101,6 +2125,278 @@ def multistart_phase(dev, power):
     return counts
 
 
+def in_turns(label_fn, power, what):
+    """Run label_fn(label) for fit, multistart, multistart, fit (the
+    counts set to 0 and the peak memory reset before each) and print the
+    ms an iteration in turns; returns {label: [ms, ms]}."""
+    import torch
+    runs = {}
+    for label in ("fit", "multistart", "multistart", "fit"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs.setdefault(label, []).append(label_fn(label))
+    print(f"{what}, ms an iteration in turns fit / multistart / multistart / "
+          f"fit: {runs['fit'][0]:.3f} / {runs['multistart'][0]:.3f} / "
+          f"{runs['multistart'][1]:.3f} / {runs['fit'][1]:.3f}: {MS_STARTS} "
+          f"starts at {min(runs['multistart']) / min(runs['fit']):.2f}x one "
+          f"start's time  [{power}]")
+    return runs
+
+
+def multistart_rest_phase(dev, power):
+    """Phase 20: fit_multistart for the other losses, sparse COO data and
+    the pairwise option.  Returns kernel D's and the sparse kernel's
+    launches on its paths and kernel D's start-axis times, for the kernels
+    line."""
+    import warnings
+    import torch
+    from matlab_code_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from matlab_code_tpu_torch.models import pairwise
+    from matlab_code_tpu_torch.models.admm import to_host
+    from matlab_code_tpu_torch.models.init import init_coupled
+    from matlab_code_tpu_torch.models.multistart import _fit_lanes, fit_multistart
+    from matlab_code_tpu_torch.models.solver import (
+        attach_sparse_plans, cmtf_aoadmm, fit)
+    from matlab_code_tpu_torch.ops import losses
+    from matlab_code_tpu_torch.ops.loss_cuda import loss_fg_cuda, loss_fg_cuda_starts
+    from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
+    from matlab_code_tpu_torch.ops.sparse_cuda import mttkrp_sparse_cuda
+    from matlab_code_tpu_torch.ops.tensor import mttkrp_sparse
+    from matlab_code_tpu_torch.problem import SparseTensor
+    from matlab_code_tpu_torch.utils import multistart_workload as mw
+
+    t0 = phase(20, f"multistart: losses, sparse, PP ({MS_STARTS} starts on the "
+                   f"KL and sparse workloads against one start's fit; kernel D "
+                   f"on the start axis; script 07's widths, {len(mw.S07_KEYS)} "
+                   f"starts, card against CPU; the flagship with the pairwise "
+                   f"option)")
+    S = MS_STARTS
+    eps = 1e-10
+    out = {}
+
+    # (c) kernel D on the start axis: one launch for S starts against its
+    # plain version and against S single-start launches (f and Y bit for
+    # bit), timed against the S launches
+    flush = l2_flush(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    shape = LOSS_SHAPES[0]
+    M64 = 0.05 + 2.95 * torch.rand((S,) + shape, generator=gen, device=dev,
+                                   dtype=torch.float64)
+    X64 = torch.poisson(M64[0], generator=gen)
+    n = X64.numel()
+    for dt, rtol_y, rtol_f in zip((torch.float32, torch.float64),
+                                  LOSS_RTOL_GH, LOSS_RTOL_F):
+        X, M = X64.to(dt), M64.to(dt)
+        before = loss_fg_cuda.launches
+        f, Y = loss_fg_cuda_starts("KL", X, M, eps)
+        n_l = loss_fg_cuda.launches - before
+        same_f = same_y = True
+        err_y = err_f = 0.0
+        for s in range(S):
+            f1, Y1 = loss_fg_cuda("KL", X, M[s], eps)
+            same_f = same_f and bool(torch.equal(f1, f[s]))
+            same_y = same_y and bool(torch.equal(Y1, Y[s]))
+            f_r, Y_r = losses.loss_fg_reference("KL", X, M[s], eps)
+            err_y = max(err_y, float(((Y[s] - Y_r).abs()
+                                      / gh_scale("KL", X, M[s], eps, None)).max()))
+            err_f = max(err_f, abs(float(f[s]) - float(f_r)) / abs(float(f_r)))
+            del f1, Y1, Y_r
+        item = X.element_size()
+        t_b, by = bound(item * (n + 2 * S * n), 6 * S * n)
+        t_s = time_ms(lambda: loss_fg_cuda_starts("KL", X, M, eps), flush)
+        t_1 = time_ms(lambda: [loss_fg_cuda("KL", X, M[s], eps) for s in range(S)],
+                      flush)
+        print(f"kernel D on the start axis, KL {shape} x {S} starts {dt}: "
+              f"{n_l} launch; gh max |kernel-plain| / scale {err_y:.3e} (bound "
+              f"{rtol_y:.0e}), sum fh rel diff {err_f:.3e} (bound {rtol_f:.0e}); "
+              f"against {S} single launches: f bit for bit {same_f}, Y bit for "
+              f"bit {same_y}; {t_s * 1e3:.1f} us against {S} launches "
+              f"{t_1 * 1e3:.1f} us; bound {t_b * 1e3:.1f} us ({by})  [{power}]")
+        if not (n_l == 1 and same_f and same_y and err_y <= rtol_y
+                and err_f <= rtol_f):
+            raise RuntimeError(f"kernel D on the start axis disagrees ({dt})")
+        if dt == torch.float32:
+            out["D"] = {"starts_ms": t_s, "singles_ms": t_1, "starts_bound_ms": t_b}
+        del X, M, f, Y
+    del M64, X64, flush
+
+    # (a) the KL workload: S starts against one start's fit, in turns
+    spec, data, opts, init = mw.kl_problem(dev, torch.float32)
+    opts = dataclasses.replace(opts, MaxOuterIters=MS_KL_ITERS, AbsFuncTol=0.0,
+                               OuterRelTol=0.0)
+
+    def kl_run(label):
+        loss_fg_cuda.launches = mttkrp3.launches = to_host.calls = 0
+        if label == "fit":
+            _, _, _, o = cmtf_aoadmm(spec, data, opts, init_options=init, seed=0,
+                                     validate=False)
+            finals = [o.f_tensors]
+        else:
+            _, o, finals, _ = fit_multistart(spec, data, opts, init, S,
+                                             keys=range(S))
+        n_it = o.OuterIterations
+        n_d, n_m, reads = loss_fg_cuda.launches, mttkrp3.launches, to_host.calls
+        lb = o.lbfgsb_iterations
+        print(f"KL workload, {label}: {n_it} iterations, {o.time_total / n_it * 1e3:.3f} "
+              f"ms an iteration; host reads {reads / n_it:.2f} an iteration; "
+              f"kernel D launches {n_d / n_it:.2f} an iteration, mttkrp3 "
+              f"{n_m / n_it:.2f}; peak {torch.cuda.max_memory_allocated() / 2**20:.0f} "
+              f"MiB; {'best start' if label != 'fit' else 'the fit'}: L-BFGS-B "
+              f"iterations by iteration {lb.sum(axis=0)[1:].tolist()}, f_tensors "
+              f"{np.nanmin(finals):.6e}  [{power}]")
+        if n_it != MS_KL_ITERS or not np.all(np.isfinite(finals)) or n_d == 0 \
+                or n_m == 0 or lb.sum() == 0:
+            raise RuntimeError(f"KL workload {label}: {n_it} iterations, finals "
+                               f"{finals}, D {n_d}, mttkrp3 {n_m}")
+        if label == "multistart":
+            out["D_launches"] = n_d
+        return o.time_total / n_it * 1e3
+
+    in_turns(kl_run, power, "KL workload")
+    states = [init_coupled(spec, data, init, seed=k) for k in range(S)]
+    o2 = dataclasses.replace(opts, MaxOuterIters=2)
+    print("KL workload, one start's fit:")
+    profile_fit(spec, data, states[0], o2)
+    print(f"KL workload, {S} starts on the start axis:")
+    profile_fit(spec, data, None, o2, run=lambda: _fit_lanes(spec, data, states, o2))
+    del data, states
+
+    # (b) the sparse workload: one sparse kernel call of S R columns a mode,
+    # against S single-start calls, then S starts against one start's fit
+    spec, data, opts, init = mw.sparse_problem(dev, torch.float32)
+    opts = dataclasses.replace(opts, MaxOuterIters=MS_SPARSE_ITERS,
+                               AbsFuncTol=0.0, OuterRelTol=0.0)
+    data = attach_sparse_plans(spec, data, opts)
+    X = data.objects[0]
+    R = spec.datasets[0].rank
+    D = spec.mode_sizes[0]
+    X64 = SparseTensor(X.indices, X.values.double()).with_plans(spec.mode_sizes, R)
+    flush = l2_flush(dev)
+    free, total = torch.cuda.mem_get_info()
+    for mode in range(3):
+        plan = X.plans[mode]
+        print(f"sparse mode {mode}: the {plan.variant} kernel, P {plan.lanes}; "
+              f"the {S}-start call's partial sums {plan.nchunks} x {S * R} float32 "
+              f"= {plan.nchunks * S * R * 4 / 2**20:.1f} MiB of the card's "
+              f"{total / 2**30:.1f} GiB ({free / 2**30:.1f} GiB free)")
+        for T, dt in ((X, torch.float32), (X64, torch.float64)):
+            F = [torch.rand((S, d, R), generator=gen, device=dev, dtype=dt)
+                 for d in spec.mode_sizes]
+            before = mttkrp_sparse_cuda.launches
+            wide = torch.func.vmap(lambda a, b, c: mttkrp_sparse(
+                T.indices, T.values, [a, b, c], mode, D, T.plans[mode]))(*F)
+            n_l = mttkrp_sparse_cuda.launches - before
+            each = torch.stack([mttkrp_sparse_cuda(T.plans[mode], [f[s] for f in F])
+                                for s in range(S)])
+            rel = float((wide - each).abs().max() / each.abs().max())
+            same = bool(torch.equal(wide, each))
+            line = (f"  {dt}: one call ({n_l} launch) against {S} single-start "
+                    f"calls: max rel diff {rel:.3e}, bit for bit {same}")
+            if dt == torch.float32:
+                t_w = time_ms(lambda: torch.func.vmap(lambda a, b, c: mttkrp_sparse(
+                    T.indices, T.values, [a, b, c], mode, D, T.plans[mode]))(*F),
+                    flush)
+                t_e = time_ms(lambda: [mttkrp_sparse_cuda(T.plans[mode],
+                                                          [f[s] for f in F])
+                                       for s in range(S)], flush)
+                line += (f"; {t_w * 1e3:.1f} us against {S} calls "
+                         f"{t_e * 1e3:.1f} us  [{power}]")
+            print(line)
+            if n_l != 1 or (dt == torch.float64 and not rel <= 1e-12) \
+                    or not rel <= 1e-5:
+                raise RuntimeError(f"the sparse kernel's start-axis call "
+                                   f"disagrees: mode {mode} {dt}")
+            del F, wide, each
+    del X64, flush
+
+    def sparse_run(label):
+        mttkrp_sparse_cuda.launches = to_host.calls = 0
+        if label == "fit":
+            _, _, _, o = cmtf_aoadmm(spec, data, opts, init_options=init, seed=0)
+            finals = [o.f_tensors]
+        else:
+            _, o, finals, _ = fit_multistart(spec, data, opts, init, S,
+                                             keys=range(S))
+        n_it = o.OuterIterations
+        n_s, reads = mttkrp_sparse_cuda.launches, to_host.calls
+        print(f"sparse workload, {label}: {n_it} iterations, "
+              f"{o.time_total / n_it * 1e3:.3f} ms an iteration; host reads "
+              f"{reads / n_it:.2f} an iteration; sparse kernel launches {n_s} "
+              f"({(n_s - 1) / n_it:.2f} an iteration, 1 for the initial "
+              f"objective); peak {torch.cuda.max_memory_allocated() / 2**20:.0f} "
+              f"MiB; f_tensors {np.nanmin(finals):.6e}  [{power}]")
+        if n_it != MS_SPARSE_ITERS or not np.all(np.isfinite(finals)) \
+                or n_s != 3 * n_it + 1:
+            raise RuntimeError(f"sparse workload {label}: {n_it} iterations, "
+                               f"{n_s} sparse launches, finals {finals}")
+        if label == "multistart":
+            out["sparse_launches"] = n_s
+        return o.time_total / n_it * 1e3
+
+    in_turns(sparse_run, power, "sparse workload")
+    del data, X
+
+    # (d) script 07's widths, float64: the card's starts against the CPU's
+    # and against each start's own card fit
+    spec7, data_c, o7, init7 = mw.script07_problem("cpu", torch.float64,
+                                                   MS_S07_ITERS)
+    _, data_g, _, _ = mw.script07_problem(dev, torch.float64, MS_S07_ITERS)
+    init_np = [state_to_numpy(init_coupled(spec7, data_c, init7, seed=k))
+               for k in mw.S07_KEYS]
+    cpu = _fit_lanes(spec7, data_c, [state_from_numpy(s, "cpu") for s in init_np],
+                     o7)
+    loss_fg_cuda.launches = 0
+    gpu = _fit_lanes(spec7, data_g, [state_from_numpy(s, dev) for s in init_np], o7)
+    n_d = loss_fg_cuda.launches
+    worst = {"cpu": 0.0, "own fit": 0.0}
+    for s in range(len(init_np)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # the data are not counts
+            _, own = fit(spec7, data_g, state_from_numpy(init_np[s], dev), o7)
+        for label, a, b in (("cpu", gpu.outs[s], cpu.outs[s]),
+                            ("own fit", gpu.outs[s], own)):
+            if a.OuterIterations != b.OuterIterations \
+                    or not np.array_equal(a.innerIters, b.innerIters) \
+                    or not np.array_equal(a.lbfgsb_iterations, b.lbfgsb_iterations):
+                raise RuntimeError(f"script 07 start {s}: the card's lane and "
+                                   f"the {label} ran other iterations")
+            for k in ("func_val_conv", "func_coupl_conv"):
+                x, y = getattr(a, k), getattr(b, k)
+                worst[label] = max(worst[label], float(np.max(
+                    np.abs(x - y) / np.maximum(np.abs(y), 1e-300))))
+    print(f"script 07's widths, {len(init_np)} starts (init seeds {mw.S07_KEYS}), "
+          f"{MS_S07_ITERS} iterations, float64: the card's lanes against the "
+          f"CPU's max rel diff {worst['cpu']:.3e}, against each start's own card "
+          f"fit {worst['own fit']:.3e} (bound 1e-12); inner and L-BFGS-B "
+          f"iterations equal; kernel D launches {n_d}; L-BFGS-B iterations "
+          f"{[int(o.lbfgsb_iterations.sum()) for o in gpu.outs]}")
+    if n_d == 0 or not max(worst.values()) <= 1e-12:
+        raise RuntimeError(f"script 07 on the start axis: {worst}, D {n_d}")
+
+    # (e) the flagship with cp_pairwise_perturbation: the exact MTTKRPs, as
+    # the JAX function runs them, so the finals equal the run without it
+    spec, data, opts, init = mw.flagship_problem(dev, torch.float32, MS_PP_ITERS)
+    opts = dataclasses.replace(opts, AbsFuncTol=0.0, OuterRelTol=0.0)
+    finals = {}
+    for pp in (False, True):
+        pairwise.reset_counts()
+        _, _, finals[pp], _ = fit_multistart(
+            spec, data, dataclasses.replace(opts, cp_pairwise_perturbation=pp),
+            init, MS_PP_STARTS, keys=range(MS_PP_STARTS))
+        first, active, rebuilds = pp_counts()
+        if active or rebuilds:
+            raise RuntimeError("fit_multistart ran the pairwise gate")
+    print(f"flagship, {MS_PP_STARTS} starts, {MS_PP_ITERS} iterations: finals with "
+          f"cp_pairwise_perturbation {finals[True].tolist()}, without "
+          f"{finals[False].tolist()}; equal {np.array_equal(finals[True], finals[False])}")
+    if not np.array_equal(finals[True], finals[False]):
+        raise RuntimeError("fit_multistart with the pairwise option moved")
+    del data
+    done(20, t0)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2376,6 +2672,9 @@ def main():
     kl = kl_phases(dev, power)
     em = em_phases(dev, power)
     ms_launches = multistart_phase(dev, power)
+    ms_rest = multistart_rest_phase(dev, power)
+    kl["D"].update(ms_rest["D"], multistart_launches=ms_rest["D_launches"])
+    sparse["multistart_launches"] = ms_rest["sparse_launches"]
     for e in prox_entries:
         e.update(par2["batched"][
             "A" if e["name"] == "project_isotonic_cols" else "B"])

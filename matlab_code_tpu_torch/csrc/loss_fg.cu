@@ -31,6 +31,13 @@
 // the storage type.  No atomics, so two calls on the same inputs give the
 // same bits (the L-BFGS-B line search and its stop tests branch on f).
 //
+// Several problems in one launch (fit_multistart's starts): grid.y is the
+// start s, which takes M, Y and its partials at offset s n (s blocks) and X
+// at s x_stride (0 where the starts share X).  Each start's blocks walk
+// its elements exactly as a launch of that start alone does, and the
+// second launch has one block a start, so every start's f and Y carry the
+// bits of its own single-start launch.
+//
 // Arithmetic: each elementwise result is that of the plain version
 // (ops/losses.loss_fg_reference, one torch operation at a time): every
 // product, sum and quotient is an _rn intrinsic in the storage type, in the
@@ -143,10 +150,15 @@ __device__ __forceinline__ double block_sum(double v, double* warp_sums) {
 
 template <typename T, int L>
 __global__ void __launch_bounds__(kThreads)
-loss_fg_pass(const T* __restrict__ X, const T* __restrict__ M,
+loss_fg_pass(const T* __restrict__ X, long x_stride, const T* __restrict__ M,
              T* __restrict__ Y, long n, Consts<T> c,
              double* __restrict__ partials) {
   __shared__ double warp_sums[kThreads / 32];
+  const long s = blockIdx.y;
+  X += s * x_stride;
+  M += s * n;
+  Y += s * n;
+  partials += s * gridDim.x;
   const long stride = static_cast<long>(gridDim.x) * kThreads;
   double acc = 0.0;
   for (long i = static_cast<long>(blockIdx.x) * kThreads + threadIdx.x; i < n;
@@ -163,6 +175,8 @@ template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
 loss_fg_reduce(const double* __restrict__ partials, int count, T* __restrict__ f) {
   __shared__ double warp_sums[kReduceThreads / 32];
+  partials += static_cast<long>(blockIdx.x) * count;
+  f += blockIdx.x;
   double acc = 0.0;
   for (int i = threadIdx.x; i < count; i += kReduceThreads) acc += partials[i];
   acc = block_sum(acc, warp_sums);
@@ -170,9 +184,9 @@ loss_fg_reduce(const double* __restrict__ partials, int count, T* __restrict__ f
 }
 
 template <typename T>
-int loss_fg_launch(int loss, const void* X, const void* M, void* Y, long n,
-                   double eps, double beta, double* partials, int blocks,
-                   void* f, cudaStream_t st) {
+int loss_fg_launch(int loss, const void* X, long x_stride, const void* M,
+                   void* Y, long n, int starts, double eps, double beta,
+                   double* partials, int blocks, void* f, cudaStream_t st) {
   Consts<T> c;
   c.eps = static_cast<T>(eps);
   c.b = static_cast<T>(beta);
@@ -186,32 +200,39 @@ int loss_fg_launch(int loss, const void* X, const void* M, void* Y, long n,
   const T* x = static_cast<const T*>(X);
   const T* m = static_cast<const T*>(M);
   T* y = static_cast<T*>(Y);
+  const dim3 grid(blocks, starts);
   switch (loss) {
-    case kKL: loss_fg_pass<T, kKL><<<blocks, kThreads, 0, st>>>(x, m, y, n, c, partials); break;
-    case kIS: loss_fg_pass<T, kIS><<<blocks, kThreads, 0, st>>>(x, m, y, n, c, partials); break;
-    case kBeta: loss_fg_pass<T, kBeta><<<blocks, kThreads, 0, st>>>(x, m, y, n, c, partials); break;
+    case kKL: loss_fg_pass<T, kKL><<<grid, kThreads, 0, st>>>(x, x_stride, m, y, n, c, partials); break;
+    case kIS: loss_fg_pass<T, kIS><<<grid, kThreads, 0, st>>>(x, x_stride, m, y, n, c, partials); break;
+    case kBeta: loss_fg_pass<T, kBeta><<<grid, kThreads, 0, st>>>(x, x_stride, m, y, n, c, partials); break;
     default: return (int)cudaErrorInvalidValue;
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  loss_fg_reduce<T><<<1, kReduceThreads, 0, st>>>(partials, blocks, static_cast<T*>(f));
+  loss_fg_reduce<T><<<starts, kReduceThreads, 0, st>>>(partials, blocks, static_cast<T*>(f));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C entry for ctypes.  is_double selects float64 (else float32); loss is
-// 0 KL, 1 IS, 2 beta.  X, M and Y: n contiguous elements on the device; Y
-// is written.  partials: `blocks` doubles of scratch on the device; f: one
-// element of the storage type on the device, written with sum fh.  Returns
-// the CUDA error of the two launches.
-extern "C" int loss_fg_run(int is_double, int loss, const void* X, const void* M,
-                           void* Y, long n, double eps, double beta,
-                           void* partials, int blocks, void* f, void* stream) {
-  if (n < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+// 0 KL, 1 IS, 2 beta.  `starts` problems of n contiguous elements each: M
+// and Y hold starts x n on the device (Y is written), X the same with
+// start s at s x_stride (x_stride 0: one X for every start).  partials:
+// starts x `blocks` doubles of scratch on the device; f: `starts` elements
+// of the storage type on the device, written with each start's sum fh.
+// Returns the CUDA error of the two launches.
+extern "C" int loss_fg_run(int is_double, int loss, const void* X, long x_stride,
+                           const void* M, void* Y, long n, int starts,
+                           double eps, double beta, void* partials, int blocks,
+                           void* f, void* stream) {
+  if (n < 1 || blocks < 1 || starts < 1 || starts > 65535 || x_stride < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   double* p = static_cast<double*>(partials);
   return is_double
-      ? loss_fg_launch<double>(loss, X, M, Y, n, eps, beta, p, blocks, f, st)
-      : loss_fg_launch<float>(loss, X, M, Y, n, eps, beta, p, blocks, f, st);
+      ? loss_fg_launch<double>(loss, X, x_stride, M, Y, n, starts, eps, beta, p,
+                               blocks, f, st)
+      : loss_fg_launch<float>(loss, X, x_stride, M, Y, n, starts, eps, beta, p,
+                              blocks, f, st);
 }

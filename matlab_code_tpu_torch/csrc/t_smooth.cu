@@ -55,7 +55,7 @@
 //     theorem and gives IEEE's n / d.  tests/test_torch_prox_cuda.py
 //     holds the step over 10^7 pairs a dtype, near-midpoint quotients among
 //     them, against __fdiv_rn / __ddiv_rn (t_smooth_div_run), and
-//     tests/test_torch_t_smooth_division.py emulates it exactly.  The
+//     tests/torch_t_smooth_division_cases.py emulates it exactly.  The
 //     correction is exact only away from overflow and underflow: a group of
 //     steps in which a numerator is not zero or normal within [2^-60, 2^60]
 //     ([2^-500, 2^500] in float64), or a d'_k is not within that window

@@ -64,7 +64,9 @@ def run_inner(step, carry, options):
     start steps while its own test held at every step: the read is whether
     any start still steps (any_lane, one read a step whatever the number of
     starts), a start that stopped keeps its carry (lanes.keep), and n is
-    each start's own count, a tensor."""
+    each start's own count, a tensor.  Each step after the first gets the
+    starts still stepping, step(carry, active), so a loop nested in the
+    step (the lanes L-BFGS-B) moves only those."""
     if options.MaxInnerIters < 1:
         return carry, 0
     carry, go = step(carry)
@@ -78,7 +80,7 @@ def run_inner(step, carry, options):
     n = torch.ones_like(go, dtype=torch.int32)
     it = 2
     while it <= options.MaxInnerIters and to_host(any_lane(active)):
-        new, go = step(carry)
+        new, go = step(carry, active)
         carry = keep(active, new, carry)
         n = n + active.to(torch.int32)
         active = active & go
@@ -220,7 +222,7 @@ def admm_constrained_only(spec: ProblemSpec, state: SolverState, m: int, p: int,
     rho_b = rho[:, None] if spec.mode_role(m) == "par2_C" else rho
     lb = 0
 
-    def step(carry):
+    def step(carry, active=None):
         nonlocal lb
         state = carry[0]
         if frob:
@@ -229,7 +231,7 @@ def admm_constrained_only(spec: ProblemSpec, state: SolverState, m: int, p: int,
             state = state.replace(fac=tuple_set(state.fac, m, solve(A_inner)))
         else:
             state, nit = lbfgs_step(state, data, constrained=True,
-                                    coupling_type=-1, rho=rho)
+                                    coupling_type=-1, rho=rho, active=active)
             lb += nit
         state, oldZ = upd(state, m, rho)
         pr, dr = eval_res_constr(spec, state, (m,), {m: oldZ})
@@ -269,7 +271,7 @@ def admm_b_parafac2(spec: ProblemSpec, state: SolverState, m: int, p: int,
     rho3 = rho[:, None, None]
     zero = torch.zeros((), dtype=A.dtype, device=A.device)
 
-    def step(state):
+    def step(state, active=None):
         P_, DB, mu = state.P[p], state.DeltaB[p], state.mu_DeltaB[p]
         A_inner = A + 0.5 * rho3 * (P_ @ DB - mu)
         if constrained:
@@ -562,7 +564,7 @@ def admm_coupled(spec: ProblemSpec, state: SolverState, data, cmodes, cid,
             for m in cmodes}
     lb = {m: 0 for m in cmodes if not frob[m]}
 
-    def step(carry):
+    def step(carry, active=None):
         state = carry[0]
         for mm in cmodes:
             if frob[mm]:
@@ -573,7 +575,7 @@ def admm_coupled(spec: ProblemSpec, state: SolverState, data, cmodes, cid,
             else:
                 state, nit = lbfgs_steps[mm](
                     state, data, constrained=spec.is_constrained(mm),
-                    coupling_type=ctype, rho=rhos[mm])
+                    coupling_type=ctype, rho=rhos[mm], active=active)
                 lb[mm] += nit
         oldDelta = state.coupling_fac[cid - 1]
         Delta = _delta_update(spec, state, data, cmodes, cid, ctype, rhos)

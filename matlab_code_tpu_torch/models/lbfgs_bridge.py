@@ -21,9 +21,12 @@ from matlab_code_tpu_torch.state import tuple_set
 
 
 def make_lbfgs_step(spec: ProblemSpec, p: int, m: int, options):
-    """step(state, data, constrained, coupling_type, rho) -> (state,
-    iterations) updating fac[m] by L-BFGS-B; coupling_type -1 is an
-    uncoupled mode."""
+    """step(state, data, constrained, coupling_type, rho, active=None) ->
+    (state, iterations) updating fac[m] by L-BFGS-B; coupling_type -1 is an
+    uncoupled mode.  On fit_multistart's start axis the L-BFGS-B runs its
+    lanes form (ops/lbfgsb.py): iterations is each start's count, a
+    tensor, and active names the starts that take part (those the inner
+    loop still steps, models/admm.run_inner; None: every start)."""
     ds = spec.datasets[p]
     local = ds.modes.index(m)
     lo, hi = losses.loss_bounds(ds.loss)
@@ -31,7 +34,8 @@ def make_lbfgs_step(spec: ProblemSpec, p: int, m: int, options):
     cid = spec.coupling_id(m)
     ridge = spec.ridge[m] if spec.ridge is not None else 0
 
-    def step(state, data, constrained: bool, coupling_type: int, rho):
+    def step(state, data, constrained: bool, coupling_type: int, rho,
+             active=None):
         X = data.objects[p]
         fshape = state.fac[m].shape
         fac0 = state.fac[m]
@@ -87,7 +91,7 @@ def make_lbfgs_step(spec: ProblemSpec, p: int, m: int, options):
 
         res = lbfgsb(vag, fac0.reshape(-1), lo, hi, m=lopt.m,
                      maxiter=lopt.maxIts, pgtol=lopt.pgtol, factr=lopt.factr,
-                     max_total_its=lopt.maxTotalIts)
+                     max_total_its=lopt.maxTotalIts, active=active)
         state = state.replace(fac=tuple_set(state.fac, m,
                                             res.x.reshape(fshape)))
         return state, res.iterations

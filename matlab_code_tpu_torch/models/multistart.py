@@ -9,11 +9,19 @@ as fit runs them) runs under torch.func.vmap over the starts, so each
 launch and each device read serves every start:
   * every dense MTTKRP of the S starts is one mttkrp call with the starts'
     columns side by side (ops/tensor.mttkrp_columns; on the card one
-    mttkrp3 call in column blocks of 32), and the sequential proxes fold
-    the starts into their slice axis (ops/lanes.py);
+    mttkrp3 call in column blocks of 32), and so is every sparse COO
+    MTTKRP (one call of the sparse kernel through the plan fit builds at
+    rank R); the sequential proxes fold the starts into their slice axis
+    (ops/lanes.py);
   * each inner ADMM loop runs while any start still steps, each start
     stopping on its own exit test (models/admm.run_inner), one read a
     step;
+  * a mode of a KL, IS or beta dataset takes its factor step by the lanes
+    form of L-BFGS-B (ops/lbfgsb.py): each start searches and stops on its
+    own, one read a line-search try for every start, and each evaluation's
+    loss pass is one launch of kernel D for every start (ops/losses.py);
+    each start carries its own column norms and rho scales (the L-BFGS-B
+    rho) and its own L-BFGS-B counts;
   * the outer loop reads each start's stop flag and ill-conditioning flag
     once an iteration.  A start that stopped leaves the batch: its state
     and history stay as they were at its stop (the JAX lane masking), and
@@ -23,14 +31,15 @@ fit's two phases do, and the best start (the least final f_tensors) comes
 back with a full FitOutput.  Starts are drawn with init_coupled, one
 seeded generator a start (see fit_multistart for the seeds).
 
-Not on the start axis yet, each raising NotImplementedError: losses other
-than Frobenius (their L-BFGS-B line searches read the device once a try,
-ops/lbfgsb.py), sparse COO data, the pairwise-perturbation MTTKRP, and
-mesh= start sharding.
+A quirk kept from the JAX function: options.cp_pairwise_perturbation is
+not read here (matlab_code_tpu/models/multistart.py:133 builds its step
+without the pairwise datasets), so every start runs the exact MTTKRPs.
+mesh= (start sharding over several cards) raises NotImplementedError.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import NamedTuple
 
@@ -40,19 +49,16 @@ import torch
 from matlab_code_tpu_torch.models.admm import to_host
 from matlab_code_tpu_torch.models.init import init_coupled
 from matlab_code_tpu_torch.models.objective import func_eval
-from matlab_code_tpu_torch.models.pairwise import eligible_pp_datasets
 from matlab_code_tpu_torch.models.solver import (
     STREAMS, FitOutput, _check_devices, _check_ported, _has_bk_constraint,
     attach_sparse_plans, build_proxes, compute_znorm_consts, em_impute,
     init_cache, make_outer_step, stopping)
 from matlab_code_tpu_torch.options import (
-    AlgOptions, InitOptions, apply_matmul_precision)
+    AlgOptions, InitOptions, scoped_matmul_precision)
 from matlab_code_tpu_torch.problem import (
-    PAR2, Parafac2Tensor, ProblemData, ProblemSpec, SparseTensor,
-    check_data_input, has_missing)
+    PAR2, Parafac2Tensor, ProblemData, ProblemSpec, check_data_input,
+    has_missing)
 from matlab_code_tpu_torch.state import SolverState, fields_of
-
-_ROADMAP = "ROADMAP.md section 1, item 6 (slice 7)"
 
 
 def _stopping_v(f4_new, f4_old, options):
@@ -85,23 +91,6 @@ def _map2(fn, a, b):
     return None if a is None else fn(a, b)
 
 
-def _check_reached(spec: ProblemSpec, data: ProblemData, options: AlgOptions
-                   ) -> None:
-    if spec.has_non_frobenius():
-        raise NotImplementedError(
-            "fit_multistart: losses other than Frobenius take L-BFGS-B "
-            "steps whose line searches read the device once a try; per-start "
-            f"line searches are {_ROADMAP}'s next part")
-    if any(isinstance(X, SparseTensor) for X in data.objects):
-        raise NotImplementedError(
-            f"fit_multistart: sparse COO data on the start axis is {_ROADMAP}'s "
-            "next part")
-    if eligible_pp_datasets(spec, data, options):
-        raise NotImplementedError(
-            "fit_multistart: the pairwise-perturbation MTTKRP on the start "
-            f"axis is {_ROADMAP}'s next part")
-
-
 def fit_multistart(spec: ProblemSpec, data: ProblemData, options: AlgOptions,
                    init_options: InitOptions, n_starts: int, base_key=0,
                    delta_shapes=None, keys=None, mesh=None):
@@ -115,19 +104,25 @@ def fit_multistart(spec: ProblemSpec, data: ProblemData, options: AlgOptions,
     delta_shapes=delta_shapes), a generator on the data's device seeded
     with the key, as cmtf_aoadmm(..., seed=k) draws it, so keys=[k, ...]
     reproduces the sequential cmtf_aoadmm(..., seed=k) fits.  Without keys,
-    start s takes the seed base_key + s.  mesh= (start sharding over
-    several cards) raises NotImplementedError, as do the cases the start
-    axis does not take yet (models/multistart.py)."""
+    start s takes the seed base_key + s, a string base_key first hashed
+    to the int of its sha256's first 8 hex digits (the JAX function's
+    rule).  Every loss, sparse COO data and EM take the start axis;
+    cp_pairwise_perturbation is not read (the JAX function's exact
+    MTTKRPs, models/multistart.py).  mesh= (start sharding over several
+    cards) raises NotImplementedError."""
     if keys is not None:
         keys = [int(k) for k in keys]
         if len(keys) != n_starts:
             raise ValueError(f"got {len(keys)} keys for {n_starts} starts")
     else:
+        if isinstance(base_key, str):
+            base_key = int(hashlib.sha256(base_key.encode()).hexdigest()[:8],
+                           16)
         keys = [int(base_key) + s for s in range(n_starts)]
     if mesh is not None:
         raise NotImplementedError(
             "fit_multistart(mesh=): sharding the start axis over several "
-            "cards comes with ROADMAP.md section 1, item 7 (slice 8, "
+            "cards comes with ROADMAP.md section 1, item 5 (slice 8, "
             "parallel/)")
     states = [init_coupled(spec, data, init_options, seed=k,
                            delta_shapes=delta_shapes) for k in keys]
@@ -158,12 +153,16 @@ def _fit_lanes(spec: ProblemSpec, data: ProblemData, states,
                options: AlgOptions) -> Lanes:
     """The starts from given initial states, one a start, on one start
     axis; every start's result (fit_multistart returns its .best()).  The
-    seam the tests use to start from the JAX package's init states."""
-    _check_reached(spec, data, options)
+    seam the tests use to start from the JAX package's init states.  The
+    matmul precision holds for the call only (scoped_matmul_precision)."""
     check_data_input(spec, data)
     _check_ported(spec)
     _check_devices(data, states[0])
-    apply_matmul_precision(options)
+    with scoped_matmul_precision(options):
+        return _run_lanes(spec, data, states, options)
+
+
+def _run_lanes(spec, data, states, options) -> Lanes:
     data = attach_sparse_plans(spec, data, options)
     S = len(states)
     T = options.MaxOuterIters
@@ -173,11 +172,7 @@ def _fit_lanes(spec: ProblemSpec, data: ProblemData, states,
     proxes, reg_fns = build_proxes(spec)
     like = states[0].fac[0]
     dev, dt = like.device, like.dtype
-    zero = torch.zeros((), dtype=dt, device=dev)
     nan = torch.full((), float("nan"), dtype=dt, device=dev)
-    # the per-mode carries of non-Frobenius modes; constant here
-    colnorms = (zero,) * nb
-    rho_scale = (torch.ones((), dtype=dt, device=dev),) * nb
     masked = tuple(p for p in range(len(spec.datasets))
                    if data.miss[p] is not None)
 
@@ -193,49 +188,62 @@ def _fit_lanes(spec: ProblemSpec, data: ProblemData, states,
     def dense(X):
         return X.slices if isinstance(X, Parafac2Tensor) else X
 
+    def counts(its):
+        """A mode -> count dict as an (nb,) int32 tensor, 0 where absent."""
+        return torch.stack([
+            v.to(torch.int32) if isinstance(v, torch.Tensor) else
+            torch.tensor(v, dtype=torch.int32, device=dev)
+            for v in (its.get(m, 0) for m in range(nb))])
+
     def start(flat):
         state = SolverState(*flat)
-        grams, _ = init_cache(spec, state)
-        return grams, torch.stack(func_eval(spec, data, state, grams, znorms,
-                                            reg_fns, None, options))
+        grams, colnorms = init_cache(spec, state)
+        return grams, colnorms, torch.stack(func_eval(
+            spec, data, state, grams, znorms, reg_fns, None, options))
 
     def make_iterate(bk_active):
         step = make_outer_step(spec, options, proxes, reg_fns, bk_active)
 
-        def one(flat, grams, objs):
+        def one(carry):
             """One outer iteration of one start: the sweep, the EM
-            imputation, the objective (fit's order, _FitRun.iterate)."""
+            imputation, the objective (fit's order, _FitRun.iterate).
+            carry: (state fields, grams, column norms, rho scales, the
+            imputed data)."""
+            flat, grams, colnorms, rho_scale, objs = carry
             dat = with_objects(objs)
-            (state, grams, _, _, cached, inner_its, _, illc, _) = step(
-                SolverState(*flat), dat, grams, colnorms, rho_scale)
+            (state, grams, colnorms, rho_scale, cached, inner_its, lb_its,
+             illc, _) = step(SolverState(*flat), dat, grams, colnorms,
+                             rho_scale)
             frm = nan
             if miss:
                 dat, frm = em_impute(spec, dat, state)
                 objs = tuple(dense(dat.objects[p]) for p in masked)
             f4 = func_eval(spec, dat, state, grams, znorms, reg_fns,
                            cached=cached, options=options)
-            inner = torch.stack([
-                v.to(torch.int32) if isinstance(v, torch.Tensor) else
-                torch.tensor(v, dtype=torch.int32, device=dev)
-                for v in (inner_its.get(m, 0) for m in range(nb))])
-            return (fields_of(state), grams, objs, torch.stack(f4 + (frm,)),
-                    inner, illc)
+            return ((fields_of(state), grams, colnorms, rho_scale, objs),
+                    torch.stack(f4 + (frm,)), counts(inner_its),
+                    counts(lb_its), illc)
 
-        return torch.func.vmap(one, in_dims=(flat_d, gram_d, 0),
-                               out_dims=(flat_d, gram_d, 0, 0, 0, 0))
+        return torch.func.vmap(one, in_dims=(carry_d,),
+                               out_dims=(carry_d, 0, 0, 0, 0))
 
     flat = _stack(states)
-    flat_d = _dims(flat)
-    gram_d = _dims(init_cache(spec, states[0])[0])
+    grams0, colnorms0 = init_cache(spec, states[0])
+    carry_d = (_dims(flat), _dims(grams0), _dims(colnorms0),
+               _dims(colnorms0), (0,) * len(masked))
     bk = _has_bk_constraint(spec)
     iterate = {a: make_iterate(a) for a in ((False, True) if bk else (True,))}
-    grams, f4 = torch.func.vmap(start, in_dims=(flat_d,),
-                                out_dims=(gram_d, 0))(flat)
+    grams, colnorms, f4 = torch.func.vmap(
+        start, in_dims=(carry_d[0],), out_dims=carry_d[1:3] + (0,))(flat)
+    rho_scale = tuple(torch.ones((S,), dtype=dt, device=dev)
+                      for _ in range(nb))
     objs = tuple(dense(data.objects[p]).expand(S, *dense(data.objects[p]).shape)
                  for p in masked)
+    carry = (flat, grams, colnorms, rho_scale, objs)
     f5 = torch.cat([f4, nan.expand(S, 1)], dim=1)
     hist = [f5]
     inner_h = [torch.zeros((S, nb), dtype=torch.int32, device=dev)]
+    lb_h = [inner_h[0]]
     running = list(range(S))
     stop_iter = [T] * S
     stopped = [False] * S
@@ -248,25 +256,24 @@ def _fit_lanes(spec: ProblemSpec, data: ProblemData, states,
         idx = None if full else torch.tensor(running, device=dev)
         take = (lambda x: x) if full else (lambda x: x.index_select(0, idx))
         step = iterate[(not bk) or it >= options.iter_start_PAR2Bkconstraint]
-        nflat, ngrams, nobjs, f5n, inner, illc = step(
-            _map(take, flat), _map(take, grams), _map(take, objs))
+        ncarry, f5n, inner, lb, illc = step(_map(take, carry))
         stop = _stopping_v(f5n[:, :4], take(f5)[:, :4], options)
         if miss:
             stop = stop & (f5n[:, 4] < options.OuterRelTol)
         stop = stop | ~torch.all(torch.isfinite(f5n[:, :4]), dim=1) | illc
         stop_h, illc_h = to_host(torch.stack([stop, illc]))
         if full:
-            flat, grams, objs, f5 = nflat, ngrams, nobjs, f5n
+            carry, f5 = ncarry, f5n
             hist.append(f5n)
             inner_h.append(inner)
+            lb_h.append(lb)
         else:
             put = lambda a, b: a.index_copy(0, idx, b)
-            flat, grams, objs = (_map2(put, a, b) for a, b in
-                                 ((flat, nflat), (grams, ngrams),
-                                  (objs, nobjs)))
+            carry = _map2(put, carry, ncarry)
             f5 = put(f5, f5n)
             hist.append(put(torch.zeros_like(f5), f5n))
             inner_h.append(put(torch.zeros_like(inner_h[0]), inner))
+            lb_h.append(put(torch.zeros_like(lb_h[0]), lb))
         for j, s in enumerate(running):
             stop_iter[s] = it
             illc_l[s] = illc_l[s] or bool(illc_h[j])
@@ -275,6 +282,7 @@ def _fit_lanes(spec: ProblemSpec, data: ProblemData, states,
         it += 1
     harr = torch.stack(hist).cpu().numpy()          # (n + 1, S, 5)
     inner_arr = torch.stack(inner_h).cpu().numpy()  # (n + 1, S, nb)
+    lb_arr = torch.stack(lb_h).cpu().numpy()
     t_total = time.perf_counter() - t0
 
     def output(s):
@@ -303,6 +311,7 @@ def _fit_lanes(spec: ProblemSpec, data: ProblemData, states,
             innerIters=inner_arr[:n_it + 1, s].T, time_total=t_total,
             time_at_it=np.arange(n_it + 1) * (t_total
                                               / max(max(stop_iter), 1)),
-            lbfgsb_iterations=None)
+            lbfgsb_iterations=(lb_arr[:n_it + 1, s].T
+                               if spec.has_non_frobenius() else None))
 
-    return Lanes(flat, [output(s) for s in range(S)])
+    return Lanes(carry[0], [output(s) for s in range(S)])

@@ -44,7 +44,7 @@ from matlab_code_tpu_torch.ops import losses
 from matlab_code_tpu_torch.ops.linalg import (
     block_diag, chol_lower, rsolve, solve, solve_spd_left, sylvester_solver)
 from matlab_code_tpu_torch.ops.prox import make_prox
-from matlab_code_tpu_torch.options import AlgOptions, apply_matmul_precision
+from matlab_code_tpu_torch.options import AlgOptions, scoped_matmul_precision
 from matlab_code_tpu_torch.problem import (
     CP, PAR2, Parafac2Tensor, ProblemData, ProblemSpec, SparseTensor,
     check_data_input, has_missing)
@@ -475,7 +475,6 @@ class _FitRun:
             _warn_loss_data(spec, data)
         _check_ported(spec)
         _check_devices(data, state)
-        apply_matmul_precision(options)
         self.spec, self.options, self.state = spec, options, state
         self.data = data = attach_sparse_plans(spec, data, options)
         self.miss = has_missing(data)
@@ -571,46 +570,47 @@ def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
     an iteration.  With validate, the data are checked (check_data_input)
     and KL or IS data that do not suit the loss are warned of
     (_warn_loss_data)."""
-    run = _FitRun(spec, data, state, options, validate)
-    T = options.MaxOuterIters
-    f4 = run.evaluate()
-    hist = [torch.stack(f4 + (run.nan,))]
-    if options.Display in ("iter", "final"):
-        print(" Iter  f total      f tensors      f couplings    "
-              "f constraints    f PAR2 couplings")
-        print("------ ------------ -------------  -------------- "
-              "---------------- ----------------")
+    with scoped_matmul_precision(options):
+        run = _FitRun(spec, data, state, options, validate)
+        T = options.MaxOuterIters
+        f4 = run.evaluate()
+        hist = [torch.stack(f4 + (run.nan,))]
+        if options.Display in ("iter", "final"):
+            print(" Iter  f total      f tensors      f couplings    "
+                  "f constraints    f PAR2 couplings")
+            print("------ ------------ -------------  -------------- "
+                  "---------------- ----------------")
 
-    times = [0.0]
-    t0 = time.perf_counter()
-    it = 1
-    stop = illc = False
-    while it <= T and not stop:
-        f4_new, frm, illc_t = run.iterate(it)
-        f4_vec = torch.stack(f4_new)
-        stop_t = stopping(f4_new, f4, options)
-        if run.miss:
-            stop_t = stop_t & (frm < options.OuterRelTol)
-        stop_t = stop_t | ~torch.isfinite(torch.sum(f4_vec)) | illc_t
-        stop, illc_now = to_host(torch.stack([stop_t, illc_t]))
-        illc = illc or illc_now
-        hist.append(torch.cat([f4_vec, frm[None]]))
-        times.append(time.perf_counter() - t0)
-        if options.Display == "iter" and it % options.DisplayIters == 0:
-            v = to_host(f4_vec)
-            print(f"{it:6d} {sum(v):12.8f} {v[0]:12.8f} {v[1]:12.8f} "
-                  f"{v[2]:12.8f} {v[3]:12.8f}")
-        f4 = f4_new
-        it += 1
-    harr = torch.stack(hist).cpu().numpy()
-    state, out = run.output(harr[:, :4], harr[:, 4], it - 1, stop, illc,
-                            times, time.perf_counter() - t0)
-    if options.Display in ("iter", "final"):
-        f4 = (out.f_tensors, out.f_couplings, out.f_constraints,
-              out.f_PAR2_couplings)
-        print(f"{out.OuterIterations:6d} {sum(f4):12.8f} {f4[0]:12.8f} "
-              f"{f4[1]:12.8f} {f4[2]:12.8f} {f4[3]:12.8f}")
-    return state, out
+        times = [0.0]
+        t0 = time.perf_counter()
+        it = 1
+        stop = illc = False
+        while it <= T and not stop:
+            f4_new, frm, illc_t = run.iterate(it)
+            f4_vec = torch.stack(f4_new)
+            stop_t = stopping(f4_new, f4, options)
+            if run.miss:
+                stop_t = stop_t & (frm < options.OuterRelTol)
+            stop_t = stop_t | ~torch.isfinite(torch.sum(f4_vec)) | illc_t
+            stop, illc_now = to_host(torch.stack([stop_t, illc_t]))
+            illc = illc or illc_now
+            hist.append(torch.cat([f4_vec, frm[None]]))
+            times.append(time.perf_counter() - t0)
+            if options.Display == "iter" and it % options.DisplayIters == 0:
+                v = to_host(f4_vec)
+                print(f"{it:6d} {sum(v):12.8f} {v[0]:12.8f} {v[1]:12.8f} "
+                      f"{v[2]:12.8f} {v[3]:12.8f}")
+            f4 = f4_new
+            it += 1
+        harr = torch.stack(hist).cpu().numpy()
+        state, out = run.output(harr[:, :4], harr[:, 4], it - 1, stop, illc,
+                                times, time.perf_counter() - t0)
+        if options.Display in ("iter", "final"):
+            f4 = (out.f_tensors, out.f_couplings, out.f_constraints,
+                  out.f_PAR2_couplings)
+            print(f"{out.OuterIterations:6d} {sum(f4):12.8f} {f4[0]:12.8f} "
+                  f"{f4[1]:12.8f} {f4[2]:12.8f} {f4[3]:12.8f}")
+        return state, out
 
 
 def fit_stepwise(spec: ProblemSpec, data: ProblemData, state: SolverState,
@@ -622,32 +622,33 @@ def fit_stepwise(spec: ProblemSpec, data: ProblemData, state: SolverState,
     rule, which in float32 may stop where fit's on-device rule does not).
     Keeps the PARAFAC2 two-phase switch, EM imputation and the pairwise
     perturbation; records true per-iteration wall times."""
-    run = _FitRun(spec, data, state, options, validate)
-    f4 = tuple(to_host(torch.stack(run.evaluate())))
-    hist, frm_hist, times = [f4], [float("nan")], [0.0]
-    t0 = time.perf_counter()
-    it = 1
-    stop = illc = False
-    while it <= options.MaxOuterIters and not stop:
-        f4_t, frm_t, illc_t = run.iterate(it)
-        vals = to_host(torch.cat([torch.stack(f4_t), frm_t[None],
-                                  illc_t[None].to(frm_t.dtype)]))
-        f4_new, frm = tuple(vals[:4]), vals[4]
-        stop = bool(stopping(*(torch.tensor(v, dtype=torch.float64)
-                               for v in (f4_new, f4)), options))
-        if run.miss:
-            stop = stop and frm < options.OuterRelTol
-        if not all(np.isfinite(f4_new)):
-            stop = True
-        if vals[5]:
-            illc = stop = True
-        hist.append(f4_new)
-        frm_hist.append(frm)
-        times.append(time.perf_counter() - t0)
-        f4 = f4_new
-        it += 1
-    return run.output(np.asarray(hist), np.asarray(frm_hist), it - 1, stop,
-                      illc, times, times[-1])
+    with scoped_matmul_precision(options):
+        run = _FitRun(spec, data, state, options, validate)
+        f4 = tuple(to_host(torch.stack(run.evaluate())))
+        hist, frm_hist, times = [f4], [float("nan")], [0.0]
+        t0 = time.perf_counter()
+        it = 1
+        stop = illc = False
+        while it <= options.MaxOuterIters and not stop:
+            f4_t, frm_t, illc_t = run.iterate(it)
+            vals = to_host(torch.cat([torch.stack(f4_t), frm_t[None],
+                                      illc_t[None].to(frm_t.dtype)]))
+            f4_new, frm = tuple(vals[:4]), vals[4]
+            stop = bool(stopping(*(torch.tensor(v, dtype=torch.float64)
+                                   for v in (f4_new, f4)), options))
+            if run.miss:
+                stop = stop and frm < options.OuterRelTol
+            if not all(np.isfinite(f4_new)):
+                stop = True
+            if vals[5]:
+                illc = stop = True
+            hist.append(f4_new)
+            frm_hist.append(frm)
+            times.append(time.perf_counter() - t0)
+            f4 = f4_new
+            it += 1
+        return run.output(np.asarray(hist), np.asarray(frm_hist), it - 1,
+                          stop, illc, times, times[-1])
 
 
 def cmtf_aoadmm(spec: ProblemSpec, data: ProblemData, options: AlgOptions,

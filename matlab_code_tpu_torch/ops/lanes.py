@@ -6,8 +6,9 @@ Inside that vmap a tensor that carries the start axis is a functorch
 batched tensor (on_start_axis).  Plain torch ops batch by themselves; three
 things do not, and each is routed where it happens:
   * a read of a device flag that steers a host loop (the inner ADMM loops,
-    models/admm.run_inner): any_lane reads whether any start is still
-    stepping, one read however many starts there are;
+    models/admm.run_inner; the lanes L-BFGS-B, ops/lbfgsb.py): any_lane
+    reads whether any start is still stepping, one read however many
+    starts there are;
   * a hand-written kernel, which takes raw pointers: ops/tensor.mttkrp
     (one mttkrp3 call with the starts' columns side by side) and the
     sequential proxes of ops/isotonic.py, ops/tv.py and
@@ -15,8 +16,8 @@ things do not, and each is routed where it happens:
     axis, or one launch a start) are custom operators whose batching rule
     (torch.library.register_vmap) calls the kernel, or the plain version
     on the CPU, on the whole start axis;
-  * a start that stopped keeps its values (keep): the JAX while_loop's
-    semantics under vmap.
+  * a start that stopped keeps its values (keep; the inner loops' carries
+    and the lanes L-BFGS-B's): the JAX while_loop's semantics under vmap.
 Nothing here runs, and nothing is routed, outside that vmap: fit's path
 is unchanged.
 """
@@ -35,15 +36,17 @@ def on_start_axis(*ts) -> bool:
 
 
 @torch.library.custom_op("matlab_code_tpu_torch::any_lane", mutates_args=())
-def any_lane(flag: torch.Tensor) -> torch.Tensor:
-    """Whether the flag holds for any start: a 0-d bool tensor WITHOUT the
-    start axis, so a host loop under the vmap can read it (to_host)."""
-    return flag.any()
+def any_lane(flags: torch.Tensor) -> torch.Tensor:
+    """Whether each flag holds for any start: bool flags of the same shape
+    WITHOUT the start axis, so a host loop under the vmap can read them
+    (to_host), several flags in one read.  Off the start axis (one start)
+    they are the flags themselves."""
+    return flags.clone()
 
 
 @torch.library.register_vmap("matlab_code_tpu_torch::any_lane")
-def _any_lane_vmap(info, in_dims, flag):
-    return flag.any(), None
+def _any_lane_vmap(info, in_dims, flags):
+    return flags.any(dim=in_dims[0]), None
 
 
 def to_front(x: torch.Tensor, dim, size: int) -> torch.Tensor:

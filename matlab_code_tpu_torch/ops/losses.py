@@ -10,7 +10,11 @@ the beta terms.
 loss_fg(loss, X, M, eps_log, beta) is the one pass every non-Frobenius
 evaluation makes: (sum fh, gh).  On a CUDA tensor it launches kernel D
 (ops/loss_cuda.loss_fg_cuda, csrc/loss_fg.cu); on a CPU tensor it takes the
-plain version, loss_fg_reference.
+plain version, loss_fg_reference.  On fit_multistart's start axis
+(ops/lanes.py) it is a custom operator whose batching rule makes the pass
+of every start at once: one launch of kernel D on the card
+(loss_cuda.loss_fg_cuda_starts), the plain version over the start axis on
+the CPU.
 """
 from __future__ import annotations
 
@@ -18,7 +22,9 @@ import math
 
 import torch
 
-from matlab_code_tpu_torch.ops.loss_cuda import loss_fg_cuda
+from matlab_code_tpu_torch.ops.lanes import on_start_axis, to_front
+from matlab_code_tpu_torch.ops.loss_cuda import (
+    loss_fg_cuda, loss_fg_cuda_starts)
 
 FROBENIUS = "Frobenius"
 KL = "KL"
@@ -85,7 +91,33 @@ def loss_fg(loss: str, X: torch.Tensor, M: torch.Tensor, eps_log: float,
             beta: float | None = None):
     """(sum fh(X, M), gh(X, M)): kernel D for CUDA tensors (which raises on
     what it does not take: another dtype, a non-contiguous X or M), the
-    plain version for CPU tensors."""
+    plain version for CPU tensors; on the start axis, _loss_fg_starts."""
+    if on_start_axis(X, M):
+        return _loss_fg_starts(X, M, loss, eps_log, beta)
     if X.device.type == "cuda":
         return loss_fg_cuda(loss, X, M, eps_log, beta)
     return loss_fg_reference(loss, X, M, eps_log, beta)
+
+
+@torch.library.custom_op("matlab_code_tpu_torch::loss_fg_starts",
+                         mutates_args=())
+def _loss_fg_starts(X: torch.Tensor, M: torch.Tensor, loss: str,
+                    eps_log: float, beta: float | None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """loss_fg where X or M carries fit_multistart's start axis; the
+    batching rule below makes the pass of every start at once."""
+    f, Y = loss_fg(loss, X, M, eps_log, beta)
+    return f.clone(), Y.clone()
+
+
+@torch.library.register_vmap("matlab_code_tpu_torch::loss_fg_starts")
+def _loss_fg_starts_vmap(info, in_dims, X, M, loss, eps_log, beta):
+    S = info.batch_size
+    M = to_front(M, in_dims[1], S).contiguous()
+    if in_dims[0] is not None:
+        X = to_front(X, in_dims[0], S).contiguous()
+    if M.device.type == "cuda":
+        return loss_fg_cuda_starts(loss, X, M, eps_log, beta), (0, 0)
+    fh = loss_fh(loss, X, M, eps_log, beta)
+    return (torch.sum(fh.reshape(S, -1), dim=1),
+            loss_gh(loss, X, M, eps_log, beta)), (0, 0)

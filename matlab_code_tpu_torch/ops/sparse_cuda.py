@@ -37,7 +37,11 @@ build_plan(indices, values, shape, mode, rank) builds a SparsePlan with
 torch ops on the data's device, once per sparsity pattern and mode.
 mttkrp_sparse_cuda(plan, factors) launches the plan's kernel on a CUDA
 card and raises on anything it does not take; for a plan on the CPU it
-returns the plain version, mttkrp_sparse_reference.
+returns the plain version, mttkrp_sparse_reference.  A plan takes any
+number of columns (the kernels walk R in tiles of the plan's P), so
+fit_multistart's S starts go through the plan built at rank R as S R
+columns side by side (ops/tensor.py), in groups of starts only where the
+partial sums' scratch would pass PARTIAL_BYTES_MAX (start_groups).
 """
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ NG_MAX = 4        # gathered modes the kernel takes (tensors of order 2 to 5)
 SMEM_BYTES = 232448   # dynamic shared memory a block may use on an H100 (227 KB)
 FIBER_WARPS = 32      # warps a block of the fiber kernel (kFiberWarps in the source)
 FIBER_P_MAX = 16      # the fiber kernel holds P fiber rows a lane in registers
+PARTIAL_BYTES_MAX = 1 << 30   # a call's (nchunks, R) partial sums, at most
 
 _LIB = None
 
@@ -197,6 +202,41 @@ def build_plan(indices: torch.Tensor, values: torch.Tensor, shape, mode: int,
                       variant=choice.variant, lanes=choice.lanes,
                       coords=coords, vals=vals, rowptr=rowptr,
                       chunk_ptr=chunk_ptr, chunk_start=chunk_start)
+
+
+def plan_fields(plan: SparsePlan | None) -> tuple:
+    """A plan as (tensors, ints, variant), the arguments a custom operator
+    takes (ops/tensor.py); plan_from_fields inverts it.  None is ([], [],
+    "")."""
+    if plan is None:
+        return [], [], ""
+    return ([plan.coords, plan.vals, plan.rowptr, plan.chunk_ptr,
+             plan.chunk_start],
+            [plan.out_mode, plan.lanes, len(plan.shape), *plan.shape,
+             *plan.gather_modes], plan.variant)
+
+
+def plan_from_fields(tensors, ints, variant: str) -> SparsePlan | None:
+    if not variant:
+        return None
+    out_mode, lanes, nd = ints[:3]
+    return SparsePlan(out_mode=out_mode, gather_modes=tuple(ints[3 + nd:]),
+                      shape=tuple(ints[3:3 + nd]), variant=variant,
+                      lanes=lanes, coords=tensors[0], vals=tensors[1],
+                      rowptr=tensors[2], chunk_ptr=tensors[3],
+                      chunk_start=tensors[4])
+
+
+def start_groups(plan: SparsePlan | None, S: int, R: int) -> list:
+    """The starts of one call of a plan, as slices: every start at once
+    unless the (nchunks, S R) partial sums pass PARTIAL_BYTES_MAX, then as
+    many starts a group as fit (one at least).  Without a plan (the CPU)
+    one group."""
+    if plan is None:
+        return [slice(0, S)]
+    per = plan.nchunks * R * plan.vals.element_size()
+    step = max(1, min(S, PARTIAL_BYTES_MAX // max(per, 1)))
+    return [slice(a, min(a + step, S)) for a in range(0, S, step)]
 
 
 def mttkrp_sparse_reference(indices: torch.Tensor, values: torch.Tensor,

@@ -7,7 +7,9 @@ float64 and raises on any other dtype; a CPU tensor and any other order
 take the plain einsum.  mttkrp_sparse sends COO data on a CUDA card to the
 hand-written sparse kernel (ops/sparse_cuda.mttkrp_sparse_cuda) and COO
 data on the CPU to its plain version; AlgOptions.sparse_mttkrp chooses
-nothing here.
+nothing here.  On fit_multistart's start axis (ops/lanes.py) both are
+custom operators whose batching rules lay the starts' factors side by
+side, so one call serves every start.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import torch
 from matlab_code_tpu_torch.ops.lanes import on_start_axis, to_front
 from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
 from matlab_code_tpu_torch.ops.sparse_cuda import (
-    SparsePlan, mttkrp_sparse_cuda, mttkrp_sparse_reference)
+    SparsePlan, mttkrp_sparse_cuda, mttkrp_sparse_reference, plan_fields,
+    plan_from_fields, start_groups)
 
 _LETTERS = string.ascii_lowercase
 
@@ -121,7 +124,11 @@ def mttkrp_sparse(indices: torch.Tensor, values: torch.Tensor, factors,
 
     COO data on a CUDA card runs the hand-written kernel through `plan`
     (SparseTensor.with_plans; fit attaches plans) and raises without one;
-    COO data on the CPU takes the plain gather + index_add_ version."""
+    COO data on the CPU takes the plain gather + index_add_ version.
+    Factors on the start axis take _mttkrp_sparse_starts."""
+    if on_start_axis(*factors):
+        return _mttkrp_sparse_starts(indices, values, list(factors), mode,
+                                     out_dim, *plan_fields(plan))
     if values.device.type == "cpu":
         return mttkrp_sparse_reference(indices, values, factors, mode, out_dim)
     if plan is None:
@@ -133,6 +140,39 @@ def mttkrp_sparse(indices: torch.Tensor, values: torch.Tensor, factors,
                          f"({plan.out_dim} rows), asked for mode {mode} "
                          f"({out_dim} rows)")
     return mttkrp_sparse_cuda(plan, factors)
+
+
+@torch.library.custom_op("matlab_code_tpu_torch::mttkrp_sparse_starts",
+                         mutates_args=())
+def _mttkrp_sparse_starts(indices: torch.Tensor, values: torch.Tensor,
+                          factors: list[torch.Tensor], mode: int,
+                          out_dim: int, plan_tensors: list[torch.Tensor],
+                          plan_ints: list[int], variant: str) -> torch.Tensor:
+    """mttkrp_sparse where the factors carry fit_multistart's start axis
+    (the plan passed as sparse_cuda.plan_fields).  The batching rule below
+    lays the S starts' factors (n_i, R) side by side as (n_i, S R), column
+    s R + r start s's column r, and makes ONE mttkrp_sparse call of S R
+    columns through the plan built at rank R (a group of starts a call
+    where sparse_cuda.start_groups splits them)."""
+    return mttkrp_sparse(indices, values, factors, mode, out_dim,
+                         plan_from_fields(plan_tensors, plan_ints, variant)
+                         ).clone()
+
+
+@torch.library.register_vmap("matlab_code_tpu_torch::mttkrp_sparse_starts")
+def _mttkrp_sparse_starts_vmap(info, in_dims, indices, values, factors, mode,
+                               out_dim, plan_tensors, plan_ints, variant):
+    S = info.batch_size
+    facs = [to_front(f, d, S) for f, d in zip(factors, in_dims[2])]
+    R = facs[0].shape[2]
+    plan = plan_from_fields(plan_tensors, plan_ints, variant)
+    outs = []
+    for g in start_groups(plan, S, R):
+        wide = [f[g].transpose(0, 1).reshape(f.shape[1], -1).contiguous()
+                for f in facs]
+        out = mttkrp_sparse(indices, values, wide, mode, out_dim, plan)
+        outs.append(out.reshape(out_dim, -1, R).transpose(0, 1))
+    return torch.cat(outs), 0
 
 
 def gram(U: torch.Tensor) -> torch.Tensor:

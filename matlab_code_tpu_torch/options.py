@@ -3,13 +3,15 @@ matlab_code_tpu/options.py with the same fields, defaults and validation.
 
 `matmul_precision` maps to torch's TF32 switches (apply_matmul_precision):
 'default', 'float32' and 'highest' keep float32 products in full float32;
-'tensorfloat32' enables TF32; 'bfloat16' is not ported.  The default is
-full float32 because reduced-precision products put a floor under the
-flagship's objective on the TPU (see AlgOptions.matmul_precision in the
-JAX package).
+'tensorfloat32' enables TF32; 'bfloat16' is not ported.  A fit scopes the
+setting to its call (scoped_matmul_precision), as the JAX package's
+with_matmul_precision scopes jax's.  The default is full float32 because
+reduced-precision products put a floor under the flagship's objective on
+the TPU (see AlgOptions.matmul_precision in the JAX package).
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 
 import torch
@@ -104,6 +106,22 @@ def apply_matmul_precision(options: AlgOptions) -> None:
     tf32 = mp == "tensorfloat32"
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
+
+
+@contextlib.contextmanager
+def scoped_matmul_precision(options: AlgOptions):
+    """The fit's precision (apply_matmul_precision) for the body of the
+    with-block only: both TF32 switches are restored as the caller left
+    them on exit, a raise included (the counterpart of the JAX package's
+    with_matmul_precision)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        apply_matmul_precision(options)
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 @dataclass(frozen=True)

@@ -36,6 +36,7 @@ PORT_MODULES = [
     "matlab_code_tpu_torch.utils.em_workload",
     "matlab_code_tpu_torch.ops.lanes", "matlab_code_tpu_torch.models.multistart",
     "matlab_code_tpu_torch.utils.multistart_workload",
+    "matlab_code_tpu_torch.utils.time_fit",
 ]
 
 

@@ -3,7 +3,7 @@ float64: every start on the start axis against fit (or cmtf_aoadmm) from
 the same init state, a stopped start's state and history left as they were
 at its stop, the host reads of the batched inner loops, the batched-column
 MTTKRP layout and the folded sequential proxes against one call a start,
-and the cases not on the start axis yet.  The JAX package's
+and the cases not on the start axis.  The JAX package's
 fit_multistart is held in test_torch_multistart.py.
 """
 import dataclasses
@@ -223,22 +223,18 @@ def test_torch_mttkrp_columns_and_folded_proxes_match_one_call_a_start():
 
 
 def test_torch_multistart_cases_not_reached_raise():
-    """mesh=, non-Frobenius losses, sparse COO data and the
-    pairwise-perturbation MTTKRP raise NotImplementedError naming their
-    ROADMAP item; a wrong number of keys raises ValueError."""
+    """mesh= and matmul_precision='bfloat16' raise NotImplementedError
+    (mesh= naming its ROADMAP slice), and the switches of torch's TF32
+    stay as they were; a wrong number of keys raises ValueError.  Other
+    losses, sparse COO data and the pairwise option run on the start axis
+    (tests/test_torch_multistart_{kl,nonfrob,sparse,repairs}.py)."""
     spec, data, opts, init = mw.script15_problem("cpu", torch.float64)
     with pytest.raises(NotImplementedError, match="slice 8"):
         tp.fit_multistart(spec, data, opts, init, 2, mesh=object())
     with pytest.raises(ValueError, match="keys"):
         tp.fit_multistart(spec, data, opts, init, 2, keys=[1])
-    kl = dataclasses.replace(spec, datasets=(dataclasses.replace(
-        spec.datasets[0], loss="KL"),) + spec.datasets[1:])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7"):
-        tp.fit_multistart(kl, data, opts, init, 2)
-    sparse = dataclasses.replace(data, objects=(tp.SparseTensor.from_dense(
-        data.objects[0]),) + data.objects[1:])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7"):
-        tp.fit_multistart(spec, sparse, opts, init, 2)
-    pp = dataclasses.replace(opts, cp_pairwise_perturbation=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7"):
-        tp.fit_multistart(spec, data, pp, init, 2)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tp.fit_multistart(spec, data, dataclasses.replace(
+            opts, matmul_precision="bfloat16"), init, 2)
+    assert torch.backends.cuda.matmul.allow_tf32 is saved

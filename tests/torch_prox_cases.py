@@ -45,6 +45,7 @@ KINDS = [
     ("TV regularization", (0.0,)),       # lam = 0: y itself
     ("TV regularization", (100.0,)),     # lam above every column's TV: means
 ]
+PROX_IDS = [f"{k}-params{i}" for i, (k, _) in enumerate(KINDS)]
 
 
 def _matrices(n, R=5, seed=3):
@@ -63,8 +64,7 @@ def _close(got, want, rtol=1e-12):
                                atol=1e-14)
 
 
-@pytest.mark.parametrize("kind,params", KINDS)
-def test_torch_every_prox_and_reg_matches_jax(kind, params):
+def every_prox_and_reg_matches_jax(kind, params):
     """make_prox of each ported kind against the JAX package's: the prox at
     two rho (a number and a 0-d tensor), and the reg term, at n = 1 and 29
     (n = 7 for 'quadratic regularization', whose L is 7 x 7)."""

@@ -172,7 +172,7 @@ def test_torch_sparse_chunk_plan_invariants(mode):
                                    want.numpy(), rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize("case", [
+KERNEL_CHOICES = [
     # (shape, mode, R, itemsize) -> (variant, P, gather_modes)
     (((2048,) * 3, 0, 16, 4), ("fiber", 16, (1, 2))),   # the sparse workload
     (((2048,) * 3, 1, 16, 4), ("fiber", 16, (0, 2))),
@@ -188,8 +188,10 @@ def test_torch_sparse_chunk_plan_invariants(mode):
     (((64, 70000, 60000), 1, 16, 4), ("fiber", 16, (2, 0))),  # 64 rows do
     (((64, 7264, 9000), 0, 16, 4), ("fiber", 8, (2, 1))),   # 7264 x 8 x 4 B fits
     (((64, 7265, 9000), 0, 16, 4), ("chunk", 16, (1, 2))),
-])
-def test_torch_sparse_kernel_choice(case):
+]
+
+
+def sparse_kernel_choice(case):
     """choose_kernel, from the shape alone: the larger gathered mode whose
     column tile of P values fits the shared memory is resident, at the
     largest P <= min(lanes_for(R), FIBER_P_MAX); the chunk kernel
@@ -264,9 +266,10 @@ def _fiber_walk(plan, facs, R):
     return out
 
 
-@pytest.mark.parametrize("R", [5, 16, 40])
-@pytest.mark.parametrize("mode", [0, 1, 2])
-def test_torch_sparse_fiber_walk_matches_plain(mode, R):
+FIBER_WALK_RS = [5, 16, 40]
+
+
+def sparse_fiber_walk_matches_plain(mode, R):
     """The fiber layout walked in the kernel's summation order (groups,
     fiber segments, chunk partials, row sums) at P 8 and 16 (three column
     tiles of 16 at R 40) equals the plain version."""

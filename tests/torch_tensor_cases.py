@@ -158,11 +158,12 @@ def _check_rows_plan(plan, shape, R, mode, itemsize, x_align, sms=SMS):
     assert plan.fcopy == (0 if fw == 16 and R == plan.rm else fw)
 
 
-@pytest.mark.parametrize("shape,R", [
+PLAN_SHAPES = [
     ((128, 512, 256), 16), ((128, 1024, 64), 20), ((37, 50, 29), 7),
-    ((5, 3, 130), 1), ((1, 1, 1), 32), ((3, 70000, 2), 9)])
-@pytest.mark.parametrize("mode", [0, 1, 2])
-def test_torch_mttkrp3_plan_covers_every_row(shape, R, mode):
+    ((5, 3, 130), 1), ((1, 1, 1), 32), ((3, 70000, 2), 9)]
+
+
+def mttkrp3_plan_covers_every_row(shape, R, mode):
     """The launch plans of csrc/mttkrp3.cu, for X of 2, 4 and 8 bytes at
     each alignment of X's pointer.  Modes 0/1 (the rows-stream kernel):
     _check_rows_plan, and at the flagship shapes at least half the SMs
@@ -269,7 +270,7 @@ def _rows_walk(X, factors, plan):
     return out, seen
 
 
-@pytest.mark.parametrize("shape,R,sms", [
+ROWS_WALK_CASES = [
     ((40, 30, 1), 5, SMS),       # K = 1: one thread along k
     ((37, 50, 29), 7, SMS),      # K = 29, ragged tiles and ranges
     ((7, 9, 31), 20, SMS),       # odd K
@@ -277,9 +278,10 @@ def _rows_walk(X, factors, plan):
     ((30, 3, 64), 16, SMS),      # J < ob
     ((9, 21, 64), 20, SMS),      # J not a multiple of ob
     ((20, 33, 70), 16, 4),       # fewer SMs than units: several a block
-    ((4, 6, 300), 32, SMS)])     # float64 at R 32 tiles k
-@pytest.mark.parametrize("mode", [0, 1])
-def test_torch_mttkrp3_rows_walk_matches_jax(shape, R, sms, mode):
+    ((4, 6, 300), 32, SMS)]      # float64 at R 32 tiles k
+
+
+def mttkrp3_rows_walk_matches_jax(shape, R, sms, mode):
     """A coverage check of the rows-stream plan: its o tiles, walked
     ranges, units, stages and k tiles, walked as the kernel walks them in
     float64 on the CPU, take every (o, s, k) term exactly once, so the sum

@@ -6,7 +6,7 @@ NVIDIA GPU.  Usage, from the root of a checkout:
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
 started together, into the git-ignored matlab_code_tpu_torch/_build/) and
-runs twenty phases, each printing its seconds; any failure raises and
+runs twenty-two phases, each printing its seconds; any failure raises and
 exits non-zero:
 
   1. device and precision: the card, its power limit, the TF32 switches;
@@ -170,12 +170,34 @@ exits non-zero:
      against the CPU's and each against its own card fit within 1e-12,
      inner and L-BFGS-B iterations equal; (e) the flagship with 4 starts
      for 10 iterations with cp_pairwise_perturbation: the finals of the
-     run without it (the JAX function's exact MTTKRPs).
+     run without it (the JAX function's exact MTTKRPs);
+ 21. the examples (matlab_code_tpu_torch/examples/): (a) the 13
+     reference-seeded replays, data and init drawn by the port on the
+     MATLAB twister stream, 10 outer iterations in float64 on the card and
+     on the CPU: func_val_conv at rtol 1e-8, each final factor within 1e-8
+     of its largest entry, innerIters equal (a PARAFAC2 replay that misses
+     takes par2_polar='svd' on the card, the CPU's 'auto'); (b) the 16
+     configurations of build(small=False) at the scripts' widths in
+     float32, two at a time in worker processes sharing the card, 100
+     outer iterations at most (script 09: 120, its Bk constraint from
+     iteration 100; script 15: 20 starts, 30): finite streams, Fit% and
+     FMS, iterations, exit flag, median ms an iteration (script 09's
+     constrained iterations apart), and the launches of mttkrp3 (every
+     script with a 3-way CP dataset) and of kernels D, A, B and C
+     (scripts 07, 09, 10, 11), each counted from zero before its script,
+     kernel A in every constrained iteration of script 09; the phase
+     fails past 150 s;
+ 22. matmul_precision='bfloat16': a 4096^2 float32 GEMM under torch's
+     'highest', 'high' and 'medium' float32 matmul precision against its
+     float64 product (relative error, time), beside the errors of inputs
+     rounded to bfloat16 and to TF32, and options.py's decision for
+     'bfloat16' on the card, which must match what 'medium' gives.
 
 It then prints one JSON line describing the six kernels (mttkrp3's and
 the sparse kernel's launches on phases 16-17's paths beside them,
 mttkrp3's on phase 19's, kernel D's and the sparse kernel's on phase
-20's, and kernel D's start-axis times), the card's name
+20's, kernel D's start-axis times, and every kernel's launches on phase
+21 (b), "examples_launches"), the card's name
 and power limit, and as its last line {"ok": true, "device": {...}}.  It
 imports nothing of JAX, and it fails without a CUDA card or without the
 package beside it.
@@ -183,12 +205,13 @@ package beside it.
 import dataclasses
 import functools
 import json
+import multiprocessing
 import os
 import re
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -266,6 +289,13 @@ MS_SPARSE_ITERS = 10    # and on the sparse workload
 MS_S07_ITERS = 3        # script 07's widths, 4 starts, card against CPU
 MS_PP_STARTS = 4        # the flagship with cp_pairwise_perturbation
 MS_PP_ITERS = 10
+EXAMPLE_REPLAY_ITERS = 10   # the 13 replays, card against CPU in float64
+EXAMPLE_ITERS = 100         # the 16 configurations at full width
+EXAMPLE_S09_ITERS = 120     # script 09: its Bk constraint from iteration 100
+EXAMPLE_S15_ITERS = 30      # script 15: 20 starts
+EXAMPLE_WORKERS = 2         # processes that share the card for (b)
+EXAMPLE_PHASE_S = 150       # phase 21 fails past this many seconds
+BF16_N = 4096               # the GEMM of phase 22
 
 
 def phase(n, title):
@@ -2397,6 +2427,276 @@ def multistart_rest_phase(dev, power):
     return out
 
 
+def _replay_legs(names, device, iters, **overrides):
+    """Phase 21 (a)'s legs on one device: each replay of `names` (data and
+    init drawn by the port on the MATLAB stream) in float64 for `iters`
+    outer iterations, AbsFuncTol = OuterRelTol = 0.  Returns {name:
+    (func_val_conv, innerIters, the final factors as numpy arrays,
+    seconds)}.  The CPU legs run in a worker process beside the card's."""
+    sys.path.insert(0, REPO)
+    import torch
+    from matlab_code_tpu_torch.examples import run_all
+    if device == "cpu":
+        torch.set_num_threads(1)     # the card legs' host loop keeps a core
+    legs = {}
+    for name in names:
+        t = time.perf_counter()
+        res = run_all.module(name).run_reference(
+            verbose=False, device=device, dtype=torch.float64, AbsFuncTol=0.0,
+            OuterRelTol=0.0, MaxOuterIters=iters, **overrides)
+        legs[name] = (res["out"].func_val_conv, res["out"].innerIters,
+                      [f.detach().cpu().numpy() for f in res["state"].fac],
+                      time.perf_counter() - t)
+    return legs
+
+
+def _hold_replay(card, cpu):
+    """A replay's card leg against its CPU leg (_replay_legs): func_val_conv
+    at rtol 1e-8, each final factor within 1e-8 of its largest entry,
+    innerIters equal.  Returns (ok, the worst relative gaps, inner equal)."""
+    (a, inner_g, fac_g, _), (b, inner_c, fac_c, _) = card, cpu
+    f_rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+    fac_rel = max(float(np.abs(g - c).max() / np.abs(c).max())
+                  for g, c in zip(fac_g, fac_c))
+    same_inner = bool(np.array_equal(inner_g, inner_c))
+    ok = (f_rel <= 1e-8 and fac_rel <= 1e-8 and same_inner
+          and len(a) == len(b))
+    return ok, f_rel, fac_rel, same_inner
+
+
+def _example_caps(name):
+    """Phase 21 (b)'s MaxOuterIters cap of a script."""
+    return {"script09": EXAMPLE_S09_ITERS,
+            "script15": EXAMPLE_S15_ITERS}.get(name[:8], EXAMPLE_ITERS)
+
+
+def _example_run(name, dev):
+    """Phase 21 (b)'s run of one configuration, in a worker process that
+    shares the card: build(small=False) at the script's widths in float32,
+    MaxOuterIters capped (_example_caps), each kernel's launches counted
+    from zero just before the script's data, init and fit.  For script 09
+    also kernel A's launches in its init alone (the same init again on the
+    fit's data), so the launches of its fit are known.  Returns what the
+    phase prints and checks."""
+    sys.path.insert(0, REPO)
+    import torch
+    from matlab_code_tpu_torch.examples import run_all
+    from matlab_code_tpu_torch.models.init import init_coupled
+    from matlab_code_tpu_torch.ops.loss_cuda import loss_fg_cuda
+    from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
+    from matlab_code_tpu_torch.ops.prox_cuda import (
+        project_isotonic_cols, prox_tv_cols, t_smooth_cols)
+    from matlab_code_tpu_torch.ops.sparse_cuda import mttkrp_sparse_cuda
+    from matlab_code_tpu_torch.options import InitOptions
+
+    torch.set_num_threads(2)
+    counters = {"mttkrp3": mttkrp3, "A": project_isotonic_cols,
+                "B": prox_tv_cols, "C": t_smooth_cols, "D": loss_fg_cuda,
+                "sparse": mttkrp_sparse_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    tb = time.perf_counter()
+    res = run_all.run_script(name, small=False, device=dev,
+                             dtype=torch.float32, max_iters=_example_caps(name),
+                             verbose=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - tb
+    n = {k: fn.launches for k, fn in counters.items()}
+    out = res["out"]
+    cfg = run_all.module(name).build()
+    row = dict(
+        cp3=any(ds.model == "CP" and len(ds.modes) == 3
+                for ds in cfg["spec"].datasets),
+        iters=out.OuterIterations, exit=out.exit_flag,
+        dts=np.diff(out.time_at_it) * 1e3, secs=secs, launches=n,
+        report=res["report"], finite=bool(np.all(np.isfinite(np.stack(
+            [out.func_val_conv, out.func_coupl_conv, out.func_constr_conv,
+             out.func_PAR2_coupl])))),
+        iter_start=cfg["opts"].iter_start_PAR2Bkconstraint)
+    if name.startswith("script09"):
+        project_isotonic_cols.launches = 0
+        init_coupled(cfg["spec"], res["data"], InitOptions(
+            distr=tuple(cfg["distr"]), normalize=True,
+            lambdas_init=tuple(tuple(l) for l in cfg["lambdas"])),
+            seed=cfg["key"])
+        row["A_init"] = project_isotonic_cols.launches
+    return row
+
+
+def examples_phase(dev, power):
+    """Phase 21: the examples on the card (matlab_code_tpu_torch/examples/).
+    (a) the 13 reference-seeded replays, data and init drawn by the port's
+    utils/matlab_rng.py, EXAMPLE_REPLAY_ITERS outer iterations on the card
+    and on the CPU in float64 (AbsFuncTol = OuterRelTol = 0; the CPU legs
+    in a worker process while the card legs run), held to each other
+    (_hold_replay); a PARAFAC2 replay that misses runs its card leg
+    again with par2_polar='svd', the CPU's resolution of 'auto'; (b) the
+    16 configurations of build(small=False) at the scripts' widths in
+    float32 (_example_run), EXAMPLE_WORKERS at a time in worker processes
+    that share the card with each other and with (a): each with finite
+    streams and the kernels it should launch, script 09 past its Bk
+    constraint's start with kernel A in each constrained iteration.
+    Fails past EXAMPLE_PHASE_S seconds.  Returns the launches of each
+    kernel over (b), for the kernels line."""
+    from matlab_code_tpu_torch.examples import run_all
+
+    t_phase = time.perf_counter()
+    t0 = phase(21, f"the examples: {len(run_all.REPLAYS)} replays card vs CPU "
+                   f"in float64 ({EXAMPLE_REPLAY_ITERS} iterations), "
+                   f"{len(run_all.SCRIPTS)} configurations at full width in "
+                   f"float32 (at most {EXAMPLE_ITERS} iterations, script 09 "
+                   f"{EXAMPLE_S09_ITERS}), {EXAMPLE_WORKERS} at a time")
+    spawn = multiprocessing.get_context("spawn")
+    # the costliest scripts first, so the workers end together
+    order = sorted(run_all.SCRIPTS,
+                   key=lambda n: n[:8] not in ("script09", "script07"))
+    with ProcessPoolExecutor(1, mp_context=spawn) as cpu_pool, \
+            ProcessPoolExecutor(EXAMPLE_WORKERS, mp_context=spawn) as pool:
+        runs = {name: pool.submit(_example_run, name, dev) for name in order}
+        fut = cpu_pool.submit(_replay_legs, run_all.REPLAYS, "cpu",
+                              EXAMPLE_REPLAY_ITERS)
+        card = _replay_legs(run_all.REPLAYS, dev, EXAMPLE_REPLAY_ITERS)
+        cpu = fut.result()
+        for name in run_all.REPLAYS:
+            ok, f_rel, fac_rel, same_inner = _hold_replay(card[name],
+                                                          cpu[name])
+            leg = "par2_polar 'auto' ('ns' on the card)"
+            par2 = any(ds.model == "PAR2" for ds in
+                       run_all.module(name).build()["spec"].datasets)
+            if not ok and par2:
+                print(f"  {name}: 'auto' missed (f {f_rel:.3e}, factors "
+                      f"{fac_rel:.3e}, inner equal {same_inner}); card leg "
+                      f"again with par2_polar='svd'")
+                card[name] = _replay_legs([name], dev, EXAMPLE_REPLAY_ITERS,
+                                          par2_polar="svd")[name]
+                ok, f_rel, fac_rel, same_inner = _hold_replay(card[name],
+                                                              cpu[name])
+                leg = "par2_polar 'svd'"
+            print(f"  replay {name}: max rel diff card/CPU f_tensors "
+                  f"{f_rel:.3e}, factors {fac_rel:.3e} (bounds 1e-8), "
+                  f"innerIters equal {same_inner}; card leg {leg} "
+                  f"{card[name][3]:.2f} s; CPU leg {cpu[name][3]:.2f} s (a "
+                  f"worker process, beside the card's)")
+            if not ok:
+                raise RuntimeError(f"replay {name}: the card and the CPU "
+                                   f"disagree")
+        print(f"  replays done in {time.perf_counter() - t0:.1f} s")
+        rows = {name: f.result() for name, f in runs.items()}
+
+    expect = {"script07": "D", "script09": "A", "script10": "B",
+              "script11": "C"}
+    total = {}
+    for name in run_all.SCRIPTS:
+        r = rows[name]
+        n, dts = r["launches"], r["dts"]
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        report = "; ".join(
+            f"{p}: Fit {v[0]:.3f}% FMS " + "/".join(f"{x:.4f}" for x in v[1:])
+            for p, v in r["report"].items())
+        print(f"  {name}: {r['iters']} iterations, exit {r['exit']}, median "
+              f"{np.median(dts):.3f} ms an iteration (p90 "
+              f"{np.percentile(dts, 90):.3f}), {r['secs']:.1f} s with data "
+              f"and init; {report}; launches "
+              f"{ {k: v for k, v in n.items() if v} }  [{power}; "
+              f"{EXAMPLE_WORKERS} fits share the card]")
+        if not r["finite"]:
+            raise RuntimeError(f"{name}: non-finite objective stream")
+        need = ([expect[name[:8]]] if name[:8] in expect else []) + \
+            (["mttkrp3"] if r["cp3"] else [])
+        missing = [k for k in need if n[k] == 0]
+        if missing:
+            raise RuntimeError(f"{name}: no launch of {missing}: a path fell "
+                               f"back to a plain version")
+        if "A_init" in r:
+            # iterations iter_start .. iters run the Bk constraint, each at
+            # least one unimodal prox (kernel A) a step
+            start = r["iter_start"]
+            n_con = r["iters"] - start + 1
+            n_fit = n["A"] - r["A_init"]
+            print(f"    Bk constraint from iteration {start}: iterations "
+                  f"1-{start - 1} median {np.median(dts[:start - 1]):.3f} ms, "
+                  f"{start}-{r['iters']} ({n_con} constrained) median "
+                  f"{np.median(dts[start - 1:]):.3f} ms (p90 "
+                  f"{np.percentile(dts[start - 1:], 90):.3f}); kernel A "
+                  f"{r['A_init']} launches in the init, {n_fit} in the fit "
+                  f"({n_fit / max(n_con, 1):.2f} a constrained iteration)")
+            if n_con < 1 or n_fit < n_con:
+                raise RuntimeError(f"{name}: kernel A launched {n_fit} times "
+                                   f"in {n_con} constrained iterations")
+    print(f"  launches over the {len(run_all.SCRIPTS)} configurations: {total}")
+    secs = time.perf_counter() - t_phase
+    print(f"phase 21 took {secs:.1f} s (limit {EXAMPLE_PHASE_S} s)")
+    if secs > EXAMPLE_PHASE_S:
+        raise RuntimeError(f"phase 21 took {secs:.1f} s, past its "
+                           f"{EXAMPLE_PHASE_S} s")
+    done(21, t0)
+    return total
+
+
+def bf16_phase(dev, power):
+    """Phase 22: what torch's float32 matmul precisions give on the card: a
+    4096^2 float32 GEMM under 'highest', 'high' and 'medium' against its
+    float64 product (Frobenius-relative error, CUDA-event time), beside the
+    error of the product of the inputs rounded to bfloat16 and to TF32 (the
+    levels each kind of product reaches), and the decision that
+    options.py takes for matmul_precision='bfloat16' on the card."""
+    import torch
+    from matlab_code_tpu_torch import options
+    t0 = phase(22, "matmul_precision 'bfloat16': float32 GEMM precisions vs float64")
+    n = BF16_N
+    gen = torch.Generator(device=dev).manual_seed(22)
+    A = torch.randn((n, n), generator=gen, device=dev)
+    B = torch.randn((n, n), generator=gen, device=dev)
+    C64 = A.double() @ B.double()
+    ref = C64.norm()
+
+    def tf32(x):      # round to nearest, 10 stored mantissa bits
+        i = x.view(torch.int32)
+        return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    levels = {
+        "inputs rounded to bfloat16": A.bfloat16().double() @ B.bfloat16().double(),
+        "inputs rounded to TF32": tf32(A).double() @ tf32(B).double()}
+    for label, C in levels.items():
+        levels[label] = float((C - C64).norm() / ref)
+        print(f"  {label}, products in float64: rel error {levels[label]:.3e}")
+    flush = l2_flush(dev)
+    saved = torch.get_float32_matmul_precision()
+    errs = {}
+    try:
+        for prec in ("highest", "high", "medium"):
+            torch.set_float32_matmul_precision(prec)
+            C = A @ B
+            errs[prec] = float((C.double() - C64).norm() / ref)
+            t = time_ms(lambda: A @ B, flush)
+            print(f"  float32_matmul_precision {prec!r} (allow_tf32 "
+                  f"{torch.backends.cuda.matmul.allow_tf32}): rel error "
+                  f"{errs[prec]:.3e}, {t:.3f} ms ({2 * n ** 3 / t / 1e9:.1f} "
+                  f"TFLOP/s)  [{power}]")
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    bf16_level = errs["medium"] >= 0.5 * levels["inputs rounded to bfloat16"]
+    print(f"  'medium' gives {'bfloat16' if bf16_level else 'TF32'}-level "
+          f"products ({errs['medium']:.3e} against {levels['inputs rounded to bfloat16']:.3e}"
+          f" for bfloat16 inputs and {levels['inputs rounded to TF32']:.3e} for "
+          f"TF32 inputs)")
+    try:
+        options.apply_matmul_precision(
+            options.AlgOptions(matmul_precision="bfloat16"), dev)
+        decision = "mapped"
+    except NotImplementedError as e:
+        decision = f"raises on the card: {e}"
+    finally:
+        options.apply_matmul_precision(options.AlgOptions(), dev)
+    print(f"  options.py, matmul_precision='bfloat16' on the card: {decision}")
+    if (decision == "mapped") != bf16_level:
+        raise RuntimeError("options.py's bfloat16 decision does not match "
+                           "what 'medium' gives on this card")
+    del A, B, C64, flush
+    done(22, t0)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2673,12 +2973,18 @@ def main():
     em = em_phases(dev, power)
     ms_launches = multistart_phase(dev, power)
     ms_rest = multistart_rest_phase(dev, power)
+    ex = examples_phase(dev, power)
+    bf16_phase(dev, power)
     kl["D"].update(ms_rest["D"], multistart_launches=ms_rest["D_launches"])
     sparse["multistart_launches"] = ms_rest["sparse_launches"]
     for e in prox_entries:
         e.update(par2["batched"][
             "A" if e["name"] == "project_isotonic_cols" else "B"])
     prox_entries.append(par2["C"])
+    for e in prox_entries:
+        e["examples_launches"] = ex[{"project_isotonic_cols": "A",
+                                     "prox_tv_cols": "B"}.get(e["name"], "C")]
+    kl["D"]["examples_launches"] = ex["D"]
 
     print(json.dumps({"kernels": [{
         "name": "mttkrp3", "route": "cuda", "source": KERNEL_SOURCE,
@@ -2688,8 +2994,9 @@ def main():
         "library_ms": lib_ms, "par2_launches": par2["mttkrp3_launches"],
         "kl_launches": kl["mttkrp3_launches"],
         "em_launches": em["EM flagship"], "pp_launches": em["pp flagship"],
-        "multistart_launches": ms_launches},
-        dict(sparse, pp_launches=em["pp sparse workload"])]
+        "multistart_launches": ms_launches, "examples_launches": ex["mttkrp3"]},
+        dict(sparse, pp_launches=em["pp sparse workload"],
+             examples_launches=ex["sparse"])]
         + prox_entries + [kl["D"]]}))
     print(power)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,10 @@ every sparse MTTKRP the hand-written kernel ops/sparse_cuda.
 mttkrp_sparse_cuda (csrc/mttkrp_sparse.cu), the sequential proxes the
 kernels of ops/prox_cuda (csrc/prox_seq.cu, csrc/t_smooth.cu), and the
 non-Frobenius loss pass ops/loss_cuda.loss_fg_cuda (csrc/loss_fg.cu).
+The user surface needs no jax either: create_coupled_data and the
+MATLAB-seeded generators (utils/datagen.py, utils/matlab_rng.py), FMS and
+Fit% (utils/score.py), and the 16 example configurations with their runner
+(examples/, python -m matlab_code_tpu_torch.examples.run_all).
 """
 
 from matlab_code_tpu_torch.problem import (
@@ -30,6 +34,7 @@ from matlab_code_tpu_torch.models.pairwise import eligible_pp_datasets
 from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit, fit_stepwise
 from matlab_code_tpu_torch.models.multistart import fit_multistart
 from matlab_code_tpu_torch.utils.checkpoint import load_state, save_state
+from matlab_code_tpu_torch.utils.datagen import create_coupled_data
 
 __all__ = [
     "ProblemSpec", "DatasetSpec", "CouplingSpec", "ConstraintSpec",
@@ -37,4 +42,5 @@ __all__ = [
     "InitOptions", "SolverState",
     "init_coupled", "cmtf_aoadmm", "fit", "fit_stepwise", "fit_multistart",
     "eligible_pp_datasets", "save_state", "load_state", "check_data_input",
+    "create_coupled_data",
 ]

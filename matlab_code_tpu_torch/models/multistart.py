@@ -158,7 +158,7 @@ def _fit_lanes(spec: ProblemSpec, data: ProblemData, states,
     check_data_input(spec, data)
     _check_ported(spec)
     _check_devices(data, states[0])
-    with scoped_matmul_precision(options):
+    with scoped_matmul_precision(options, data.objects[0].device):
         return _run_lanes(spec, data, states, options)
 
 

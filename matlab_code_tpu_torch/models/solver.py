@@ -48,7 +48,7 @@ from matlab_code_tpu_torch.options import AlgOptions, scoped_matmul_precision
 from matlab_code_tpu_torch.problem import (
     CP, PAR2, Parafac2Tensor, ProblemData, ProblemSpec, SparseTensor,
     check_data_input, has_missing)
-from matlab_code_tpu_torch.state import SolverState, tuple_set
+from matlab_code_tpu_torch.state import SolverState, fields_of, tuple_set
 
 STREAMS = ("f_tensors", "f_couplings", "f_constraints", "f_PAR2_couplings")
 
@@ -123,9 +123,12 @@ def attach_sparse_plans(spec: ProblemSpec, data: ProblemData,
     pattern.  A dense 3-way dataset on the card that is not contiguous is
     copied once here, since the dense kernel (ops/mttkrp_cuda.mttkrp3)
     never copies X, and so is a dense dataset of a non-Frobenius loss (the
-    loss pass, ops/loss_cuda.loss_fg_cuda, takes contiguous X only).  Data
-    on the CPU is returned as it is."""
+    loss pass, ops/loss_cuda.loss_fg_cuda, takes contiguous X only), and a
+    missing-data mask on the card (em_impute's new data take the mask's
+    layout).  Data on the CPU is returned as it is."""
     objs = list(data.objects)
+    miss = tuple(m.contiguous() if m is not None and m.device.type == "cuda"
+                 else m for m in data.miss)
     for p, X in enumerate(objs):
         if isinstance(X, Parafac2Tensor):
             if X.device.type == "cuda" and not X.slices.is_contiguous():
@@ -138,9 +141,22 @@ def attach_sparse_plans(spec: ProblemSpec, data: ProblemData,
         elif X.device.type == "cuda" and not X.is_contiguous() and (
                 X.dim() == 3 or spec.datasets[p].loss != "Frobenius"):
             objs[p] = X.contiguous()
-    if all(a is b for a, b in zip(objs, data.objects)):
+    if all(a is b for a, b in zip(objs + list(miss),
+                                  data.objects + data.miss)):
         return data
-    return dataclasses.replace(data, objects=tuple(objs))
+    return dataclasses.replace(data, objects=tuple(objs), miss=miss)
+
+
+def row_major_state(state: SolverState) -> SolverState:
+    """The state with every tensor on the card made row-major, once at a
+    fit's entry: the kernels read factors as row-major matrices (the dense
+    one, ops/mttkrp_cuda.mttkrp3, never copies an operand), and a caller's
+    init may hold others (torch.tensor of a Fortran-ordered numpy array
+    keeps its layout).  A state on the CPU is returned as it is."""
+    if state.fac[0].device.type != "cuda":
+        return state
+    return SolverState(*(tuple(None if t is None else t.contiguous()
+                               for t in field) for field in fields_of(state)))
 
 
 def _check_devices(data: ProblemData, state: SolverState) -> None:
@@ -475,7 +491,8 @@ class _FitRun:
             _warn_loss_data(spec, data)
         _check_ported(spec)
         _check_devices(data, state)
-        self.spec, self.options, self.state = spec, options, state
+        self.spec, self.options = spec, options
+        self.state = state = row_major_state(state)
         self.data = data = attach_sparse_plans(spec, data, options)
         self.miss = has_missing(data)
         self.znorms = compute_znorm_consts(spec, data, options)
@@ -570,7 +587,7 @@ def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
     an iteration.  With validate, the data are checked (check_data_input)
     and KL or IS data that do not suit the loss are warned of
     (_warn_loss_data)."""
-    with scoped_matmul_precision(options):
+    with scoped_matmul_precision(options, data.objects[0].device):
         run = _FitRun(spec, data, state, options, validate)
         T = options.MaxOuterIters
         f4 = run.evaluate()
@@ -622,7 +639,7 @@ def fit_stepwise(spec: ProblemSpec, data: ProblemData, state: SolverState,
     rule, which in float32 may stop where fit's on-device rule does not).
     Keeps the PARAFAC2 two-phase switch, EM imputation and the pairwise
     perturbation; records true per-iteration wall times."""
-    with scoped_matmul_precision(options):
+    with scoped_matmul_precision(options, data.objects[0].device):
         run = _FitRun(spec, data, state, options, validate)
         f4 = tuple(to_host(torch.stack(run.evaluate())))
         hist, frm_hist, times = [f4], [float("nan")], [0.0]

@@ -3,11 +3,13 @@ matlab_code_tpu/options.py with the same fields, defaults and validation.
 
 `matmul_precision` maps to torch's TF32 switches (apply_matmul_precision):
 'default', 'float32' and 'highest' keep float32 products in full float32;
-'tensorfloat32' enables TF32; 'bfloat16' is not ported.  A fit scopes the
-setting to its call (scoped_matmul_precision), as the JAX package's
-with_matmul_precision scopes jax's.  The default is full float32 because
-reduced-precision products put a floor under the flagship's objective on
-the TPU (see AlgOptions.matmul_precision in the JAX package).
+'tensorfloat32' enables TF32.  'bfloat16' on the CPU computes what
+'default' computes, as jax.default_matmul_precision('bfloat16') leaves the
+JAX package's CPU products alone; on a CUDA card it raises (BF16_ON_CUDA).
+A fit scopes the setting to its call (scoped_matmul_precision), as the JAX
+package's with_matmul_precision scopes jax's.  The default is full float32
+because reduced-precision products put a floor under the flagship's
+objective on the TPU (see AlgOptions.matmul_precision in the JAX package).
 """
 from __future__ import annotations
 
@@ -95,29 +97,40 @@ class AlgOptions:
     pp_refresh_tol: float = 0.05
 
 
-def apply_matmul_precision(options: AlgOptions) -> None:
-    """Set torch's float32 product precision for a fit.  Both TF32 switches
-    are set explicitly, so a fit never inherits cuDNN's TF32 default."""
+# Why matmul_precision='bfloat16' raises on a card: chip_smoke.py phase 22,
+# on an NVIDIA H100 80GB HBM3 at 700 W (torch 2.11): a 4096^2 float32 GEMM
+# under 'medium' was 2.939e-04 off its float64 product, as under 'high'
+# (TF32 inputs: 2.937e-04), where bfloat16 inputs give 2.350e-03.
+BF16_ON_CUDA = (
+    "matmul_precision='bfloat16' is not available on a CUDA card: torch "
+    "has no bfloat16 mode for float32 GEMMs there; "
+    "torch.set_float32_matmul_precision('medium') gives TF32 products "
+    "(measured 2.9e-04 off float64 at 4096^2, as 'high', against 2.4e-03 "
+    "for bfloat16 inputs; chip_smoke.py phase 22)")
+
+
+def apply_matmul_precision(options: AlgOptions, device=None) -> None:
+    """Set torch's float32 product precision for a fit on `device` (the
+    card where None).  Both TF32 switches are set explicitly, so a fit
+    never inherits cuDNN's TF32 default."""
     mp = options.matmul_precision
-    if mp == "bfloat16":
-        raise NotImplementedError(
-            "matmul_precision='bfloat16' is not ported: torch has no global "
-            "bf16 matmul mode for float32 tensors")
+    if mp == "bfloat16" and torch.device(device or "cuda").type == "cuda":
+        raise NotImplementedError(BF16_ON_CUDA)
     tf32 = mp == "tensorfloat32"
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
 
 
 @contextlib.contextmanager
-def scoped_matmul_precision(options: AlgOptions):
-    """The fit's precision (apply_matmul_precision) for the body of the
-    with-block only: both TF32 switches are restored as the caller left
-    them on exit, a raise included (the counterpart of the JAX package's
-    with_matmul_precision)."""
+def scoped_matmul_precision(options: AlgOptions, device=None):
+    """The fit's precision (apply_matmul_precision) on `device` for the body
+    of the with-block only: both TF32 switches are restored as the caller
+    left them on exit, a raise included (the counterpart of the JAX
+    package's with_matmul_precision)."""
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     try:
-        apply_matmul_precision(options)
+        apply_matmul_precision(options, device)
         yield
     finally:
         (torch.backends.cuda.matmul.allow_tf32,

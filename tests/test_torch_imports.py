@@ -37,7 +37,18 @@ PORT_MODULES = [
     "matlab_code_tpu_torch.ops.lanes", "matlab_code_tpu_torch.models.multistart",
     "matlab_code_tpu_torch.utils.multistart_workload",
     "matlab_code_tpu_torch.utils.time_fit",
-]
+    "matlab_code_tpu_torch.utils.score", "matlab_code_tpu_torch.utils.matlab_rng",
+    "matlab_code_tpu_torch.utils.datagen", "matlab_code_tpu_torch.utils.plotting",
+    "matlab_code_tpu_torch.examples", "matlab_code_tpu_torch.examples.common",
+    "matlab_code_tpu_torch.examples.run_all",
+] + [f"matlab_code_tpu_torch.examples.{name}" for name in (
+    "script01_cp_par2_nonneg", "script01a_cp_par2_smooth_l2ball",
+    "script02_matrix_par2_nonneg", "script03_matrix_cp_partialcoupling",
+    "script04_irregular_par2", "script05_cp_cp_doublesampling_simplex",
+    "script06_three_datasets", "script07_matrix_cp_kl",
+    "script08_regular_par2_nonneg", "script09_par2_unimodality",
+    "script10_cp_tv", "script11_tparafac2", "script12_cp_par2_em",
+    "script13_cp_cp_type5", "script14_cp_par2_couplC", "script15_realdata")]
 
 
 def _python(code, cwd=REPO):

@@ -223,10 +223,11 @@ def test_torch_mttkrp_columns_and_folded_proxes_match_one_call_a_start():
 
 
 def test_torch_multistart_cases_not_reached_raise():
-    """mesh= and matmul_precision='bfloat16' raise NotImplementedError
-    (mesh= naming its ROADMAP slice), and the switches of torch's TF32
-    stay as they were; a wrong number of keys raises ValueError.  Other
-    losses, sparse COO data and the pairwise option run on the start axis
+    """mesh= raises NotImplementedError naming its ROADMAP slice, and a
+    wrong number of keys raises ValueError.  matmul_precision='bfloat16'
+    runs on the CPU with 'default''s bits (it raises only on a card), and
+    the switches of torch's TF32 stay as they were.  Other losses, sparse
+    COO data and the pairwise option run on the start axis
     (tests/test_torch_multistart_{kl,nonfrob,sparse,repairs}.py)."""
     spec, data, opts, init = mw.script15_problem("cpu", torch.float64)
     with pytest.raises(NotImplementedError, match="slice 8"):
@@ -234,7 +235,9 @@ def test_torch_multistart_cases_not_reached_raise():
     with pytest.raises(ValueError, match="keys"):
         tp.fit_multistart(spec, data, opts, init, 2, keys=[1])
     saved = torch.backends.cuda.matmul.allow_tf32
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tp.fit_multistart(spec, data, dataclasses.replace(
-            opts, matmul_precision="bfloat16"), init, 2)
+    short = dataclasses.replace(opts, MaxOuterIters=2)
+    _, _, bf16, _ = tp.fit_multistart(spec, data, dataclasses.replace(
+        short, matmul_precision="bfloat16"), init, 2)
+    _, _, plain, _ = tp.fit_multistart(spec, data, short, init, 2)
+    np.testing.assert_array_equal(bf16, plain)
     assert torch.backends.cuda.matmul.allow_tf32 is saved

@@ -6,8 +6,8 @@ NVIDIA GPU.  Usage, from the root of a checkout:
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
 started together, into the git-ignored matlab_code_tpu_torch/_build/) and
-runs twenty-two phases, each printing its seconds; any failure raises and
-exits non-zero:
+runs twenty-three phases, each printing its seconds; any failure raises
+and exits non-zero:
 
   1. device and precision: the card, its power limit, the TF32 switches;
   2. dense kernel vs plain: the MTTKRP kernels (the rows-stream kernel of
@@ -191,13 +191,27 @@ exits non-zero:
      'highest', 'high' and 'medium' float32 matmul precision against its
      float64 product (relative error, time), beside the errors of inputs
      rounded to bfloat16 and to TF32, and options.py's decision for
-     'bfloat16' on the card, which must match what 'medium' gives.
+     'bfloat16' on the card, which must match what 'medium' gives;
+ 23. the mesh (matlab_code_tpu_torch/parallel/), in spawned worker
+     processes: (a) one rank over a real NCCL communicator: the full-width
+     flagship and the sparse workload through cmtf_aoadmm(mesh=) for 10
+     iterations in float32 against the plain card fit (the same bits or
+     not, ms an iteration); (b) two ranks sharing the card over gloo: the
+     flagship (bulk and ring collectives) and the sparse workload in
+     float64 for 10 iterations, each rank's mttkrp3 or sparse kernel on its
+     half, against the plain card fit at rtol 1e-10, the KL workload for 3
+     (kernel D on each block; within 10x the gap a one-ulp change of the
+     data makes to the plain card fit), fit_multistart of the flagship with 20
+     starts split 10 and 10 against the unsharded port; every rank's state
+     bit-equal, each rank's launches, collectives and host-staging time;
+     fails past 120 s.
 
 It then prints one JSON line describing the six kernels (mttkrp3's and
 the sparse kernel's launches on phases 16-17's paths beside them,
 mttkrp3's on phase 19's, kernel D's and the sparse kernel's on phase
 20's, kernel D's start-axis times, and every kernel's launches on phase
-21 (b), "examples_launches"), the card's name
+21 (b), "examples_launches", and on phase 23's mesh runs, "mesh_launches"),
+the card's name
 and power limit, and as its last line {"ok": true, "device": {...}}.  It
 imports nothing of JAX, and it fails without a CUDA card or without the
 package beside it.
@@ -296,6 +310,21 @@ EXAMPLE_S15_ITERS = 30      # script 15: 20 starts
 EXAMPLE_WORKERS = 2         # processes that share the card for (b)
 EXAMPLE_PHASE_S = 150       # phase 21 fails past this many seconds
 BF16_N = 4096               # the GEMM of phase 22
+MESH_ITERS = 10             # phase 23: fits over a mesh
+MESH_KL_ITERS = 3
+MESH_STARTS = 20            # fit_multistart over 2 ranks, 10 starts a rank
+MESH_RTOL = 1e-10           # (b)'s float64 runs against the plain card fit
+# (b)'s KL run is held within this many times the gap a one-ulp change of
+# the data makes to the plain card fit: in float64 its L-BFGS-B solves carry
+# a 1e-16 change of f or g to ~1e-4 in three iterations; never past
+# MESH_KL_CAP (f_tensors, factors), whatever the yardstick gives
+MESH_KL_SLACK = 10.0
+MESH_KL_CAP = (1e-3, 2e-2)
+# where that chaos has not begun: each KL mode's first L-BFGS-B evaluation
+# (f and gradient) at the init state, over the mesh against the plain one
+MESH_KL_EVAL_RTOL = 1e-12
+MESH_KL_EVAL_RHO = 1.0
+MESH_PHASE_S = 120          # phase 23 fails past this many seconds
 
 
 def phase(n, title):
@@ -2697,6 +2726,347 @@ def bf16_phase(dev, power):
     done(22, t0)
 
 
+def _mesh_problem(job, dev):
+    """(kind, spec, data, options, init) of one of phase 23's runs, built
+    from its seed on `dev`: job is 'workload/dtype' ('flagship-ring' the
+    flagship with mesh_pipelined_collectives).  init: the init options of
+    cmtf_aoadmm(seed=1), or the init state of the KL workload."""
+    import torch
+    from matlab_code_tpu_torch.utils import flagship
+    from matlab_code_tpu_torch.utils import kl_workload as klw
+    from matlab_code_tpu_torch.utils import sparse_workload as sw
+    work, dt = job.split("/")
+    dt = getattr(torch, dt)
+    stop = dict(AbsFuncTol=0.0, OuterRelTol=0.0)
+    if work.startswith("flagship") or work == "multistart":
+        spec, data = flagship.build_problem(dev, dt)
+        opts = flagship.flagship_options(
+            MESH_ITERS, mesh_pipelined_collectives=work == "flagship-ring",
+            **stop)
+        return work, spec, data, opts, flagship.flagship_init_options()
+    if work == "sparse":
+        spec, data = sw.build_problem(device=dev, dtype=dt)
+        return (work, spec, data, sw.sparse_options(MESH_ITERS, **stop),
+                sw.sparse_init_options())
+    spec, data, state0, _ = klw.build_problem(dev, dt)
+    return work, spec, data, klw.kl_options(MESH_KL_ITERS, **stop), state0
+
+
+def _mesh_fit(job, dev, mesh=None, ulp=False):
+    """Run one of phase 23's jobs (_mesh_problem), over `mesh` or plain, and
+    return what the phase prints and holds, as numpy: the streams, the
+    factors, the median ms an iteration, the kernels' launches (each count
+    set to 0 just before the run), and over a mesh the collectives' counts
+    and host-staging seconds, whether every rank holds the same state bits,
+    and the bytes the ring's chunk copies take.  ulp: the data times
+    1 + 2^-52, the yardstick of the KL run's sensitivity."""
+    import torch
+    from matlab_code_tpu_torch.models.init import init_coupled
+    from matlab_code_tpu_torch.models.multistart import fit_multistart
+    from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit
+    from matlab_code_tpu_torch.ops.loss_cuda import loss_fg_cuda
+    from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
+    from matlab_code_tpu_torch.ops.prox_cuda import (
+        project_isotonic_cols, prox_tv_cols, t_smooth_cols)
+    from matlab_code_tpu_torch.ops.sparse_cuda import mttkrp_sparse_cuda
+    from matlab_code_tpu_torch.parallel import distributed, sharding
+    from matlab_code_tpu_torch.parallel.shard_mttkrp import pad_sparse_nnz
+    work, spec, data, opts, init = _mesh_problem(job, dev)
+    row = {"chunk_bytes": 0}
+    if ulp:
+        data = dataclasses.replace(data, objects=tuple(
+            X * (1 + 2.0 ** -52) for X in data.objects))
+    if mesh is not None and work == "sparse":
+        data = dataclasses.replace(data, objects=(pad_sparse_nnz(
+            data.objects[0], mesh.size),))
+    if mesh is not None and opts.mesh_pipelined_collectives:
+        # the ring's chunk copies, cut at each form's first call
+        laid, st = sharding.lay_out(
+            spec, data, init_coupled(spec, data, init, seed=1), mesh)
+        row["chunk_bytes"] = _ring_chunk_bytes(spec, laid, st, mesh)
+        del laid, st
+    counters = {"mttkrp3": mttkrp3, "sparse": mttkrp_sparse_cuda,
+                "D": loss_fg_cuda, "A": project_isotonic_cols,
+                "B": prox_tv_cols, "C": t_smooth_cols}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    if mesh is not None:
+        mesh.reset_stats()
+    t = time.perf_counter()
+    if work == "multistart":
+        state, out, finals, stops = fit_multistart(
+            spec, data, opts, init, MESH_STARTS, keys=range(MESH_STARTS),
+            mesh=mesh)
+        row.update(finals=finals, stops=list(stops))
+    elif work == "kl":
+        state, out = fit(spec, data, init, opts, mesh=mesh, validate=not ulp)
+    else:
+        _, state, _, out = cmtf_aoadmm(spec, data, opts, init_options=init,
+                                       seed=1, mesh=mesh)
+    torch.cuda.synchronize()
+    row.update(secs=time.perf_counter() - t,
+               launches={k: fn.launches for k, fn in counters.items()},
+               f=np.asarray(out.func_val_conv),
+               fac=[f.detach().cpu().numpy() for f in state.fac],
+               ms=float(np.median(np.diff(out.time_at_it)) * 1e3),
+               iters=out.OuterIterations)
+    if mesh is not None:
+        row.update(counts=dict(mesh.counts), stage=dict(mesh.stage_seconds),
+                   agree=distributed.replicas_agree(state, mesh))
+    return row
+
+
+def _ring_chunk_bytes(spec, data, state, mesh):
+    """The bytes the ring forms' chunk copies take on this rank: each
+    form called once on its dataset's block."""
+    from matlab_code_tpu_torch.parallel.shard_mttkrp import (
+        build_sharded_mttkrps)
+    total = 0
+    for (p, _), f in build_sharded_mttkrps(spec, data, mesh,
+                                           pipelined=True).items():
+        if hasattr(f, "chunk_bytes"):
+            f(data.objects[p], [state.fac[m] for m in spec.datasets[p].modes])
+            total += f.chunk_bytes
+    return total
+
+
+def _kl_first_evals(job, dev, mesh=None):
+    """Each KL mode's first L-BFGS-B evaluation (lbfgs_bridge's vag at its
+    start point: f and the gradient) at the KL workload's init state, with
+    rho MESH_KL_EVAL_RHO, over `mesh` (data laid out, kernel D on the
+    block, psum of f, the gh MTTKRP through the sharded form) or plain.
+    The L-BFGS-B is stopped after that evaluation.  Returns {"evals":
+    [(f, g) by mode], "launches": kernel D's launches}."""
+    import types
+    import torch
+    from matlab_code_tpu_torch.models import lbfgs_bridge
+    from matlab_code_tpu_torch.ops.loss_cuda import loss_fg_cuda
+    from matlab_code_tpu_torch.parallel import sharding
+    _, spec, data, opts, state = _mesh_problem(job.replace("kl-eval", "kl"),
+                                               dev)
+    if mesh is not None:
+        data, state = sharding.lay_out(spec, data, state, mesh)
+    evals = []
+
+    def first_eval(vag, x0, *args, **kwargs):
+        f, g = vag(x0)
+        evals.append((float(f), g.detach().cpu().numpy()))
+        return types.SimpleNamespace(x=x0, iterations=0)
+
+    real = lbfgs_bridge.lbfgsb
+    lbfgs_bridge.lbfgsb = first_eval
+    torch.cuda.synchronize()
+    loss_fg_cuda.launches = 0
+    try:
+        for m in spec.datasets[0].modes:
+            lbfgs_bridge.make_lbfgs_step(spec, 0, m, opts)(
+                state, data, True, -1, MESH_KL_EVAL_RHO)
+    finally:
+        lbfgs_bridge.lbfgsb = real
+    torch.cuda.synchronize()
+    return {"evals": evals, "launches": loss_fg_cuda.launches}
+
+
+def _mesh_rank(rank, world, url, backend, jobs):
+    """Phase 23's rank `rank` of `world`, a spawned worker process: joins
+    the group (`backend` over `url`), runs `jobs` over the mesh
+    (_mesh_fit) and, where `plain`, each job again without the mesh after
+    it.  Returns {job: row} ({job: (mesh row, plain row)} where plain)."""
+    sys.path.insert(0, REPO)
+    import torch
+    from matlab_code_tpu_torch.parallel import distributed
+    assert "jax" not in sys.modules
+    torch.set_num_threads(2)
+    distributed.initialize(url, world, rank, backend=backend)
+    try:
+        mesh = distributed.make_global_mesh()
+        dev = mesh.device
+        rows = {}
+        for job, plain in jobs:
+            if job.startswith("kl-eval"):
+                rows[job] = _kl_first_evals(job, dev, mesh)
+                continue
+            row = _mesh_fit(job, dev, mesh)
+            rows[job] = (row, _mesh_fit(job, dev)) if plain else row
+        return rows
+    finally:
+        distributed.shutdown()
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _mesh_row_line(row):
+    stage = {k: round(v * 1e3, 3) for k, v in row["stage"].items() if v}
+    return (f"launches {row['launches']}; collectives {row['counts']}; "
+            f"host staging ms {stage or 0}")
+
+
+def mesh_phase(dev, power):
+    """Phase 23: fit(mesh=), cmtf_aoadmm(mesh=) and fit_multistart(mesh=)
+    on the card (matlab_code_tpu_torch/parallel/), in spawned worker
+    processes.  (a) one rank over a real NCCL communicator (world size 1):
+    the full-width flagship and the sparse workload through
+    cmtf_aoadmm(mesh=) for MESH_ITERS iterations in float32 against the
+    plain card fit in the same process (the bits must be equal: with one
+    rank every collective is the identity; ms an iteration); (b) two ranks sharing the card over gloo (NCCL
+    refuses two ranks on one card): the full-width flagship (bulk and ring
+    collectives) and the sparse workload (nnz padded to even), float64,
+    MESH_ITERS iterations, each rank running mttkrp3 or the sparse kernel
+    on its half, against the plain card fit at MESH_RTOL; the KL
+    workload's first L-BFGS-B evaluation of each mode at the init state
+    (kernel D on each rank's block, _kl_first_evals) against the plain one
+    at MESH_KL_EVAL_RTOL, and its fit for MESH_KL_ITERS iterations within
+    MESH_KL_SLACK times the gap of the plain card fit on the data times
+    1 + 2^-52, never past MESH_KL_CAP; fit_multistart of the flagship with MESH_STARTS starts
+    split 10 and 10 against the unsharded port (finals at MESH_RTOL, stop
+    iterations equal).  Every run holds every rank's state bit-equal
+    (distributed.replicas_agree), and launches its kernels on every rank
+    (each count set to 0 just before the run).  Fails past MESH_PHASE_S
+    seconds.  Returns the launches by kernel over the mesh runs, for the
+    kernels line."""
+    t_phase = time.perf_counter()
+    t0 = phase(23, f"mesh on the card: (a) one NCCL rank, (b) two gloo ranks "
+                   f"sharing the card; {MESH_ITERS} iterations")
+    spawn = multiprocessing.get_context("spawn")
+    total = {"mttkrp3": 0, "sparse": 0, "D": 0, "A": 0, "B": 0, "C": 0}
+
+    def count(row, need):
+        for k, v in row["launches"].items():
+            total[k] += v
+        missing = [k for k in need if row["launches"][k] == 0]
+        if missing:
+            raise RuntimeError(f"phase 23: no launch of {missing} over the "
+                               "mesh: a path fell back to a plain version")
+        if not row["agree"]:
+            raise RuntimeError("phase 23: the ranks' states differ")
+        if not np.all(np.isfinite(row["f"])):
+            raise RuntimeError("phase 23: non-finite objective stream")
+
+    need = {"flagship": ["mttkrp3"], "flagship-ring": ["mttkrp3"],
+            "sparse": ["sparse"], "kl": ["mttkrp3", "D"],
+            "multistart": ["mttkrp3"]}
+    # (a) one rank over NCCL
+    jobs_a = [("flagship/float32", True), ("sparse/float32", True)]
+    with ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        rows_a = pool.submit(_mesh_rank, 0, 1, f"tcp://localhost:{_free_port()}",
+                             "nccl", jobs_a).result()
+    secs_a = time.perf_counter() - t_phase
+    for job, _ in jobs_a:
+        m, p = rows_a[job]
+        count(m, need[job.split("/")[0]])
+        same = all(np.array_equal(a, b) for a, b in zip(m["fac"], p["fac"]))
+        same_f = np.array_equal(m["f"], p["f"])
+        gap = float(np.max(np.abs(m["f"] - p["f"]) / np.abs(p["f"])))
+        print(f"  (a) NCCL, 1 rank, {job}: ms an iteration {m['ms']:.3f} over "
+              f"the mesh, {p['ms']:.3f} plain; the plain card fit's factor "
+              f"bits: {same}, its f_tensors stream's bits: {same_f} (rel gap "
+              f"{gap:.3e}); {_mesh_row_line(m)}  [{power}]")
+        # one rank: every psum and all_gather is the identity, so the mesh
+        # fit runs the plain fit's operations on the same data
+        if not (same and same_f):
+            raise RuntimeError(f"phase 23 {job}: the one-rank NCCL fit's bits "
+                               "differ from the plain card fit's")
+
+    # (b) two ranks over gloo, sharing the card; the plain card fits here
+    jobs_b = ["flagship/float64", "flagship-ring/float64", "sparse/float64",
+              "kl-eval/float64", "kl/float64", "multistart/float64"]
+    plain = {"kl-eval/float64": _kl_first_evals("kl-eval/float64", dev)}
+    for job in ("flagship/float64", "sparse/float64", "kl/float64",
+                "multistart/float64"):
+        plain[job] = _mesh_fit(job, dev)
+    plain["flagship-ring/float64"] = plain["flagship/float64"]
+    ulp = _mesh_fit("kl/float64", dev, ulp=True)
+    p = plain["kl/float64"]
+    kl_gap = (float(np.max(np.abs(ulp["f"] - p["f"]) / np.abs(p["f"]))),
+              max(float(np.abs(a - b).max() / np.abs(b).max())
+                  for a, b in zip(ulp["fac"], p["fac"])))
+    print(f"  the plain card fit of the KL workload on its data times 1 + 2^-52:"
+          f" f_tensors rel gap {kl_gap[0]:.3e}, factors {kl_gap[1]:.3e} of "
+          f"their largest entry (its L-BFGS-B's sensitivity)  [{power}]")
+    secs_plain = time.perf_counter() - t_phase - secs_a
+    url = f"tcp://localhost:{_free_port()}"
+    with ProcessPoolExecutor(2, mp_context=spawn) as pool:
+        futs = [pool.submit(_mesh_rank, r, 2, url, "gloo",
+                            [(j, False) for j in jobs_b]) for r in range(2)]
+        ranks = [f.result() for f in futs]
+    for job in jobs_b:
+        work = job.split("/")[0]
+        p = plain[job]
+        if work == "kl-eval":
+            for r, rows in enumerate(ranks):
+                m = rows[job]
+                gaps = [(abs(fm - fp) / abs(fp),
+                         float(np.abs(gm - gp).max() / np.abs(gp).max()))
+                        for (fm, gm), (fp, gp) in zip(m["evals"], p["evals"])]
+                total["D"] += m["launches"]
+                print(f"  (b) gloo, rank {r} of 2, {job}: each mode's first "
+                      f"L-BFGS-B evaluation at the init state, (f rel gap, "
+                      f"gradient gap of its largest entry) "
+                      f"{[(float(f'{a:.3e}'), float(f'{b:.3e}')) for a, b in gaps]}"
+                      f" (bound {MESH_KL_EVAL_RTOL:.0e}); kernel D launches "
+                      f"{m['launches']}  [{power}]")
+                if (len(gaps) != len(p["evals"]) or m["launches"] == 0
+                        or max(max(g) for g in gaps) > MESH_KL_EVAL_RTOL):
+                    raise RuntimeError(f"phase 23 {job}: rank {r}'s "
+                                       "evaluation misses the plain one")
+            for a, b in zip(ranks[0][job]["evals"], ranks[1][job]["evals"]):
+                if a[0] != b[0] or not np.array_equal(a[1], b[1]):
+                    raise RuntimeError(f"phase 23 {job}: the ranks' "
+                                       "evaluations differ")
+            continue
+        rtol, ftol = MESH_RTOL, 1e-8
+        if work == "kl":
+            rtol = max(rtol, min(MESH_KL_SLACK * kl_gap[0], MESH_KL_CAP[0]))
+            ftol = max(ftol, min(MESH_KL_SLACK * kl_gap[1], MESH_KL_CAP[1]))
+        for r, rows in enumerate(ranks):
+            m = rows[job]
+            count(m, need[work])
+            gap = float(np.max(np.abs(m["f"] - p["f"]) / np.abs(p["f"])))
+            fgap = max(float(np.abs(a - b).max() / np.abs(b).max())
+                       for a, b in zip(m["fac"], p["fac"]))
+            extra = ""
+            if work == "multistart":
+                extra = (f"; finals rel gap "
+                         f"{float(np.max(np.abs(m['finals'] - p['finals']) / np.abs(p['finals']))):.3e}, "
+                         f"stop iterations equal {m['stops'] == p['stops']}")
+                if m["stops"] != p["stops"] or not np.allclose(
+                        m["finals"], p["finals"], rtol=rtol, atol=0):
+                    raise RuntimeError(f"phase 23 {job}: the starts moved")
+            if m["chunk_bytes"]:
+                extra += f"; ring chunk copies {m['chunk_bytes'] / 2**20:.1f} MiB"
+            print(f"  (b) gloo, rank {r} of 2, {job}: ms an iteration "
+                  f"{m['ms']:.3f} over the mesh, {p['ms']:.3f} plain (one "
+                  f"process alone); f_tensors rel gap {gap:.3e}, factors "
+                  f"{fgap:.3e} of their largest entry (bounds {rtol:.3e}, "
+                  f"{ftol:.3e}); "
+                  f"{_mesh_row_line(m)}{extra}  [{power}]")
+            if gap > rtol or fgap > ftol:
+                raise RuntimeError(f"phase 23 {job}: rank {r} misses the "
+                                   f"plain card fit ({gap:.3e}, {fgap:.3e})")
+        for a, b in zip(ranks[0][job]["fac"], ranks[1][job]["fac"]):
+            if not np.array_equal(a, b):
+                raise RuntimeError(f"phase 23 {job}: the ranks' factors differ")
+    secs = time.perf_counter() - t_phase
+    print(f"  launches over the mesh runs, both ranks: {total}")
+    print(f"phase 23 took {secs:.1f} s (limit {MESH_PHASE_S} s): (a) "
+          f"{secs_a:.1f} s (its worker's start and kernel builds included), "
+          f"(b)'s plain card fits {secs_plain:.1f} s, (b)'s ranks "
+          f"{secs - secs_a - secs_plain:.1f} s")
+    if secs > MESH_PHASE_S:
+        raise RuntimeError(f"phase 23 took {secs:.1f} s, past its "
+                           f"{MESH_PHASE_S} s")
+    done(23, t0)
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2975,6 +3345,7 @@ def main():
     ms_rest = multistart_rest_phase(dev, power)
     ex = examples_phase(dev, power)
     bf16_phase(dev, power)
+    mesh = mesh_phase(dev, power)
     kl["D"].update(ms_rest["D"], multistart_launches=ms_rest["D_launches"])
     sparse["multistart_launches"] = ms_rest["sparse_launches"]
     for e in prox_entries:
@@ -2985,6 +3356,10 @@ def main():
         e["examples_launches"] = ex[{"project_isotonic_cols": "A",
                                      "prox_tv_cols": "B"}.get(e["name"], "C")]
     kl["D"]["examples_launches"] = ex["D"]
+    for e in prox_entries:
+        e["mesh_launches"] = mesh[{"project_isotonic_cols": "A",
+                                   "prox_tv_cols": "B"}.get(e["name"], "C")]
+    kl["D"]["mesh_launches"] = mesh["D"]
 
     print(json.dumps({"kernels": [{
         "name": "mttkrp3", "route": "cuda", "source": KERNEL_SOURCE,
@@ -2994,9 +3369,10 @@ def main():
         "library_ms": lib_ms, "par2_launches": par2["mttkrp3_launches"],
         "kl_launches": kl["mttkrp3_launches"],
         "em_launches": em["EM flagship"], "pp_launches": em["pp flagship"],
-        "multistart_launches": ms_launches, "examples_launches": ex["mttkrp3"]},
+        "multistart_launches": ms_launches, "examples_launches": ex["mttkrp3"],
+        "mesh_launches": mesh["mttkrp3"]},
         dict(sparse, pp_launches=em["pp sparse workload"],
-             examples_launches=ex["sparse"])]
+             examples_launches=ex["sparse"], mesh_launches=mesh["sparse"])]
         + prox_entries + [kl["D"]]}))
     print(power)
     print(json.dumps({"ok": True, "device": {

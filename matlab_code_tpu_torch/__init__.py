@@ -20,7 +20,12 @@ non-Frobenius loss pass ops/loss_cuda.loss_fg_cuda (csrc/loss_fg.cu).
 The user surface needs no jax either: create_coupled_data and the
 MATLAB-seeded generators (utils/datagen.py, utils/matlab_rng.py), FMS and
 Fit% (utils/score.py), and the 16 example configurations with their runner
-(examples/, python -m matlab_code_tpu_torch.examples.run_all).
+(examples/, python -m matlab_code_tpu_torch.examples.run_all).  fit,
+cmtf_aoadmm and fit_multistart take mesh= (parallel/: a mesh of ranks on
+torch.distributed; make_mesh, or parallel.distributed.initialize and
+make_global_mesh): the data cut into blocks, each rank's MTTKRPs on its
+block through the kernels, reduced by collectives; the starts of
+fit_multistart shared out over the ranks.
 """
 
 from matlab_code_tpu_torch.problem import (
@@ -33,6 +38,7 @@ from matlab_code_tpu_torch.models.init import init_coupled
 from matlab_code_tpu_torch.models.pairwise import eligible_pp_datasets
 from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit, fit_stepwise
 from matlab_code_tpu_torch.models.multistart import fit_multistart
+from matlab_code_tpu_torch.parallel.sharding import make_mesh
 from matlab_code_tpu_torch.utils.checkpoint import load_state, save_state
 from matlab_code_tpu_torch.utils.datagen import create_coupled_data
 
@@ -42,5 +48,5 @@ __all__ = [
     "InitOptions", "SolverState",
     "init_coupled", "cmtf_aoadmm", "fit", "fit_stepwise", "fit_multistart",
     "eligible_pp_datasets", "save_state", "load_state", "check_data_input",
-    "create_coupled_data",
+    "create_coupled_data", "make_mesh",
 ]

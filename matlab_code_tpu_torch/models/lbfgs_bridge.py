@@ -7,7 +7,11 @@ of the elementwise gradient tensor gh(X, M) plus theirs, derived by hand as
 the reference does.  Each evaluation builds the model M = ktensor_full
 (torch.einsum), makes the loss pass (ops/losses.loss_fg: kernel D on the
 card) and the MTTKRP of gh (ops/tensor.mttkrp: the mttkrp3 kernel for a
-3-way dataset on the card).
+3-way dataset on the card).  On a mesh (parallel/), a dataset cut into
+blocks makes the loss pass over this rank's block (the model of its rows),
+psums sum fh and takes the gh MTTKRP through the sharded MTTKRP
+(parallel/shard_mttkrp.block_mttkrp), so every rank's L-BFGS-B sees the
+same value and gradient.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ import torch
 from matlab_code_tpu_torch.ops import losses
 from matlab_code_tpu_torch.ops.lbfgsb import lbfgsb
 from matlab_code_tpu_torch.ops.tensor import ktensor_full, mttkrp
+from matlab_code_tpu_torch.parallel.sharding import dataset_shard
+from matlab_code_tpu_torch.parallel.shard_mttkrp import block_mttkrp
 from matlab_code_tpu_torch.problem import ProblemSpec
 from matlab_code_tpu_torch.state import tuple_set
 
@@ -37,6 +43,7 @@ def make_lbfgs_step(spec: ProblemSpec, p: int, m: int, options):
     def step(state, data, constrained: bool, coupling_type: int, rho,
              active=None):
         X = data.objects[p]
+        sh = dataset_shard(data, p)
         fshape = state.fac[m].shape
         fac0 = state.fac[m]
         if constrained:
@@ -51,11 +58,16 @@ def make_lbfgs_step(spec: ProblemSpec, p: int, m: int, options):
         def vag(xvec):
             x = xvec.reshape(fshape)
             facs = [state.fac[j] if j != m else x for j in ds.modes]
-            M = ktensor_full(facs).contiguous()
+            M = ktensor_full(facs if sh is None
+                             else sh.local_factors(facs)).contiguous()
             fh_sum, Y = losses.loss_fg(ds.loss, X, M, options.eps_log,
                                        ds.loss_param)
+            if sh is None:
+                mk = mttkrp(Y, facs, local)
+            else:
+                fh_sum, mk = sh.psum(fh_sum), block_mttkrp(sh, Y, facs, local)
             f = ds.weight * fh_sum
-            g = ds.weight * mttkrp(Y, facs, local).reshape(-1)
+            g = ds.weight * mk.reshape(-1)
             if constrained:
                 d = xvec - Zc.reshape(-1) + muZ.reshape(-1)
                 f = f + rho / 2.0 * torch.sum(d * d)

@@ -34,7 +34,9 @@ seeded generator a start (see fit_multistart for the seeds).
 A quirk kept from the JAX function: options.cp_pairwise_perturbation is
 not read here (matlab_code_tpu/models/multistart.py:133 builds its step
 without the pairwise datasets), so every start runs the exact MTTKRPs.
-mesh= (start sharding over several cards) raises NotImplementedError.
+mesh= shards the start axis over a mesh's ranks (parallel/), the data
+replicated: each rank runs its share of the starts, and one gather at the
+end picks the best start for every rank.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from matlab_code_tpu_torch.convert import state_from_numpy, state_to_numpy
 from matlab_code_tpu_torch.models.admm import to_host
 from matlab_code_tpu_torch.models.init import init_coupled
 from matlab_code_tpu_torch.models.objective import func_eval
@@ -55,6 +58,7 @@ from matlab_code_tpu_torch.models.solver import (
     init_cache, make_outer_step, stopping)
 from matlab_code_tpu_torch.options import (
     AlgOptions, InitOptions, scoped_matmul_precision)
+from matlab_code_tpu_torch.parallel.collectives import gather_object
 from matlab_code_tpu_torch.problem import (
     PAR2, Parafac2Tensor, ProblemData, ProblemSpec, check_data_input,
     has_missing)
@@ -108,8 +112,14 @@ def fit_multistart(spec: ProblemSpec, data: ProblemData, options: AlgOptions,
     to the int of its sha256's first 8 hex digits (the JAX function's
     rule).  Every loss, sparse COO data and EM take the start axis;
     cp_pairwise_perturbation is not read (the JAX function's exact
-    MTTKRPs, models/multistart.py).  mesh= (start sharding over several
-    cards) raises NotImplementedError."""
+    MTTKRPs, models/multistart.py).
+
+    mesh: a parallel/sharding.Mesh of n ranks, each calling with the same
+    full problem (data replicated, on the rank's device): rank r runs
+    starts [r S/n, (r+1) S/n) on its start axis, with no collective while
+    they run; one gather at the end gives every rank the same
+    (best_state, best_out, finals, stop_iters).  n_starts must be
+    divisible by n (ValueError otherwise)."""
     if keys is not None:
         keys = [int(k) for k in keys]
         if len(keys) != n_starts:
@@ -119,14 +129,18 @@ def fit_multistart(spec: ProblemSpec, data: ProblemData, options: AlgOptions,
             base_key = int(hashlib.sha256(base_key.encode()).hexdigest()[:8],
                            16)
         keys = [int(base_key) + s for s in range(n_starts)]
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_multistart(mesh=): sharding the start axis over several "
-            "cards comes with ROADMAP.md section 1, item 5 (slice 8, "
-            "parallel/)")
+    if mesh is None:
+        states = [init_coupled(spec, data, init_options, seed=k,
+                               delta_shapes=delta_shapes) for k in keys]
+        return _fit_lanes(spec, data, states, options).best()
+    if n_starts % mesh.size:
+        raise ValueError(f"n_starts={n_starts} must be divisible by the mesh "
+                         f"size {mesh.size}")
+    per = n_starts // mesh.size
     states = [init_coupled(spec, data, init_options, seed=k,
-                           delta_shapes=delta_shapes) for k in keys]
-    return _fit_lanes(spec, data, states, options).best()
+                           delta_shapes=delta_shapes)
+              for k in keys[mesh.rank * per:(mesh.rank + 1) * per]]
+    return _fit_lanes(spec, data, states, options).best_over(mesh)
 
 
 class Lanes(NamedTuple):
@@ -147,6 +161,20 @@ class Lanes(NamedTuple):
         best = int(np.nanargmin(finals))
         return (self.state(best), self.outs[best], finals,
                 [o.OuterIterations for o in self.outs])
+
+    def best_over(self, mesh):
+        """best() over every rank's starts of a mesh, rank r's the r-th
+        equal share: one gather of each rank's finals, stopping iterations
+        and best start (state on the host), the same on every rank."""
+        state, out, finals, stops = self.best()
+        every = gather_object((finals, stops, state_to_numpy(state), out),
+                              mesh)
+        finals = np.concatenate([e[0] for e in every])
+        best = int(np.nanargmin(finals))
+        _, _, fields, out = every[best // len(self.outs)]
+        like = self.flat[0][0]
+        return (state_from_numpy(fields, device=like.device, dtype=like.dtype),
+                out, finals, [s for e in every for s in e[1]])
 
 
 def _fit_lanes(spec: ProblemSpec, data: ProblemData, states,

@@ -14,6 +14,11 @@ is w (Znorm_const + sum fh(X, M)) with the model M materialized.  A
 Frobenius dataset with a missing-data mask (True = observed) is evaluated
 on its observed entries with the model materialized, before any cached
 branch (cmtf_fun_AOADMM.m:1224-1226).
+
+On a mesh (parallel/), a dataset cut into blocks evaluates the branches
+that read its data (masked, non-cached, sparse, non-Frobenius) on this
+rank's block, with the model of the block's rows, and psums the sums; the
+cached branch reads replicated values only.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from matlab_code_tpu_torch.models.admm import _check_ctype, _fro_slices
 from matlab_code_tpu_torch.ops import losses
 from matlab_code_tpu_torch.ops.tensor import (
     gram, hadamard_grams, khatri_rao, ktensor_full, mttkrp, mttkrp_sparse)
+from matlab_code_tpu_torch.parallel.sharding import dataset_shard
 from matlab_code_tpu_torch.problem import (
     CP, PAR2, ProblemData, ProblemSpec, SparseTensor)
 
@@ -67,6 +73,12 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
     for p, ds in enumerate(spec.datasets):
         X = data.objects[p]
         msk = data.miss[p]
+        sh = dataset_shard(data, p)
+        psum = (lambda t: t) if sh is None else sh.psum
+        # the factors of this rank's block: a dense dataset's cut mode
+        # sliced to its rows
+        local = (lambda facs: facs) if sh is None or isinstance(
+            X, SparseTensor) else sh.local_factors
         if ds.model == PAR2:
             if msk is not None:
                 D = torch.where(msk, X.slices - par2_model_slices(spec, state, p),
@@ -87,16 +99,17 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
         if ds.loss != "Frobenius":
             # the model materialized, as the reference does; on the card
             # the loss pass is kernel D
-            M = ktensor_full([state.fac[j] for j in ds.modes]).contiguous()
+            M = ktensor_full(local([state.fac[j] for j in ds.modes])
+                             ).contiguous()
             fh_sum, _ = losses.loss_fg(ds.loss, X, M, options.eps_log,
                                        ds.loss_param)
-            fps.append(ds.weight * (znorm_consts[p] + fh_sum))
+            fps.append(ds.weight * (znorm_consts[p] + psum(fh_sum)))
             continue
         if msk is not None:
-            M = torch.where(msk, cp_model_full([state.fac[j] for j in ds.modes]),
-                            zero)
-            fp = ds.weight * (znorm_consts[p] - 2.0 * torch.sum(X * M)
-                              + torch.sum(M * M))
+            M = torch.where(msk, cp_model_full(
+                local([state.fac[j] for j in ds.modes])), zero)
+            sums = psum(torch.stack([torch.sum(X * M), torch.sum(M * M)]))
+            fp = ds.weight * (znorm_consts[p] - 2.0 * sums[0] + sums[1])
         elif cached is not None and p in cached:
             last_mk, last_had, last_m = cached[p]
             mlast = ds.modes[last_m]
@@ -109,9 +122,10 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
                 mk = mttkrp_sparse(X.indices, X.values, facs, 0,
                                    facs[0].shape[0],
                                    plan=None if X.plans is None else X.plans[0])
+                f2 = psum(torch.sum(mk * facs[0]))
             else:
-                mk = mttkrp(X, facs, 0)
-            f2 = torch.sum(mk * facs[0])
+                lf = local(facs)
+                f2 = psum(torch.sum(mttkrp(X, lf, 0) * lf[0]))
             f3 = torch.sum(hadamard_grams([gram(U) for U in facs]))
             fp = ds.weight * (znorm_consts[p] - 2.0 * f2 + f3)
         fps.append(fp)

@@ -48,12 +48,13 @@ from matlab_code_tpu_torch.problem import (
 
 
 def eligible_pp_datasets(spec: ProblemSpec, data: ProblemData,
-                         options: AlgOptions) -> tuple:
+                         options: AlgOptions, mesh=None) -> tuple:
     """Datasets the approximation applies to when options.
     cp_pairwise_perturbation is set: 3-way CP with Frobenius loss, no
     missing mask (EM imputation changes the data every iteration, which
-    would leave the partials stale), dense 3-way or SparseTensor data."""
-    if not options.cp_pairwise_perturbation:
+    would leave the partials stale), dense 3-way or SparseTensor data.
+    None under a mesh (the partials are not cut; the JAX package's rule)."""
+    if not options.cp_pairwise_perturbation or mesh is not None:
         return ()
     out = []
     for p, ds in enumerate(spec.datasets):

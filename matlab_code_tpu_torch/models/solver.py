@@ -45,6 +45,9 @@ from matlab_code_tpu_torch.ops.linalg import (
     block_diag, chol_lower, rsolve, solve, solve_spd_left, sylvester_solver)
 from matlab_code_tpu_torch.ops.prox import make_prox
 from matlab_code_tpu_torch.options import AlgOptions, scoped_matmul_precision
+from matlab_code_tpu_torch.parallel.sharding import (
+    dataset_shard, lay_out, mesh_of)
+from matlab_code_tpu_torch.parallel.shard_mttkrp import build_sharded_mttkrps
 from matlab_code_tpu_torch.problem import (
     CP, PAR2, Parafac2Tensor, ProblemData, ProblemSpec, SparseTensor,
     check_data_input, has_missing)
@@ -96,9 +99,11 @@ def compute_znorm_consts(spec: ProblemSpec, data: ProblemData,
                          options: AlgOptions):
     """Per-dataset data constants (cmtf_AOADMM.m:124-189); sum of squared
     values for a sparse COO or PARAFAC2 dataset, of the observed entries
-    where a PARAFAC2 dataset has a missing-data mask."""
+    where a PARAFAC2 dataset has a missing-data mask.  A dataset cut over a
+    mesh sums its block and psums the sums."""
     out = []
     for p, ds in enumerate(spec.datasets):
+        sh = dataset_shard(data, p)
         X = data.objects[p]
         if ds.model == PAR2:
             Xs = X.slices
@@ -111,6 +116,8 @@ def compute_znorm_consts(spec: ProblemSpec, data: ProblemData,
         else:
             out.append(losses.znorm_const(ds.loss, X, options.eps_log,
                                           ds.loss_param, data.miss[p]))
+        if sh is not None:
+            out[-1] = sh.psum(out[-1])
     return tuple(out)
 
 
@@ -172,16 +179,22 @@ def _check_devices(data: ProblemData, state: SolverState) -> None:
 
 def _warn_loss_data(spec: ProblemSpec, data: ProblemData) -> None:
     """Data-vs-loss warnings (cmtf_AOADMM.m:162-175): KL expects count data,
-    IS positive data.  One device read (to_host) a KL or IS dataset."""
+    IS positive data.  One device read (to_host) a KL or IS dataset; a
+    dataset cut over a mesh psums its blocks' flags first, so every rank
+    warns alike."""
     for p, ds in enumerate(spec.datasets):
         if ds.loss not in ("KL", "IS"):
             continue
         X = data.objects[p]   # dense: check_data_input refuses the rest
-        if ds.loss == "KL":
-            if to_host(torch.any(X < 0) | torch.any(X != torch.round(X))):
-                warnings.warn(f"Using 'KL' but dataset {p} is not count data")
-        elif to_host(torch.any(X <= 0)):
-            warnings.warn(f"Using 'IS' but dataset {p} is not positive")
+        bad = ((torch.any(X < 0) | torch.any(X != torch.round(X)))
+               if ds.loss == "KL" else torch.any(X <= 0))
+        sh = dataset_shard(data, p)
+        if sh is not None:
+            bad = sh.psum(bad.to(X.dtype)[None])[0] > 0
+        if to_host(bad):
+            warnings.warn(f"Using 'KL' but dataset {p} is not count data"
+                          if ds.loss == "KL" else
+                          f"Using 'IS' but dataset {p} is not positive")
 
 
 def _has_bk_constraint(spec: ProblemSpec) -> bool:
@@ -190,7 +203,8 @@ def _has_bk_constraint(spec: ProblemSpec) -> bool:
 
 
 def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
-                    bk_constraint_active: bool = True, pp_datasets=()):
+                    bk_constraint_active: bool = True, mttkrp_impls=None,
+                    pp_datasets=()):
     """One AO sweep over the coupling ids (cmtf_fun_AOADMM.m:87-407) for CP
     and PARAFAC2 datasets.  A mode of a non-Frobenius (KL, IS, beta)
     dataset takes its factor steps by L-BFGS-B (models/lbfgs_bridge.py)
@@ -199,7 +213,11 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
     bk_constraint_active: False before options.iter_start_PAR2Bkconstraint,
     when a PARAFAC2 Bk mode runs unconstrained.  pp_datasets: the datasets
     whose MTTKRPs go through the pairwise-perturbation MTTKRP
-    (models/pairwise.py, options.cp_pairwise_perturbation).
+    (models/pairwise.py, options.cp_pairwise_perturbation).  mttkrp_impls:
+    {(p, local mode): fn(X, factors)} MTTKRPs that replace the dispatch of
+    cp_mode_precompute, the sharded ones of a mesh
+    (parallel/shard_mttkrp.build_sharded_mttkrps); the pairwise ones take
+    their datasets' places.
 
     outer_step(state, data, grams, colnorms, rho_scale, pp=None) returns
     (state, grams, colnorms, rho_scale, cached, inner_its, lbfgs_its, illc,
@@ -215,12 +233,13 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
     adaptive = options.adaptive_rho_nonfrob and spec.has_non_frobenius()
 
     def outer_step(state, data, grams, colnorms, rho_scale, pp=None):
-        impls = {}
+        impls = dict(mttkrp_impls or {})
         if pp_datasets:
             pp = pp_sweep_update(spec, data, state, pp, options)
-            impls = {(p, local): (lambda X, facs, p=p, local=local: pp_mttkrp(
-                spec, X, facs, p, pp[p], local))
-                for p in pp_datasets for local in range(3)}
+            impls.update({(p, local): (lambda X, facs, p=p, local=local:
+                                       pp_mttkrp(spec, X, facs, p, pp[p],
+                                                 local))
+                          for p in pp_datasets for local in range(3)})
         inner_its: dict[int, Any] = {}
         lbfgs_its: dict[int, int] = {}
         cached: dict[int, Any] = {}
@@ -456,7 +475,9 @@ def em_impute(spec: ProblemSpec, data: ProblemData, state: SolverState):
     imputation), a 0-d tensor.  A CP model is built row-major
     (objective.cp_model_full) and a PARAFAC2 one as batched products, so
     the new data tensors are contiguous; a ragged PARAFAC2 dataset's padded
-    columns take the model's, which are zero where Bk's padded rows are."""
+    columns take the model's, which are zero where Bk's padded rows are.
+    A dataset cut over a mesh imputes its block from the model of its rows
+    and psums its two sums."""
     like = state.fac[0]
     zero = torch.zeros((), dtype=like.dtype, device=like.device)
     num = den = zero
@@ -466,14 +487,20 @@ def em_impute(spec: ProblemSpec, data: ProblemData, state: SolverState):
         if msk is None:
             continue
         X = objects[p]
+        sh = dataset_shard(data, p)
         if ds.model == CP:
-            M, Xd = cp_model_full([state.fac[j] for j in ds.modes]), X
+            facs = [state.fac[j] for j in ds.modes]
+            M, Xd = cp_model_full(facs if sh is None
+                                  else sh.local_factors(facs)), X
         else:
             M, Xd = par2_model_slices(spec, state, p), X.slices
         d = torch.where(msk, zero, M - Xd)
-        num = num + torch.sum(d * d)
         held = torch.where(msk, zero, Xd)
-        den = den + torch.sum(held * held)
+        sums = torch.stack([torch.sum(d * d), torch.sum(held * held)])
+        if sh is not None:
+            sums = sh.psum(sums)
+        num = num + sums[0]
+        den = den + sums[1]
         new = torch.where(msk, Xd, M)
         objects[p] = new if ds.model == CP else Parafac2Tensor(new, X.mask)
     frm = torch.where(den > 0, torch.sqrt(num / torch.clamp(den, min=1e-300)),
@@ -485,7 +512,10 @@ class _FitRun:
     """What fit and fit_stepwise share: the set-up, one outer iteration
     (iterate) and the output (output), so the two cannot drift apart."""
 
-    def __init__(self, spec, data, state, options, validate):
+    def __init__(self, spec, data, state, options, validate, mesh=None):
+        mesh = mesh or mesh_of(data)
+        if mesh is not None:
+            data, state = lay_out(spec, data, state, mesh)
         if validate:
             check_data_input(spec, data)
             _warn_loss_data(spec, data)
@@ -497,11 +527,14 @@ class _FitRun:
         self.miss = has_missing(data)
         self.znorms = compute_znorm_consts(spec, data, options)
         self.proxes, self.reg_fns = build_proxes(spec)
-        self.pp_ds = eligible_pp_datasets(spec, data, options)
+        self.pp_ds = eligible_pp_datasets(spec, data, options, mesh)
+        self.impls = None if mesh is None else build_sharded_mttkrps(
+            spec, data, mesh, pipelined=options.mesh_pipelined_collectives)
         self.bk = _has_bk_constraint(spec)
         self.steps = {
             active: make_outer_step(spec, options, self.proxes, self.reg_fns,
-                                    active, pp_datasets=self.pp_ds)
+                                    active, mttkrp_impls=self.impls,
+                                    pp_datasets=self.pp_ds)
             for active in ((False, True) if self.bk else (True,))}
         self.grams, self.colnorms = init_cache(spec, state)
         self.rho_scale = tuple(torch.ones_like(c) for c in self.colnorms)
@@ -574,7 +607,7 @@ class _FitRun:
 
 
 def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
-        options: AlgOptions, validate: bool = True):
+        options: AlgOptions, validate: bool = True, mesh=None):
     """Run AO-ADMM until the stopping rule holds or MaxOuterIters.  Returns
     (state, FitOutput).  Runs on the device and in the dtype of the data;
     sparse COO data on a CUDA card gets its kernel plans first, and dense
@@ -586,9 +619,20 @@ def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
     decided on the device and read with the ill-conditioning flag, one read
     an iteration.  With validate, the data are checked (check_data_input)
     and KL or IS data that do not suit the loss are warned of
-    (_warn_loss_data)."""
+    (_warn_loss_data).
+
+    mesh: a parallel/sharding.Mesh: every rank calls fit with the same
+    full problem; each takes its blocks of the data (parallel/sharding.
+    lay_out; data laid out already by device_put or distributed.
+    globalize_tree carry their mesh and take this path without the
+    argument), keeps the state replicated on its device, and runs every
+    MTTKRP of a cut dataset through the sharded MTTKRPs
+    (parallel/shard_mttkrp.build_sharded_mttkrps; the ring form where
+    options.mesh_pipelined_collectives); the objective, the data constants
+    and EM imputation psum what they read of the blocks.  The pairwise
+    perturbation is off under a mesh, as in the JAX package."""
     with scoped_matmul_precision(options, data.objects[0].device):
-        run = _FitRun(spec, data, state, options, validate)
+        run = _FitRun(spec, data, state, options, validate, mesh)
         T = options.MaxOuterIters
         f4 = run.evaluate()
         hist = [torch.stack(f4 + (run.nan,))]
@@ -671,19 +715,21 @@ def fit_stepwise(spec: ProblemSpec, data: ProblemData, state: SolverState,
 def cmtf_aoadmm(spec: ProblemSpec, data: ProblemData, options: AlgOptions,
                 init: SolverState | None = None, init_options=None,
                 generator: torch.Generator | None = None, seed: int = 0,
-                validate: bool = True):
+                validate: bool = True, mesh=None):
     """High-level entry point (functions/cmtf_AOADMM.m): initializes if needed
     (init_coupled with `generator`, or one seeded with `seed`), fits, and
     assembles per-dataset factor estimates.  Returns
     (Zhat, state, init_state, out) with Zhat[p] = {'weights', 'factors'}
-    for a CP dataset, {'A', 'Bk', 'C'} for a PARAFAC2 one."""
+    for a CP dataset, {'A', 'Bk', 'C'} for a PARAFAC2 one.  mesh: the init
+    is drawn on the full data, then fit lays data and state out on the
+    mesh and runs its mesh path."""
     if init is None:
         if init_options is None:
             raise ValueError("init_options are missing in cmtf_aoadmm")
         from matlab_code_tpu_torch.models.init import init_coupled
         init = init_coupled(spec, data, init_options, generator=generator,
                             seed=seed)
-    state, out = fit(spec, data, init, options, validate=validate)
+    state, out = fit(spec, data, init, options, validate=validate, mesh=mesh)
     return assemble_zhat(spec, state), state, init, out
 
 

@@ -46,15 +46,15 @@ def cp_mode_precompute(spec: ProblemSpec, data: ProblemData, state, grams,
     the same tensor object (factors are never updated in place).
 
     mttkrp_impl: optional MTTKRP fn(X, factors) of this (dataset, mode)
-    that replaces the dispatch below for sparse and >= 3-way data (the
-    pairwise-perturbation MTTKRP, models/pairwise.pp_mttkrp)."""
+    that replaces the dispatch below (the pairwise-perturbation MTTKRP,
+    models/pairwise.pp_mttkrp; a mesh's sharded MTTKRP, parallel/
+    shard_mttkrp.py, a matrix's too)."""
     ds = spec.datasets[p]
     X = data.objects[p]
     w = ds.weight
     R = ds.rank
     local = ds.modes.index(m)
-    if mttkrp_impl is not None and (isinstance(X, SparseTensor)
-                                    or X.dim() >= 3):
+    if mttkrp_impl is not None:
         A = w * mttkrp_impl(X, tuple(state.fac[j] for j in ds.modes))
         C = hadamard_grams([grams[j] for j in ds.modes if j != m])
     elif isinstance(X, SparseTensor):

@@ -204,11 +204,16 @@ class ProblemData:
                 Parafac2Tensor.
     miss[p]:    None or a boolean mask, True = observed entry.
     coupl_trafo[m], coupl_trafo2[m]: None or the H / H2 matrices.
+    layout:     None for the full data; on a mesh (parallel/), the
+                sharding tree this rank's blocks were cut by
+                (parallel/sharding.device_put): objects and miss then hold
+                this rank's blocks where their shards say so.
     """
     objects: tuple
     miss: tuple = ()
     coupl_trafo: tuple = ()
     coupl_trafo2: tuple = ()
+    layout: "ProblemData | None" = None
 
     def __post_init__(self):
         if not self.miss:

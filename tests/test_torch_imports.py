@@ -41,6 +41,10 @@ PORT_MODULES = [
     "matlab_code_tpu_torch.utils.datagen", "matlab_code_tpu_torch.utils.plotting",
     "matlab_code_tpu_torch.examples", "matlab_code_tpu_torch.examples.common",
     "matlab_code_tpu_torch.examples.run_all",
+    "matlab_code_tpu_torch.parallel", "matlab_code_tpu_torch.parallel.sharding",
+    "matlab_code_tpu_torch.parallel.collectives",
+    "matlab_code_tpu_torch.parallel.shard_mttkrp",
+    "matlab_code_tpu_torch.parallel.distributed",
 ] + [f"matlab_code_tpu_torch.examples.{name}" for name in (
     "script01_cp_par2_nonneg", "script01a_cp_par2_smooth_l2ball",
     "script02_matrix_par2_nonneg", "script03_matrix_cp_partialcoupling",

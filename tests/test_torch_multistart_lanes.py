@@ -222,16 +222,27 @@ def test_torch_mttkrp_columns_and_folded_proxes_match_one_call_a_start():
         assert torch.equal(got, want)
 
 
-def test_torch_multistart_cases_not_reached_raise():
-    """mesh= raises NotImplementedError naming its ROADMAP slice, and a
-    wrong number of keys raises ValueError.  matmul_precision='bfloat16'
+def test_torch_multistart_cases_not_reached_raise(tmp_path):
+    """A mesh whose size does not divide n_starts raises ValueError (the
+    mesh of a one-rank gloo group in this process, its size set to 3; the
+    check comes before any collective; tests/test_torch_mesh_multistart.py
+    runs the start axis over 2 ranks), and a wrong number of keys raises
+    ValueError.  matmul_precision='bfloat16'
     runs on the CPU with 'default''s bits (it raises only on a card), and
     the switches of torch's TF32 stay as they were.  Other losses, sparse
     COO data and the pairwise option run on the start axis
     (tests/test_torch_multistart_{kl,nonfrob,sparse,repairs}.py)."""
+    from matlab_code_tpu_torch.parallel import distributed
     spec, data, opts, init = mw.script15_problem("cpu", torch.float64)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tp.fit_multistart(spec, data, opts, init, 2, mesh=object())
+    distributed.initialize(f"file://{tmp_path}/store", 1, 0, backend="gloo")
+    try:
+        mesh = distributed.make_global_mesh()
+        assert (mesh.size, mesh.backend) == (1, "gloo")
+        with pytest.raises(ValueError, match="divisible by the mesh size 3"):
+            tp.fit_multistart(spec, data, opts, init, 2,
+                              mesh=dataclasses.replace(mesh, size=3))
+    finally:
+        distributed.shutdown()
     with pytest.raises(ValueError, match="keys"):
         tp.fit_multistart(spec, data, opts, init, 2, keys=[1])
     saved = torch.backends.cuda.matmul.allow_tf32

@@ -6,7 +6,7 @@ NVIDIA GPU.  Usage, from the root of a checkout:
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
 started together, into the git-ignored matlab_code_tpu_torch/_build/) and
-runs twenty-three phases, each printing its seconds; any failure raises
+runs twenty-four phases, each printing its seconds; any failure raises
 and exits non-zero:
 
   1. device and precision: the card, its power limit, the TF32 switches;
@@ -28,7 +28,8 @@ and exits non-zero:
   5. fit to tolerance (AbsFuncTol 1e-4, OuterRelTol 1e-10, at most 2000
      iterations) from phase 3's init state, with the kernel in
      float32, with the plain version in float32 and with the kernel in
-     float64: a measurement that does not gate the result;
+     float64 (at most 1000 iterations): a measurement that does not gate
+     the result;
   6. sparse kernels vs plain: the sparse COO MTTKRP kernels (the fiber
      kernel the plans name for these shapes and the chunk kernel; modes 0,
      1, 2, float32 and float64) against their plain version on the card,
@@ -204,13 +205,33 @@ and exits non-zero:
      data makes to the plain card fit), fit_multistart of the flagship with 20
      starts split 10 and 10 against the unsharded port; every rank's state
      bit-equal, each rank's launches, collectives and host-staging time;
-     fails past 120 s.
+     fails past 120 s;
+ 24. a PARAFAC2 dataset cut along K over the mesh (its slices, Bk, P and
+     mu_DeltaB the rank's, C replicated), in spawned worker processes: (a)
+     one NCCL rank, the PAR2 K=512 workload through cmtf_aoadmm(mesh=) for
+     10 iterations in float32 against the plain card fit (its factor and
+     stream bits), and utils/profiling.roofline_report of the plain fit;
+     (b) two gloo ranks sharing the card, 256 slices a rank, float64, 4
+     iterations: the PAR2 K=512 workload and the PARAFAC2 surface's
+     tparafac2 (replicated by fit(mesh=): kernel C), ragged (kernel A),
+     tv (kernel B) and coupled (mttkrp3, the par2C kron system)
+     configurations against the plain card fit (the first iteration within
+     1e-12, the run's f_tensors within 1e-8 and its factors within 1e-4
+     of their largest entry), every rank's state bit-equal, the fit's own
+     launches (the init drawn before the counts are set to 0), collectives,
+     host staging and ms an iteration, each configuration again laid out
+     by hand with every PARAFAC2 dataset replicated (the layout before the
+     K-cut), and tparafac2 cut along K (kernel C on the gathered stack),
+     under the same checks, the layouts' ms side by side; one
+     utils/profiling.torch_trace of a 2-iteration plain PAR2 fit, written
+     and read back; fails past 120 s.
 
 It then prints one JSON line describing the six kernels (mttkrp3's and
 the sparse kernel's launches on phases 16-17's paths beside them,
 mttkrp3's on phase 19's, kernel D's and the sparse kernel's on phase
 20's, kernel D's start-axis times, and every kernel's launches on phase
-21 (b), "examples_launches", and on phase 23's mesh runs, "mesh_launches"),
+21 (b), "examples_launches", and on phase 23's and 24's mesh runs,
+"mesh_launches"),
 the card's name
 and power limit, and as its last line {"ok": true, "device": {...}}.  It
 imports nothing of JAX, and it fails without a CUDA card or without the
@@ -241,6 +262,10 @@ HBM_SHAPE = ((256, 1024, 512), 16)   # bench.py:199-210, X 537 MB
 FIT_ITERS = 300
 CPU_ITERS = 5
 TOL_ITERS = 2000
+# phase 5's float64 leg: it passes both TOL_MARKS by iteration 950 and has
+# not reached the tolerance at 2000 (86 s of the script's time limit), so
+# it stops here
+TOL_ITERS_F64 = 1000
 TOL_MARKS = (2e-4, 1.6e-4)   # f_tensors levels whose first iteration is shown
 # (shape, draws, R, duplicated draws, extra nonzeros in row 0)
 SPARSE_RAGGED = (((300, 257, 129), 20000, 7, 0, 0),
@@ -325,6 +350,31 @@ MESH_KL_CAP = (1e-3, 2e-2)
 MESH_KL_EVAL_RTOL = 1e-12
 MESH_KL_EVAL_RHO = 1.0
 MESH_PHASE_S = 120          # phase 23 fails past this many seconds
+# phase 24: PARAFAC2 cut along K.  (a)'s float32 runs take MESH_ITERS
+# iterations, (b)'s float64 runs MESH_PAR2_ITERS
+MESH_PAR2_ITERS = 4
+# (b) against the plain card fit: the first iteration's f_tensors and
+# f_PAR2_couplings within MESH_PAR2_FIRST_RTOL (only the order of the sums
+# over K differs), the whole run's f_tensors within MESH_PAR2_RUN[0] and
+# every factor within MESH_PAR2_RUN[1] of its largest entry: the ragged
+# configuration is ill-conditioned in Bk (tests/test_mesh_coupled.py holds
+# its factors at atol 1e-4)
+MESH_PAR2_FIRST_RTOL = 1e-12
+MESH_PAR2_RUN = (1e-8, 1e-4)
+MESH_PAR2_CONFIGS = ("tparafac2", "ragged", "tv", "coupled")
+MESH_PAR2_NEED = {"par2": [], "par2-tparafac2": ["C"], "par2-ragged": ["A"],
+                  "par2-tv": ["B"], "par2-coupled": ["mttkrp3"]}
+# (b) runs each job over the mesh in fit(mesh=)'s own layout (the K-cut,
+# tPARAFAC2 replicated) and again laid out by hand (a job name
+# '<job>+<par2>', sharding.data_shardings(par2=...)): every job with every
+# PARAFAC2 dataset replicated (the layout before the K-cut), the tparafac2
+# one cut along K too (the JAX package's rule, kernel C on the gathered
+# stack); each held to the same bounds.  The launches of fit(mesh=)'s own
+# runs go into the kernels line
+MESH_PAR2_BY_HAND = {"replicated": ("par2",) + tuple(
+    f"par2-{c}" for c in MESH_PAR2_CONFIGS), "cut": ("par2-tparafac2",)}
+TRACE_ITERS = 2             # the torch_trace of a plain PAR2 fit
+MESH_PAR2_PHASE_S = 120     # phase 24 fails past this many seconds
 
 
 def phase(n, title):
@@ -960,6 +1010,7 @@ def slice_stack(K, n, R, seed):
 
 
 C_WIDE_ETAS = (1e-3, 1.0, 1e6)   # kernel C's bit check on wide operands
+RAG_PLAIN_CALLS = 3   # phase 11: warm calls of kernel A's ragged plain version
 
 
 def t_smooth_operands(X, rho, dt, dev, wide, seed):
@@ -1215,6 +1266,28 @@ def par2_phases(dev, power):
           f"{err['C']:.3e}")
     clock = sm_clock_hz()
     flush = l2_flush(dev)
+    # kernel A on that ragged stack, through prox_slicewise_ragged as the
+    # fit calls it, in float32, against its plain version: the CPU's size
+    # buckets on the same float32 stack, warm (one call first), the median
+    # of RAG_PLAIN_CALLS calls on the host clock
+    pf, _ = prox.make_prox(prox.ConstraintSpec("unimodality", (True,)), 256)
+    Xh, rho_h = torch.tensor(X, dtype=torch.float32), rho.float()
+    plain_ts = []
+    for _ in range(RAG_PLAIN_CALLS + 1):
+        tc = time.perf_counter()
+        prox_slicewise_ragged(pf, Xh, rho_h, sizes)
+        plain_ts.append((time.perf_counter() - tc) * 1e3)
+    rag_plain_ms = float(np.median(plain_ts[1:]))
+    Xd, rho_d = Xh.to(dev), rho_h.to(dev)
+    t_rag = time_ms(lambda: prox_slicewise_ragged(pf, Xd, rho_d, sizes), flush)
+    print(f"  kernel A on the ragged stack {len(sizes)}x{min(sizes)}-"
+          f"{max(sizes)}x32 ({len(set(sizes))} sizes) through "
+          f"prox_slicewise_ragged, float32: {t_rag * 1e3:.1f} us (one lanes "
+          f"launch) | bound {2 * Xd.numel() * 4 / HBM_BYTES_S * 1e6:.2f} us "
+          f"(bytes) | plain (CPU, its size buckets, float32, warm, median "
+          f"of {RAG_PLAIN_CALLS} calls, host clock) {rag_plain_ms:.1f} ms "
+          f"({', '.join(f'{t:.1f}' for t in plain_ts[1:])})  [{power}]")
+    del Xd
     K, n, R = PAR2_SHAPE
     X = torch.tensor(slice_stack(K, n, R, 1), dtype=torch.float32, device=dev)
     lam_d = torch.full((K,), 1e-3, dtype=torch.float64, device=dev)
@@ -2727,17 +2800,31 @@ def bf16_phase(dev, power):
 
 
 def _mesh_problem(job, dev):
-    """(kind, spec, data, options, init) of one of phase 23's runs, built
-    from its seed on `dev`: job is 'workload/dtype' ('flagship-ring' the
-    flagship with mesh_pipelined_collectives).  init: the init options of
-    cmtf_aoadmm(seed=1), or the init state of the KL workload."""
+    """(kind, spec, data, options, init) of one of phase 23's or 24's runs,
+    built from its seed on `dev`: job is 'workload/dtype' ('flagship-ring'
+    the flagship with mesh_pipelined_collectives; 'par2' the PAR2 K=512
+    workload, 'par2-<config>' a configuration of the PARAFAC2 surface).
+    init: the init options of cmtf_aoadmm(seed=1), or the init state of the
+    KL workload."""
     import torch
     from matlab_code_tpu_torch.utils import flagship
     from matlab_code_tpu_torch.utils import kl_workload as klw
+    from matlab_code_tpu_torch.utils import par2_surface, par2_workload
     from matlab_code_tpu_torch.utils import sparse_workload as sw
     work, dt = job.split("/")
     dt = getattr(torch, dt)
     stop = dict(AbsFuncTol=0.0, OuterRelTol=0.0)
+    if work.startswith("par2"):
+        n = MESH_ITERS if dt == torch.float32 else MESH_PAR2_ITERS
+        if work == "par2":
+            spec, data = par2_workload.build_problem(dev, dt)
+            return (work, spec, data, par2_workload.par2_options(n, **stop),
+                    par2_workload.par2_init_options())
+        config = work.split("-", 1)[1]
+        spec, data = par2_surface.build_problem(config, dev, dt)
+        return (work, spec, data,
+                par2_surface.surface_options(config, n, **stop),
+                par2_surface.surface_init_options(config))
     if work.startswith("flagship") or work == "multistart":
         spec, data = flagship.build_problem(dev, dt)
         opts = flagship.flagship_options(
@@ -2752,14 +2839,17 @@ def _mesh_problem(job, dev):
     return work, spec, data, klw.kl_options(MESH_KL_ITERS, **stop), state0
 
 
-def _mesh_fit(job, dev, mesh=None, ulp=False):
-    """Run one of phase 23's jobs (_mesh_problem), over `mesh` or plain, and
-    return what the phase prints and holds, as numpy: the streams, the
-    factors, the median ms an iteration, the kernels' launches (each count
-    set to 0 just before the run), and over a mesh the collectives' counts
-    and host-staging seconds, whether every rank holds the same state bits,
-    and the bytes the ring's chunk copies take.  ulp: the data times
-    1 + 2^-52, the yardstick of the KL run's sensitivity."""
+def _mesh_fit(job, dev, mesh=None, ulp=False, par2=None):
+    """Run one of phase 23's or 24's jobs (_mesh_problem), over `mesh` or
+    plain, and return what the phase prints and holds, as numpy: the
+    streams, the factors, the median ms an iteration, the kernels' launches
+    in the fit alone (each count set to 0 after the init and just before
+    the fit), and over a mesh the collectives' counts and host-staging
+    seconds, whether every rank holds the same state bits, and the bytes
+    the ring's chunk copies take.  ulp: the data times 1 + 2^-52, the
+    yardstick of the KL run's sensitivity.  par2: the data laid out by hand
+    with sharding.data_shardings(par2=par2) before the fit (None: fit lays
+    them out)."""
     import torch
     from matlab_code_tpu_torch.models.init import init_coupled
     from matlab_code_tpu_torch.models.multistart import fit_multistart
@@ -2779,12 +2869,18 @@ def _mesh_fit(job, dev, mesh=None, ulp=False):
     if mesh is not None and work == "sparse":
         data = dataclasses.replace(data, objects=(pad_sparse_nnz(
             data.objects[0], mesh.size),))
+    if work not in ("multistart", "kl"):
+        # drawn on the full data before the counts are set to 0 (the
+        # PARAFAC2 init launches kernel A or B once a slice)
+        init = init_coupled(spec, data, init, seed=1)
     if mesh is not None and opts.mesh_pipelined_collectives:
         # the ring's chunk copies, cut at each form's first call
-        laid, st = sharding.lay_out(
-            spec, data, init_coupled(spec, data, init, seed=1), mesh)
+        laid, st = sharding.lay_out(spec, data, init, mesh)
         row["chunk_bytes"] = _ring_chunk_bytes(spec, laid, st, mesh)
         del laid, st
+    if mesh is not None and par2 is not None:
+        data = sharding.device_put(data, sharding.data_shardings(
+            spec, data, mesh, par2=par2)[0])
     counters = {"mttkrp3": mttkrp3, "sparse": mttkrp_sparse_cuda,
                 "D": loss_fg_cuda, "A": project_isotonic_cols,
                 "B": prox_tv_cols, "C": t_smooth_cols}
@@ -2802,12 +2898,13 @@ def _mesh_fit(job, dev, mesh=None, ulp=False):
     elif work == "kl":
         state, out = fit(spec, data, init, opts, mesh=mesh, validate=not ulp)
     else:
-        _, state, _, out = cmtf_aoadmm(spec, data, opts, init_options=init,
-                                       seed=1, mesh=mesh)
+        _, state, _, out = cmtf_aoadmm(spec, data, opts, init=init,
+                                       mesh=mesh)
     torch.cuda.synchronize()
     row.update(secs=time.perf_counter() - t,
                launches={k: fn.launches for k, fn in counters.items()},
                f=np.asarray(out.func_val_conv),
+               f_par2=np.asarray(out.func_PAR2_coupl),
                fac=[f.detach().cpu().numpy() for f in state.fac],
                ms=float(np.median(np.diff(out.time_at_it)) * 1e3),
                iters=out.OuterIterations)
@@ -2869,9 +2966,10 @@ def _kl_first_evals(job, dev, mesh=None):
 
 
 def _mesh_rank(rank, world, url, backend, jobs):
-    """Phase 23's rank `rank` of `world`, a spawned worker process: joins
-    the group (`backend` over `url`), runs `jobs` over the mesh
-    (_mesh_fit) and, where `plain`, each job again without the mesh after
+    """Phase 23's or 24's rank `rank` of `world`, a spawned worker
+    process: joins the group (`backend` over `url`), runs `jobs` over the
+    mesh (_mesh_fit; a job '<job>+<par2>' laid out by hand with
+    data_shardings(par2=...)) and, where `plain`, each job again without the mesh after
     it.  Returns {job: row} ({job: (mesh row, plain row)} where plain)."""
     sys.path.insert(0, REPO)
     import torch
@@ -2887,8 +2985,9 @@ def _mesh_rank(rank, world, url, backend, jobs):
             if job.startswith("kl-eval"):
                 rows[job] = _kl_first_evals(job, dev, mesh)
                 continue
-            row = _mesh_fit(job, dev, mesh)
-            rows[job] = (row, _mesh_fit(job, dev)) if plain else row
+            base, _, par2 = job.partition("+")
+            row = _mesh_fit(base, dev, mesh, par2=par2 or None)
+            rows[job] = (row, _mesh_fit(base, dev)) if plain else row
         return rows
     finally:
         distributed.shutdown()
@@ -3064,6 +3163,170 @@ def mesh_phase(dev, power):
         raise RuntimeError(f"phase 23 took {secs:.1f} s, past its "
                            f"{MESH_PHASE_S} s")
     done(23, t0)
+    return total
+
+
+def _rel_gap(a, b):
+    """max |a - b| / |b| over a stream (0 where both are 0)."""
+    den = np.where(b != 0, np.abs(b), 1.0)
+    return float(np.max(np.abs(a - b) / den))
+
+
+def mesh_par2_phase(dev, power):
+    """Phase 24: a PARAFAC2 dataset cut along K over a mesh (its slices,
+    Bk, P and mu_DeltaB the rank's; C replicated), in spawned worker
+    processes.  (a) One rank over a real NCCL communicator: the PAR2 K=512
+    workload through cmtf_aoadmm(mesh=) for MESH_ITERS iterations in
+    float32, which must give the plain card fit's factor and stream bits
+    (every collective of one rank is the identity); the roofline of the
+    plain fit (utils/profiling.roofline_report).  (b) Two ranks sharing the
+    card over gloo, 256 slices a rank, float64, MESH_PAR2_ITERS
+    iterations: the PAR2 K=512 workload and the PARAFAC2 surface's
+    tparafac2 (replicated: kernel C on each rank's whole stack), ragged
+    (kernel A's lanes on each rank's ragged stack), tv (kernel B) and
+    coupled (mttkrp3 on the cut
+    CP block, the par2C kron system on the replicated C) configurations,
+    each against the plain card fit within MESH_PAR2_FIRST_RTOL at the
+    first iteration and MESH_PAR2_RUN over the run; every rank's state
+    bit-equal, each configuration's kernel launched on every rank by the
+    fit alone (counts set to 0 after the init, just before each fit).
+    Each (b) job runs again laid out by hand (MESH_PAR2_BY_HAND): with
+    every PARAFAC2 dataset replicated (the layout before the K-cut), and
+    tparafac2 cut along K too (kernel C on the gathered stack), under the
+    same checks, the layouts' ms an iteration side by side.  Then one
+    profiling.torch_trace of a TRACE_ITERS-iteration plain PAR2 fit,
+    written and read back.  Fails past MESH_PAR2_PHASE_S seconds.  Returns
+    the launches by kernel over fit(mesh=)'s own runs, for the kernels
+    line."""
+    import tempfile
+    import torch
+    from matlab_code_tpu_torch.models.solver import cmtf_aoadmm
+    from matlab_code_tpu_torch.utils import par2_workload, profiling
+    t_phase = time.perf_counter()
+    t0 = phase(24, f"PARAFAC2 cut along K over a mesh: (a) one NCCL rank, "
+                   f"{MESH_ITERS} iterations; (b) two gloo ranks sharing the "
+                   f"card, {MESH_PAR2_ITERS} iterations")
+    spawn = multiprocessing.get_context("spawn")
+    total = {"mttkrp3": 0, "sparse": 0, "D": 0, "A": 0, "B": 0, "C": 0}
+
+    def check(job, row):
+        if "+" not in job:
+            for k, v in row["launches"].items():
+                total[k] += v
+        missing = [k for k in MESH_PAR2_NEED[job.split("/")[0]]
+                   if row["launches"][k] == 0]
+        if missing:
+            raise RuntimeError(f"phase 24 {job}: no launch of {missing} over "
+                               "the mesh: a path fell back to a plain version")
+        if not row["agree"]:
+            raise RuntimeError(f"phase 24 {job}: the ranks' states differ")
+        if not (np.all(np.isfinite(row["f"]))
+                and np.all(np.isfinite(row["f_par2"]))):
+            raise RuntimeError(f"phase 24 {job}: non-finite objective stream")
+
+    # (a) one rank over NCCL
+    job = "par2/float32"
+    with ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        m, p = pool.submit(_mesh_rank, 0, 1,
+                           f"tcp://localhost:{_free_port()}", "nccl",
+                           [(job, True)]).result()[job]
+    secs_a = time.perf_counter() - t_phase
+    check(job, m)
+    same = all(np.array_equal(a, b) for a, b in zip(m["fac"], p["fac"]))
+    same_f = (np.array_equal(m["f"], p["f"])
+              and np.array_equal(m["f_par2"], p["f_par2"]))
+    print(f"  (a) NCCL, 1 rank, {job}: ms an iteration {m['ms']:.3f} over the "
+          f"mesh, {p['ms']:.3f} plain; the plain card fit's factor bits: "
+          f"{same}, its f_tensors and f_PAR2_couplings streams' bits: "
+          f"{same_f}; {_mesh_row_line(m)}  [{power}]")
+    if not (same and same_f):
+        raise RuntimeError(f"phase 24 {job}: the one-rank NCCL fit's bits "
+                           "differ from the plain card fit's")
+    print("  roofline of the plain PAR2 K=512 fit, float32 "
+          "(utils/profiling.roofline_report): "
+          + profiling.roofline_report(par2_workload.par2_spec(),
+                                      p["ms"] / 1e3).replace("\n", "; ")
+          + f"  [{power}]")
+
+    # (b) two ranks over gloo, sharing the card, each job in fit(mesh=)'s
+    # layout and laid out by hand (MESH_PAR2_BY_HAND); the plain card fits
+    # here
+    jobs_b = ["par2/float64"] + [f"par2-{c}/float64" for c in MESH_PAR2_CONFIGS]
+    plain = {job: _mesh_fit(job, dev) for job in jobs_b}
+    secs_plain = time.perf_counter() - t_phase - secs_a
+    jobs_b += [f"{j}+{lay}" for lay, works in MESH_PAR2_BY_HAND.items()
+               for j in jobs_b if j.split("/")[0] in works]
+    url = f"tcp://localhost:{_free_port()}"
+    with ProcessPoolExecutor(2, mp_context=spawn) as pool:
+        futs = [pool.submit(_mesh_rank, r, 2, url, "gloo",
+                            [(j, False) for j in jobs_b]) for r in range(2)]
+        ranks = [f.result() for f in futs]
+    secs_b = time.perf_counter() - t_phase - secs_a - secs_plain
+    for job in jobs_b:
+        p = plain[job.partition("+")[0]]
+        for r, rows in enumerate(ranks):
+            m = rows[job]
+            check(job, m)
+            first = max(_rel_gap(m["f"][1:2], p["f"][1:2]),
+                        _rel_gap(m["f_par2"][1:2], p["f_par2"][1:2]))
+            gap = _rel_gap(m["f"], p["f"])
+            fgap = max(float(np.abs(a - b).max() / np.abs(b).max())
+                       for a, b in zip(m["fac"], p["fac"]))
+            print(f"  (b) gloo, rank {r} of 2, {job}: ms an iteration "
+                  f"{m['ms']:.3f} over the mesh, {p['ms']:.3f} plain (one "
+                  f"process alone); first iteration's streams rel gap "
+                  f"{first:.3e} (bound {MESH_PAR2_FIRST_RTOL:.0e}), the "
+                  f"run's f_tensors {gap:.3e}, factors {fgap:.3e} of their "
+                  f"largest entry (bounds {MESH_PAR2_RUN[0]:.0e}, "
+                  f"{MESH_PAR2_RUN[1]:.0e}); {_mesh_row_line(m)}  [{power}]")
+            if (first > MESH_PAR2_FIRST_RTOL or gap > MESH_PAR2_RUN[0]
+                    or fgap > MESH_PAR2_RUN[1]):
+                raise RuntimeError(f"phase 24 {job}: rank {r} misses the "
+                                   f"plain card fit ({first:.3e}, {gap:.3e}, "
+                                   f"{fgap:.3e})")
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(ranks[0][job]["fac"], ranks[1][job]["fac"])):
+            raise RuntimeError(f"phase 24 {job}: the ranks' factors differ")
+    for job in plain:
+        ms = {lay or "fit(mesh=)'s layout": max(
+            rows[f"{job}+{lay}" if lay else job]["ms"] for rows in ranks)
+            for lay in ("", "replicated", "cut")
+            if not lay or f"{job}+{lay}" in ranks[0]}
+        print(f"  (b) {job}, the slower rank's ms an iteration: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + f"; plain {plain[job]['ms']:.3f}  [{power}]")
+
+    # one torch.profiler trace of a short plain fit, written and read back
+    spec, data = par2_workload.build_problem(dev, torch.float32)
+    opts = par2_workload.par2_options(TRACE_ITERS, AbsFuncTol=0.0,
+                                      OuterRelTol=0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.torch_trace(tmp) as prof:
+            cmtf_aoadmm(spec, data, opts,
+                        init_options=par2_workload.par2_init_options(), seed=1)
+            torch.cuda.synchronize()
+        nbytes = os.path.getsize(prof.trace_path)
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    print(f"  profiling.torch_trace of {TRACE_ITERS} plain PAR2 K=512 "
+          f"iterations (float32, with the init and the first objective): "
+          f"{nbytes / 2**20:.1f} MiB of Chrome trace, {len(events)} events, "
+          f"{len(kernels)} kernel launches, {busy_ms:.3f} ms of device time  "
+          f"[{power}]")
+    if not kernels:
+        raise RuntimeError("phase 24: the trace holds no kernel of the card")
+    del data
+    secs = time.perf_counter() - t_phase
+    print(f"  launches over the mesh runs, both ranks: {total}")
+    print(f"phase 24 took {secs:.1f} s (limit {MESH_PAR2_PHASE_S} s): (a) "
+          f"{secs_a:.1f} s, (b)'s plain card fits {secs_plain:.1f} s, (b)'s "
+          f"ranks {secs_b:.1f} s, the trace {secs - secs_a - secs_plain - secs_b:.1f} s")
+    if secs > MESH_PAR2_PHASE_S:
+        raise RuntimeError(f"phase 24 took {secs:.1f} s, past its "
+                           f"{MESH_PAR2_PHASE_S} s")
+    done(24, t0)
     return total
 
 
@@ -3309,14 +3572,15 @@ def main():
     # count moves with the order of the MTTKRP's sums (the plain version:
     # torch.einsum on the card), and where float64 takes it
     t0 = phase(5, "fit to tolerance (AbsFuncTol 1e-4, OuterRelTol 1e-10)")
-    opts_tol = flagship.flagship_options(TOL_ITERS, AbsFuncTol=1e-4,
-                                         OuterRelTol=1e-10)
     kernel_path = tensor_ops.takes_kernel
     for label, dt in (("kernel, float32", torch.float32),
                       ("plain version, float32", torch.float32),
                       ("kernel, float64", torch.float64)):
         spec_t, data_t = ((spec, data) if dt == torch.float32
                           else flagship.build_problem(dev, dt))
+        opts_tol = flagship.flagship_options(
+            TOL_ITERS if dt == torch.float32 else TOL_ITERS_F64,
+            AbsFuncTol=1e-4, OuterRelTol=1e-10)
         mttkrp3.launches = 0
         if label.startswith("plain"):
             tensor_ops.takes_kernel = lambda X: False
@@ -3346,6 +3610,8 @@ def main():
     ex = examples_phase(dev, power)
     bf16_phase(dev, power)
     mesh = mesh_phase(dev, power)
+    mesh_par2 = mesh_par2_phase(dev, power)
+    mesh = {k: v + mesh_par2[k] for k, v in mesh.items()}
     kl["D"].update(ms_rest["D"], multistart_launches=ms_rest["D_launches"])
     sparse["multistart_launches"] = ms_rest["sparse_launches"]
     for e in prox_entries:

@@ -10,7 +10,10 @@ the first reads one flag from the device (one host sync, counted by
 to_host).  The PARAFAC2 per-slice work (Bk systems, polar factors, the
 slice-wise prox, par2C rows) is batched over the K slices.  A mode of a
 non-Frobenius dataset takes its factor step by L-BFGS-B
-(models/lbfgs_bridge.py) inside the same loops.
+(models/lbfgs_bridge.py) inside the same loops.  A PARAFAC2 dataset cut
+along K over a mesh (parallel/sharding.py) runs the Bk loop on the rank's
+slices: each sum over K is one psum, and every rank reads the same exit
+flag.
 
 Each loop is a step function that run_inner repeats.  Under
 fit_multistart's start axis (models/multistart.py: one start's code under
@@ -29,6 +32,7 @@ from matlab_code_tpu_torch.ops.lanes import any_lane, keep, on_start_axis
 from matlab_code_tpu_torch.ops.linalg import (
     chol_lower, polar_orth, polar_orth_ns, solve, solve_spd_left,
     solve_with_chol, spd_inverse_from_chol, spd_inverse_newton)
+from matlab_code_tpu_torch.parallel.sharding import UNCUT
 from matlab_code_tpu_torch.problem import ProblemSpec
 from matlab_code_tpu_torch.state import SolverState, tuple_set
 
@@ -152,16 +156,24 @@ def _resolve_polar(options, device: torch.device) -> str:
     return method
 
 
-def _chol_rcond_bad(L, tol: float):
+def _chol_rcond_bad(L, tol: float, shard=UNCUT):
     """Ill-conditioning flag of a Cholesky factor: the rcond estimate
     (min/max diagonal)^2 below tol, or non-finite (chol_lower returns NaNs
-    for a matrix that is not positive definite)."""
+    for a matrix that is not positive definite).  shard: the batch's
+    Shard; a K-batch cut over a mesh takes its min and max over every
+    rank's slices (one all_gather), so that every rank reads the same
+    flag."""
     d = torch.abs(torch.diagonal(L, dim1=-2, dim2=-1))
-    r = (torch.min(d) / torch.max(d)) ** 2
+    lo, hi = torch.min(d), torch.max(d)
+    if shard.cut:
+        ext = shard.gather(torch.stack([lo, hi])[None])
+        lo, hi = torch.min(ext[:, 0]), torch.max(ext[:, 1])
+    r = (lo / hi) ** 2
     return ~torch.isfinite(r) | (r < tol)
 
 
-def make_spd_solver(Bmat, options, illtol: float = 0.0, lmin=None):
+def make_spd_solver(Bmat, options, illtol: float = 0.0, lmin=None,
+                    shard=UNCUT):
     """Inner-ADMM solvers for the assembled SPD normal matrix (R x R, or a
     K-batch (K, R, R)), built once per outer iteration.  Returns (right,
     rowleft, illc): right(A) solves X B = A (the reference's (A/L')/L,
@@ -171,19 +183,22 @@ def make_spd_solver(Bmat, options, illtol: float = 0.0, lmin=None):
     False when illtol == 0).  options.inner_solve: 'chol' factorizes and
     substitutes a call, 'inverse' inverts once through the factor,
     'newton' inverts by Newton-Hotelling matmuls (lmin: the + rho/2 I
-    eigenvalue bound that sharpens its start)."""
+    eigenvalue bound that sharpens its start).  shard: the batch's Shard
+    (a K-batch cut over a mesh: its flag covers every rank's slices)."""
     method = _resolve_inner_solve(options, Bmat.device, Bmat.dim() >= 3)
     if method == "newton":
         Binv, rcond = spd_inverse_newton(Bmat, lmin=lmin)
         if illtol > 0:
             illc = torch.any(~torch.isfinite(rcond) | (rcond < illtol))
+            if shard.cut:
+                illc = shard.psum(illc.to(Bmat.dtype)[None])[0] > 0
         else:
             illc = torch.zeros((), dtype=torch.bool, device=Bmat.device)
         return ((lambda A: A @ Binv),
                 (lambda A: (Binv @ A[..., None])[..., 0]), illc)
     L = chol_lower(Bmat)
     if illtol > 0:
-        illc = _chol_rcond_bad(L, illtol)
+        illc = _chol_rcond_bad(L, illtol, shard)
     else:
         illc = torch.zeros((), dtype=torch.bool, device=Bmat.device)
     if method == "chol":
@@ -250,17 +265,28 @@ def _fro_slices(X):
 
 def admm_b_parafac2(spec: ProblemSpec, state: SolverState, m: int, p: int,
                     A, solve, rho, options, proxes, constraint_active: bool,
-                    sizes=None):
+                    sizes=None, shard=UNCUT):
     """The PARAFAC2-specific inner loop (cmtf_fun_AOADMM.m:509-589), batched
     over the K slices.  A: (K, Jmax, R); solve: make_spd_solver's right
     solver of the K-batched systems; rho: (K,).  sizes: the true slice
     sizes J_k, or None for regular slices; ragged slices take the
     size-bucketed slice-wise prox, so no prox sees the zero padding.  Each
     step after the first reads its exit test, one flag over the four
-    residuals, with one to_host.  Returns (state, inner_iters)."""
+    residuals, with one to_host.  Returns (state, inner_iters).
+
+    shard: the dataset's Shard.  Cut along K over a mesh: A, rho and the
+    state's Bk, P and mu_DeltaB leaves are the rank's slices, sizes the
+    full J_k.  The solves, polar factors and slice-wise prox run on the
+    rank's slices; DeltaB's sum is one psum a step (sum rho one psum a
+    call); the four residual sums one psum a step, divided by the full K;
+    the tPARAFAC2 prox (a solve along K) runs on the all_gather of its
+    operand on every rank, each keeping its rows."""
     K = spec.par2_K(p)
     constrained = spec.is_constrained(m) and constraint_active
     ragged = sizes is not None and len(set(sizes)) > 1
+    psum = shard.psum
+    if sizes is not None:
+        sizes = shard.rows(sizes)
     if _resolve_polar(options, A.device) == "svd":
         polar = polar_orth
     else:
@@ -268,7 +294,11 @@ def admm_b_parafac2(spec: ProblemSpec, state: SolverState, m: int, p: int,
     if constrained:
         upd_joint = spec.constraints[m].kind == "tPARAFAC2"
         prox = proxes[m]
+        if upd_joint:
+            rho_all = shard.gather(rho)
+            joint = lambda V: shard.rows(prox(shard.gather(V), rho_all))
     rho3 = rho[:, None, None]
+    rho_sum = psum(torch.sum(rho))
     zero = torch.zeros((), dtype=A.dtype, device=A.device)
 
     def step(state, active=None):
@@ -282,7 +312,7 @@ def admm_b_parafac2(spec: ProblemSpec, state: SolverState, m: int, p: int,
         oldP, oldDB = P_, DB
         P_ = polar((facB + mu) @ DB.T)
         # DeltaB = sum_k rho_k P_k^T (B_k + mu_k) / sum rho_k  (:536-544)
-        DB = torch.einsum("k,kjr,kjs->rs", rho, P_, facB + mu) / torch.sum(rho)
+        DB = psum(torch.einsum("k,kjr,kjs->rs", rho, P_, facB + mu)) / rho_sum
         PDB = P_ @ DB
         mu = mu + facB - PDB
         state = state.replace(
@@ -294,7 +324,7 @@ def admm_b_parafac2(spec: ProblemSpec, state: SolverState, m: int, p: int,
             oldZ = state.constraint_fac[m]
             V = facB + state.constraint_dual_fac[m]
             if upd_joint:
-                Z = prox(V, rho)
+                Z = joint(V)
             elif ragged:
                 Z = prox_slicewise_ragged(prox, V, rho, sizes)
             else:
@@ -304,12 +334,13 @@ def admm_b_parafac2(spec: ProblemSpec, state: SolverState, m: int, p: int,
                 constraint_fac=tuple_set(state.constraint_fac, m, Z),
                 constraint_dual_fac=tuple_set(state.constraint_dual_fac, m,
                                               dual))
-            prc = torch.sum(_fro_slices(facB - Z) / _fro_slices(facB)) / K
+            prc = torch.sum(_fro_slices(facB - Z) / _fro_slices(facB))
             drc = torch.sum(_safe_div(_fro_slices(oldZ - Z),
-                                      _fro_slices(dual))) / K
-        prk = torch.sum(_fro_slices(facB - PDB) / _fro_slices(facB)) / K
+                                      _fro_slices(dual)))
+        prk = torch.sum(_fro_slices(facB - PDB) / _fro_slices(facB))
         drk = torch.sum(_safe_div(_fro_slices(oldP @ oldDB - PDB),
-                                  _fro_slices(mu))) / K
+                                  _fro_slices(mu)))
+        prk, drk, prc, drc = psum(torch.stack([prk, drk, prc, drc])) / K
         return state, ((prk > options.innerRelPrTol_coupl)
                        | (prc > options.innerRelPrTol_constr)
                        | (drk > options.innerRelDualTol_coupl)

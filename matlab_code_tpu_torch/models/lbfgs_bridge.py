@@ -58,11 +58,10 @@ def make_lbfgs_step(spec: ProblemSpec, p: int, m: int, options):
         def vag(xvec):
             x = xvec.reshape(fshape)
             facs = [state.fac[j] if j != m else x for j in ds.modes]
-            M = ktensor_full(facs if sh is None
-                             else sh.local_factors(facs)).contiguous()
+            M = ktensor_full(sh.local_factors(facs)).contiguous()
             fh_sum, Y = losses.loss_fg(ds.loss, X, M, options.eps_log,
                                        ds.loss_param)
-            if sh is None:
+            if not sh.cut:
                 mk = mttkrp(Y, facs, local)
             else:
                 fh_sum, mk = sh.psum(fh_sum), block_mttkrp(sh, Y, facs, local)

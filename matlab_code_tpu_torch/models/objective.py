@@ -18,7 +18,10 @@ branch (cmtf_fun_AOADMM.m:1224-1226).
 On a mesh (parallel/), a dataset cut into blocks evaluates the branches
 that read its data (masked, non-cached, sparse, non-Frobenius) on this
 rank's block, with the model of the block's rows, and psums the sums; the
-cached branch reads replicated values only.
+cached branch reads replicated values only.  A PARAFAC2 dataset cut along
+K psums each sum over its slices too: the Bk penalty and ridge, the Bk
+constraint gap (divided by the full K) and the internal coupling gap; the
+tPARAFAC2 penalty, a sum of differences along K, takes the gathered Bk.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from matlab_code_tpu_torch.models.admm import _check_ctype, _fro_slices
 from matlab_code_tpu_torch.ops import losses
 from matlab_code_tpu_torch.ops.tensor import (
     gram, hadamard_grams, khatri_rao, ktensor_full, mttkrp, mttkrp_sparse)
-from matlab_code_tpu_torch.parallel.sharding import dataset_shard
+from matlab_code_tpu_torch.parallel.sharding import UNCUT, dataset_shard
 from matlab_code_tpu_torch.problem import (
     CP, PAR2, ProblemData, ProblemSpec, SparseTensor)
 
@@ -44,10 +47,12 @@ def _mean_nonzero(vals):
                        torch.sum(arr))
 
 
-def par2_model_slices(spec, state, p):
-    """(K, I, Jmax) model slices A diag(c_k) B_k^T."""
+def par2_model_slices(spec, state, p, shard=UNCUT):
+    """(K, I, Jmax) model slices A diag(c_k) B_k^T; shard: the dataset's
+    Shard (cut along K: its slices take the rank's rows of C)."""
     ds = spec.datasets[p]
     A, Bk, C = (state.fac[m] for m in ds.modes)
+    C = shard.rows(C)
     return (A[None] * C[:, None, :]) @ Bk.transpose(1, 2)
 
 
@@ -74,16 +79,16 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
         X = data.objects[p]
         msk = data.miss[p]
         sh = dataset_shard(data, p)
-        psum = (lambda t: t) if sh is None else sh.psum
+        psum = sh.psum
         # the factors of this rank's block: a dense dataset's cut mode
         # sliced to its rows
-        local = (lambda facs: facs) if sh is None or isinstance(
+        local = (lambda facs: facs) if isinstance(
             X, SparseTensor) else sh.local_factors
         if ds.model == PAR2:
             if msk is not None:
-                D = torch.where(msk, X.slices - par2_model_slices(spec, state, p),
-                                zero)
-                fp = torch.sum(D * D)
+                D = torch.where(msk, X.slices - par2_model_slices(
+                    spec, state, p, sh), zero)
+                fp = psum(torch.sum(D * D))
             elif cached is not None and p in cached and cached[p][2] == 0:
                 last_mk, last_had, _ = cached[p]
                 mA = ds.modes[0]
@@ -92,8 +97,8 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
                 fp = znorm_consts[p] - 2.0 * f2 + f3
             else:
                 # padded columns are zero in both and contribute nothing
-                D = X.slices - par2_model_slices(spec, state, p)
-                fp = torch.sum(D * D)
+                D = X.slices - par2_model_slices(spec, state, p, sh)
+                fp = psum(torch.sum(D * D))
             fps.append(ds.weight * fp)
             continue
         if ds.loss != "Frobenius":
@@ -131,22 +136,28 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
         fps.append(fp)
     f_tensors = sum(fps)
 
+    # each Bk mode's dataset Shard (cut along K over a mesh, or not)
+    bk_sh = {m: dataset_shard(data, spec.which_p(m)) for m in range(
+        spec.nb_modes) if spec.mode_role(m) == "par2_B"}
     for m in range(spec.nb_modes):
         rf = reg_fns[m] if reg_fns else None
         if rf is None:
             continue
+        sh = bk_sh.get(m, UNCUT)
         if spec.mode_role(m) == "par2_B" and spec.constraints[m].kind != "tPARAFAC2":
             # slice by slice, each on its true J_k rows, so ragged padding
             # never enters the penalty (cmtf_fun_AOADMM.m:1281-1284)
             Bs = state.fac[m]
-            sizes = spec.par2_slice_sizes(spec.which_p(m))
-            f_tensors = f_tensors + sum(rf(Bs[k, :J]) for k, J in enumerate(sizes))
+            sizes = sh.rows(spec.par2_slice_sizes(spec.which_p(m)))
+            f_tensors = f_tensors + sh.psum(
+                sum(rf(Bs[k, :J]) for k, J in enumerate(sizes)))
         else:
-            f_tensors = f_tensors + rf(state.fac[m])
+            f_tensors = f_tensors + rf(sh.gather(state.fac[m]))
     if spec.ridge is not None:
         for m in range(spec.nb_modes):
             if spec.ridge[m]:
-                f_tensors = f_tensors + spec.ridge[m] * torch.sum(state.fac[m] ** 2)
+                sq = bk_sh.get(m, UNCUT).psum(torch.sum(state.fac[m] ** 2))
+                f_tensors = f_tensors + spec.ridge[m] * sq
 
     # coupling gaps (cmtf_fun_AOADMM.m:1302-1329)
     cps = []
@@ -180,8 +191,9 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
             continue
         fac, Z = state.fac[m], state.constraint_fac[m]
         if spec.mode_role(m) == "par2_B":
-            fcs.append(torch.sum(_fro_slices(fac - Z) / _fro_slices(fac))
-                       / fac.shape[0])
+            gap = bk_sh[m].psum(
+                torch.sum(_fro_slices(fac - Z) / _fro_slices(fac)))
+            fcs.append(gap / spec.par2_K(spec.which_p(m)))
         else:
             fcs.append(_fro(fac - Z) / _fro(fac))
     f_constraints = _mean_nonzero(fcs) if fcs else zero
@@ -192,7 +204,8 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
     for p in par2:
         facB = state.fac[spec.datasets[p].modes[1]]
         PDB = state.P[p] @ state.DeltaB[p]
-        f_par2 = f_par2 + torch.sum(_fro_slices(facB - PDB) / _fro_slices(facB))
+        f_par2 = f_par2 + dataset_shard(data, p).psum(
+            torch.sum(_fro_slices(facB - PDB) / _fro_slices(facB)))
     if par2:
         # the reference divides by K of the LAST dataset's second mode
         # (its leftover loop variable, cmtf_fun_AOADMM.m:1361); kept

@@ -45,8 +45,9 @@ from matlab_code_tpu_torch.ops.linalg import (
     block_diag, chol_lower, rsolve, solve, solve_spd_left, sylvester_solver)
 from matlab_code_tpu_torch.ops.prox import make_prox
 from matlab_code_tpu_torch.options import AlgOptions, scoped_matmul_precision
+from matlab_code_tpu_torch.parallel.distributed import fetch_tree
 from matlab_code_tpu_torch.parallel.sharding import (
-    dataset_shard, lay_out, mesh_of)
+    UNCUT, dataset_shard, lay_out, mesh_of, par2_cut_modes, state_shardings)
 from matlab_code_tpu_torch.parallel.shard_mttkrp import build_sharded_mttkrps
 from matlab_code_tpu_torch.problem import (
     CP, PAR2, Parafac2Tensor, ProblemData, ProblemSpec, SparseTensor,
@@ -116,8 +117,7 @@ def compute_znorm_consts(spec: ProblemSpec, data: ProblemData,
         else:
             out.append(losses.znorm_const(ds.loss, X, options.eps_log,
                                           ds.loss_param, data.miss[p]))
-        if sh is not None:
-            out[-1] = sh.psum(out[-1])
+        out[-1] = sh.psum(out[-1])
     return tuple(out)
 
 
@@ -189,7 +189,7 @@ def _warn_loss_data(spec: ProblemSpec, data: ProblemData) -> None:
         bad = ((torch.any(X < 0) | torch.any(X != torch.round(X)))
                if ds.loss == "KL" else torch.any(X <= 0))
         sh = dataset_shard(data, p)
-        if sh is not None:
+        if sh.cut:
             bad = sh.psum(bad.to(X.dtype)[None])[0] > 0
         if to_host(bad):
             warnings.warn(f"Using 'KL' but dataset {p} is not count data"
@@ -253,10 +253,10 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
                 illc = illc | _chol_rcond_bad(L, options.IllCondTol)
             return L
 
-        def spd_checked(B, lmin=None):
+        def spd_checked(B, lmin=None, shard=UNCUT):
             nonlocal illc
             right, rowleft, bad = make_spd_solver(
-                B, options, illtol=options.IllCondTol, lmin=lmin)
+                B, options, illtol=options.IllCondTol, lmin=lmin, shard=shard)
             illc = illc | bad
             return right, rowleft
 
@@ -298,15 +298,16 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
                     constrained = spec.is_constrained(m)
                     if role == "par2_B":
                         active = constrained and bk_constraint_active
+                        sh = dataset_shard(data, p)
                         A, Bk, rho = par2B_precompute(
                             spec, data, state, grams, p, m, options,
                             constraint_active=active, partials=partials)
-                        right, _ = spd_checked(Bk, lmin=0.5 * rho)
+                        right, _ = spd_checked(Bk, lmin=0.5 * rho, shard=sh)
                         cached[p] = (None, None, 1)
                         state, inner_its[m] = admm_b_parafac2(
                             spec, state, m, p, A, right, rho, options, proxes,
                             constraint_active=active,
-                            sizes=spec.par2_slice_sizes(p))
+                            sizes=spec.par2_slice_sizes(p), shard=sh)
                         grams = refresh_gram(spec, state, grams, m)
                         continue
                     if role == "cp" and not frob:
@@ -476,8 +477,8 @@ def em_impute(spec: ProblemSpec, data: ProblemData, state: SolverState):
     (objective.cp_model_full) and a PARAFAC2 one as batched products, so
     the new data tensors are contiguous; a ragged PARAFAC2 dataset's padded
     columns take the model's, which are zero where Bk's padded rows are.
-    A dataset cut over a mesh imputes its block from the model of its rows
-    and psums its two sums."""
+    A dataset cut over a mesh imputes its block (a PARAFAC2 dataset's: its
+    slices) from the model of its rows and psums its two sums."""
     like = state.fac[0]
     zero = torch.zeros((), dtype=like.dtype, device=like.device)
     num = den = zero
@@ -490,15 +491,12 @@ def em_impute(spec: ProblemSpec, data: ProblemData, state: SolverState):
         sh = dataset_shard(data, p)
         if ds.model == CP:
             facs = [state.fac[j] for j in ds.modes]
-            M, Xd = cp_model_full(facs if sh is None
-                                  else sh.local_factors(facs)), X
+            M, Xd = cp_model_full(sh.local_factors(facs)), X
         else:
-            M, Xd = par2_model_slices(spec, state, p), X.slices
+            M, Xd = par2_model_slices(spec, state, p, sh), X.slices
         d = torch.where(msk, zero, M - Xd)
         held = torch.where(msk, zero, Xd)
-        sums = torch.stack([torch.sum(d * d), torch.sum(held * held)])
-        if sh is not None:
-            sums = sh.psum(sums)
+        sums = sh.psum(torch.stack([torch.sum(d * d), torch.sum(held * held)]))
         num = num + sums[0]
         den = den + sums[1]
         new = torch.where(msk, Xd, M)
@@ -513,7 +511,7 @@ class _FitRun:
     (iterate) and the output (output), so the two cannot drift apart."""
 
     def __init__(self, spec, data, state, options, validate, mesh=None):
-        mesh = mesh or mesh_of(data)
+        self.mesh = mesh = mesh or mesh_of(data)
         if mesh is not None:
             data, state = lay_out(spec, data, state, mesh)
         if validate:
@@ -581,6 +579,12 @@ class _FitRun:
         options, T = self.options, self.options.MaxOuterIters
         if self.pp_ds:
             harr[-1] = to_host(torch.stack(self.evaluate()))
+        if self.mesh is not None:
+            # the K-cut leaves of a PARAFAC2 dataset, gathered: every rank
+            # returns the full state
+            self.state = fetch_tree(self.state, state_shardings(
+                self.spec, self.state, self.mesh,
+                par2_cut_modes(self.spec, self.data)))
         f4 = tuple(float(v) for v in harr[-1])
         if illc:
             exit_flag = "illconditioned lin system"
@@ -625,11 +629,14 @@ def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
     full problem; each takes its blocks of the data (parallel/sharding.
     lay_out; data laid out already by device_put or distributed.
     globalize_tree carry their mesh and take this path without the
-    argument), keeps the state replicated on its device, and runs every
-    MTTKRP of a cut dataset through the sharded MTTKRPs
-    (parallel/shard_mttkrp.build_sharded_mttkrps; the ring form where
-    options.mesh_pipelined_collectives); the objective, the data constants
-    and EM imputation psum what they read of the blocks.  The pairwise
+    argument), keeps the state replicated on its device but for a
+    PARAFAC2 dataset cut along K (its Bk, P and mu_DeltaB leaves are the
+    rank's slices), and runs every MTTKRP of a cut dataset through the
+    sharded MTTKRPs (parallel/shard_mttkrp.build_sharded_mttkrps; the ring
+    form where options.mesh_pipelined_collectives); the PARAFAC2
+    precomputes and Bk loop, the objective, the data constants and EM
+    imputation reduce what they read of the blocks.  Every rank returns
+    the full state (the cut leaves gathered at the exit).  The pairwise
     perturbation is off under a mesh, as in the JAX package."""
     with scoped_matmul_precision(options, data.objects[0].device):
         run = _FitRun(spec, data, state, options, validate, mesh)

@@ -2,7 +2,10 @@
 heuristic and the normal-equation matrices (counterpart of
 matlab_code_tpu/models/updates.py, cmtf_fun_AOADMM.m:92-251).  The
 PARAFAC2 per-slice loops are batched over the stacked (K, ., .) arrays;
-padded (ragged) rows and columns are zero and drop out of every sum."""
+padded (ragged) rows and columns are zero and drop out of every sum.  A
+PARAFAC2 dataset cut along K over a mesh (parallel/sharding.py) runs them
+on the rank's slices and the rank's rows of the replicated C: the A mode's
+sums over K end in one psum, the par2C rows in one all_gather."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -11,6 +14,7 @@ import torch
 
 from matlab_code_tpu_torch.ops.tensor import (
     gram, hadamard_grams, mttkrp, mttkrp_sparse)
+from matlab_code_tpu_torch.parallel.sharding import dataset_shard
 from matlab_code_tpu_torch.problem import ProblemSpec, ProblemData, SparseTensor
 
 
@@ -119,14 +123,19 @@ def _par2_ridge_bsum(spec, state, m, R, A, B, options):
 def par2A_precompute(spec: ProblemSpec, data: ProblemData, state, grams,
                      p: int, m: int, options) -> ModePre:
     """First PARAFAC2 mode: A = sum_k X_k B_k diag(c_k), C = sum_k diag(c_k)
-    B_k^T B_k diag(c_k) (cmtf_fun_AOADMM.m:159-178)."""
+    B_k^T B_k diag(c_k) (cmtf_fun_AOADMM.m:159-178).  Cut along K: both
+    sums over the rank's slices, then one psum of the two."""
     ds = spec.datasets[p]
     X = data.objects[p]
     mB, mC = ds.modes[1], ds.modes[2]
     R = ds.rank
-    facB, facC = state.fac[mB], state.fac[mC]
+    sh = dataset_shard(data, p)
+    facB, facC = state.fac[mB], sh.rows(state.fac[mC])
     A0 = torch.sum((X.slices @ facB) * facC[:, None, :], dim=0)
     C = torch.einsum("kr,krs,ks->rs", facC, grams[mB], facC)
+    if sh.cut:
+        both = sh.psum(torch.cat([A0, C]))
+        A0, C = both[:A0.shape[0]], both[A0.shape[0]:]
     A, B = _par2_ridge_bsum(spec, state, m, R, ds.weight * A0, ds.weight * C,
                             options)
     return ModePre(A=A, B=B, rho=torch.trace(C) / R, last_mttkrp=A0,
@@ -136,7 +145,8 @@ def par2A_precompute(spec: ProblemSpec, data: ProblemData, state, grams,
 def _par2_W(spec, data, state, p, partials):
     """The shared PARAFAC2 partial W_k = X_k^T A (K, Jmax, R) of the Bk and
     C precomputes, reused only while the A factor is the same tensor object
-    (factors are never updated in place), so a stale A is never reused."""
+    (factors are never updated in place), so a stale A is never reused.
+    On a dataset cut along K: the rank's slices' W_k."""
     facA = state.fac[spec.datasets[p].modes[0]]
     key = ("par2W", p)
     if partials is not None:
@@ -155,11 +165,12 @@ def par2B_precompute(spec: ProblemSpec, data: ProblemData, state, grams,
     """Second PARAFAC2 mode, batched over slices (cmtf_fun_AOADMM.m:191-213).
     Returns (A (K,Jmax,R), B (K,R,R) the assembled normal matrix with the
     always-on internal-coupling rho_k/2 I and, while the constraint is
-    active, another rho_k/2 I (:209-211), rho (K,))."""
+    active, another rho_k/2 I (:209-211), rho (K,)).  Cut along K: the
+    rank's slices, with its rows of C."""
     ds = spec.datasets[p]
     mA, mC = ds.modes[0], ds.modes[2]
     R = ds.rank
-    facC = state.fac[mC]
+    facC = dataset_shard(data, p).rows(state.fac[mC])
     W = _par2_W(spec, data, state, p, partials)
     A = ds.weight * (W * facC[:, None, :])
     C = facC[:, :, None] * grams[mA][None] * facC[:, None, :]
@@ -179,20 +190,27 @@ def par2C_precompute(spec: ProblemSpec, data: ProblemData, state, grams,
                      partials: dict | None = None) -> ModePre:
     """Third PARAFAC2 mode, row-wise batched (cmtf_fun_AOADMM.m:219-233):
     A (K, R) = w * colsum(W_k .* B_k), B (K, R, R) = w * GramA .* GramB_k,
-    rho (K,)."""
+    rho (K,).  Cut along K: the rank's rows from its slices, then one
+    all_gather of them, so that C's update runs replicated."""
     ds = spec.datasets[p]
     mA, mB = ds.modes[0], ds.modes[1]
     R = ds.rank
     W = _par2_W(spec, data, state, p, partials)
     A = ds.weight * torch.sum(W * state.fac[mB], dim=1)
     C = grams[mA][None, :, :] * grams[mB]
+    sh = dataset_shard(data, p)
+    if sh.cut:
+        rows = sh.gather(torch.cat([A, C.reshape(-1, R * R)], dim=1))
+        A = rows[:, :R].contiguous()
+        C = rows[:, R:].reshape(-1, R, R).contiguous()
     rho = torch.diagonal(C, dim1=1, dim2=2).sum(-1) / R
     A, B = _par2_ridge_bsum(spec, state, m, R, A, ds.weight * C, options)
     return ModePre(A=A, B=B, rho=rho, last_mttkrp=None, last_had=None)
 
 
 def mode_gram(spec: ProblemSpec, state, m: int) -> torch.Tensor:
-    """Mode m's Gram: per-slice Grams (K, R, R) for a PARAFAC2 Bk mode."""
+    """Mode m's Gram: per-slice Grams (K, R, R) for a PARAFAC2 Bk mode
+    (the rank's slices' where the dataset is cut along K)."""
     if spec.mode_role(m) == "par2_B":
         return par2_gram_Bk(state.fac[m])
     return gram(state.fac[m])

@@ -104,16 +104,22 @@ def fetch(x: torch.Tensor, sharding: Shard | None = None) -> torch.Tensor:
     """The full tensor on every rank from this rank's block cut by
     `sharding` (a tiled all_gather); a replicated value (no sharding, or
     axis None) is returned as it is."""
-    if x is None or sharding is None or sharding.axis is None:
+    if x is None or sharding is None:
         return x
-    from matlab_code_tpu_torch.parallel.collectives import all_gather
-    return all_gather(x, sharding.mesh, axis=sharding.axis)
+    return sharding.gather(x)
 
 
-def fetch_tree(tree):
-    """fetch over laid-out ProblemData (its layout names the cuts); a
-    SolverState is replicated and is returned as it is."""
-    if isinstance(tree, SolverState) or getattr(tree, "layout", None) is None:
+def fetch_tree(tree, shardings=None):
+    """fetch over laid-out ProblemData (its layout names the cuts), or over
+    a SolverState cut by `shardings` (state_shardings: a PARAFAC2
+    dataset's K-cut leaves); a SolverState without them is returned as it
+    is (fit returns the full state)."""
+    if isinstance(tree, SolverState):
+        if shardings is None:
+            return tree
+        return SolverState(**{k: tuple(fetch(x, s) for x, s in zip(
+            getattr(tree, k), getattr(shardings, k))) for k in FIELDS})
+    if getattr(tree, "layout", None) is None:
         return tree
     lay = tree.layout
 

@@ -37,6 +37,7 @@ PORT_MODULES = [
     "matlab_code_tpu_torch.ops.lanes", "matlab_code_tpu_torch.models.multistart",
     "matlab_code_tpu_torch.utils.multistart_workload",
     "matlab_code_tpu_torch.utils.time_fit",
+    "matlab_code_tpu_torch.utils.time_par2_mesh",
     "matlab_code_tpu_torch.utils.score", "matlab_code_tpu_torch.utils.matlab_rng",
     "matlab_code_tpu_torch.utils.datagen", "matlab_code_tpu_torch.utils.plotting",
     "matlab_code_tpu_torch.examples", "matlab_code_tpu_torch.examples.common",
@@ -45,6 +46,7 @@ PORT_MODULES = [
     "matlab_code_tpu_torch.parallel.collectives",
     "matlab_code_tpu_torch.parallel.shard_mttkrp",
     "matlab_code_tpu_torch.parallel.distributed",
+    "matlab_code_tpu_torch.utils.profiling",
 ] + [f"matlab_code_tpu_torch.examples.{name}" for name in (
     "script01_cp_par2_nonneg", "script01a_cp_par2_smooth_l2ball",
     "script02_matrix_par2_nonneg", "script03_matrix_cp_partialcoupling",

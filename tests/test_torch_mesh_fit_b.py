@@ -2,7 +2,7 @@
 the JAX package's fit(mesh=make_mesh(2)), every rank's final state
 bit-equal: sparse COO data cut along the nonzeros, EM imputation of
 missing entries on cut data, the KL loss (L-BFGS-B's loss pass on each
-rank's block), a ragged PARAFAC2 dataset (replicated) coupled with a cut
+rank's block), a ragged PARAFAC2 dataset cut along K coupled with a cut
 CP tensor, and cmtf_aoadmm(mesh=) from a seed against cmtf_aoadmm.
 Tolerances: tests/test_mesh_coupled.py's for each configuration."""
 import pytest
@@ -57,12 +57,12 @@ def test_torch_mesh_fit_kl(runs):
 
 
 def test_torch_mesh_fit_par2_coupled_with_cut_cp(runs):
-    """The PARAFAC2 dataset stays replicated (its K axis is not cut in the
-    port), the CP dataset coupled with it on mode A is cut."""
+    """The ragged PARAFAC2 dataset is cut along K (8 slices, 4 a rank), the
+    CP dataset coupled with it on mode A is cut along a mode."""
     ranks, want = runs
     st, out = want["par2"]
     r0 = mc.check_fit(ranks, "par2", out, st)
-    assert r0["layout"][0] is not None and r0["layout"][1] is None
+    assert r0["layout"][0] is not None and r0["layout"][1] == 0
 
 
 def test_torch_mesh_cmtf_aoadmm_from_a_seed(runs):

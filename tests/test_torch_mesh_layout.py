@@ -1,10 +1,10 @@
 """The port's mesh layouts (matlab_code_tpu_torch/parallel/sharding.py)
 make the JAX package's decisions: choose_cp_shard_mode, data_shardings'
 cut for every CP dataset (dense, a matrix too, and COO with nnz divisible
-and not) and pad_sparse_nnz, for meshes of 1, 2, 4 and 8 devices; a
-PARAFAC2 dataset is replicated (the JAX package cuts its K axis where K
-divides, a layout the port has not taken yet); the cut blocks concatenate
-back to the full data.  One process: the meshes here only lay data out."""
+and not) and every PARAFAC2 dataset (cut along K where the mesh size
+divides K) and pad_sparse_nnz, for meshes of 1, 2, 4 and 8 devices; the
+cut blocks concatenate back to the full data.  One process: the meshes
+here only lay data out."""
 import dataclasses
 
 import numpy as np
@@ -64,8 +64,7 @@ def _port_data(data):
 @pytest.mark.parametrize("n", NS)
 def test_torch_mesh_layout_matches_jax(n, problems):
     """choose_cp_shard_mode and data_shardings of every problem against the
-    JAX package's on make_mesh(n); sharded_modes equal where no PARAFAC2
-    dataset is cut by the JAX package."""
+    JAX package's on make_mesh(n), sharded_modes equal."""
     jmesh = jsh.make_mesh(n)
     tmesh = tsh.Mesh(size=n)
     for name, spec, data in problems:
@@ -84,15 +83,13 @@ def test_torch_mesh_layout_matches_jax(n, problems):
                 assert t.values.axis == _jax_axis(j.values), (name, p)
                 assert t.indices.axis == _jax_axis(j.indices), (name, p)
             else:
-                # PARAFAC2: replicated in the port, whatever K
+                # PARAFAC2: cut along K where n divides K, as the JAX one
                 assert isinstance(t, Parafac2Tensor)
-                assert t.slices.axis is None and t.mask.axis is None
+                assert t.slices.axis == _jax_axis(j.slices), (name, p)
+                assert t.mask.axis == _jax_axis(j.mask), (name, p)
             if data.miss[p] is not None:
                 assert tlay.miss[p].axis == _jax_axis(jlay.miss[p])
-        par2_cut = {m for p, ds in enumerate(spec.datasets)
-                    if ds.model == "PAR2" for m in ds.modes}
-        assert tmodes == {m: v for m, v in jmodes.items()
-                          if m not in par2_cut}, name
+        assert tmodes == jmodes, name
 
 
 def test_torch_mesh_pad_sparse_nnz_matches_jax():
@@ -133,7 +130,11 @@ def test_torch_mesh_blocks_concatenate_to_the_data(n, problems):
                 assert torch.equal(cat([g.indices for g in got]), X.indices)
                 assert torch.equal(cat([g.values for g in got]), X.values)
             elif isinstance(X, Parafac2Tensor):
-                assert all(torch.equal(g.slices, X.slices) for g in got)
+                ax = sh.slices.axis
+                for part in ("slices", "mask"):
+                    xs = [getattr(g, part) for g in got]
+                    whole = xs[0] if ax is None else torch.cat(xs)
+                    assert torch.equal(whole, getattr(X, part)), (name, p)
             else:
                 whole = X if sh.axis is None else torch.cat(got, dim=sh.axis)
                 if sh.axis is None:
@@ -162,7 +163,7 @@ def test_torch_mesh_state_replicated_and_factor_rows():
     U = tstate.fac[1]
     rows = tsh.Shard(mesh, 1).rows(U)
     assert torch.equal(rows, U[8:]) and rows.data_ptr() == U[8:].data_ptr()
-    assert tsh.dataset_shard(tdata, 0) is None
+    assert not tsh.dataset_shard(tdata, 0).cut
     assert tsh.dataset_shard(d1, 0).axis == 1
     with pytest.raises(ValueError, match="no process group"):
         tsh.Shard(mesh, 0).psum(torch.ones(1))

@@ -369,3 +369,77 @@ def check_fit(rank_results, name, jax_out=None, jax_state=None,
             np.testing.assert_allclose(a, np.asarray(jax_state.fac[m]),
                                        rtol=fac_rtol, atol=fac_atol)
     return r0
+
+
+# ------------------------------------------------- PARAFAC2 cut along K
+
+RAGGED_SIZES = (13, 17, 11, 19, 15, 13, 17, 11)
+
+
+def par2_regular(K=8):
+    """A regular PARAFAC2 dataset, non-negative A and C, Bk free."""
+    spec = ProblemSpec(
+        mode_sizes=(12, (10,) * K, K),
+        datasets=(DatasetSpec(model="PAR2", modes=(0, 1, 2), rank=3),),
+        coupling=CouplingSpec(lin_coupled_modes=(0, 0, 0), coupling_type=()),
+        constraints=(NN, None, NN))
+    data, state, _ = build(spec, [[1, 1, 1]], ["rand", "rand", "rand+0.1"])
+    return spec, data, state
+
+
+def par2_ragged():
+    """tests/test_mesh_coupled.py::test_mesh_ragged_parafac2_bucketed_prox:
+    ragged slices (three size buckets), every mode non-negative."""
+    K = len(RAGGED_SIZES)
+    spec = ProblemSpec(
+        mode_sizes=(12, RAGGED_SIZES, K),
+        datasets=(DatasetSpec(model="PAR2", modes=(0, 1, 2), rank=3),),
+        coupling=CouplingSpec(lin_coupled_modes=(0, 0, 0), coupling_type=()),
+        constraints=(NN, NN, NN))
+    data, state, _ = build(spec, [[1, 1, 1]], ["rand", "rand", "rand+0.1"])
+    return spec, data, state
+
+
+def par2_tpar2():
+    """tests/test_parafac2.py's tPARAFAC2 problem (eta 10 on Bk), K = 8."""
+    K = 8
+    spec = ProblemSpec(
+        mode_sizes=(9, (12,) * K, K),
+        datasets=(DatasetSpec(model="PAR2", modes=(0, 1, 2), rank=2),),
+        coupling=CouplingSpec(lin_coupled_modes=(0, 0, 0), coupling_type=()),
+        constraints=(None, ConstraintSpec("tPARAFAC2", (10.0,)), NN))
+    data, state, _ = build(spec, [[1, 1]], ["randn", "rand", "rand+0.1"],
+                           key=2, bk_style="smooth")
+    return spec, data, state
+
+
+def par2_c_type1():
+    """tests/test_parafac2.py::test_par2_C_mode_coupled_type1 (script 14):
+    the PARAFAC2 C mode (K = 6) coupled by type 1 with a CP mode, so the
+    par2C update solves the (K R)^2 kron system."""
+    K1, K2, J, I = 12, 6, 10, 8
+    H_cp = np.zeros((K2, K1))
+    H_cp[np.arange(K2), 2 * np.arange(K2)] = 1.0
+    spec = ProblemSpec(
+        mode_sizes=(K1, 9, 8, I, (J,) * K2, K2),
+        datasets=(DatasetSpec(model="CP", modes=(0, 1, 2), rank=2, weight=0.5),
+                  DatasetSpec(model="PAR2", modes=(3, 4, 5), rank=2,
+                              weight=0.5)),
+        coupling=CouplingSpec(lin_coupled_modes=(1, 0, 0, 0, 0, 1),
+                              coupling_type=(1,)),
+        constraints=(None,) * 6)
+    data, state, _ = build(
+        spec, [[1, 1], [1, 1]],
+        ["rand", "randn", "randn", "rand", "rand", "rand+0.1"],
+        coupl_trafo=[H_cp, None, None, None, None, np.eye(K2)], key=2)
+    return spec, data, state
+
+
+def par2_em():
+    """par2_regular with 20 % of its entries missing (EM imputation on the
+    rank's slices)."""
+    spec, data, state = par2_regular()
+    rng = np.random.default_rng(4)
+    shape = np.asarray(data.objects[0].slices).shape
+    miss = (jax.numpy.asarray(rng.uniform(size=shape) > 0.2),)
+    return spec, dataclasses.replace(data, miss=miss), state

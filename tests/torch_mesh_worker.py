@@ -34,7 +34,8 @@ from matlab_code_tpu_torch.parallel.shard_mttkrp import (  # noqa: E402
     build_sharded_mttkrps, make_sharded_mttkrp,
     make_sharded_mttkrp_pipelined, make_sharded_mttkrp_sparse)
 from matlab_code_tpu_torch.parallel.sharding import (  # noqa: E402
-    Shard, data_shardings, state_shardings)
+    Shard, data_shardings, device_put, state_shardings)
+from matlab_code_tpu_torch.state import FIELDS  # noqa: E402
 
 CPU = torch.device("cpu")
 F64 = torch.float64
@@ -57,8 +58,8 @@ def summary(state, out, mesh=None):
            "fac": [npy(t) for t in state.fac],
            "cpl": [npy(t) for t in state.coupling_fac]}
     if mesh is not None:
+        res["counts"] = dict(mesh.counts)     # the fit's, before the check's
         res["agree"] = distributed.replicas_agree(state, mesh)
-        res["counts"] = dict(mesh.counts)
     return res
 
 
@@ -68,11 +69,18 @@ def task_fit(mesh, p):
     out = {}
     if p.get("plain", True):
         out["plain"] = summary(*tp.fit(spec, data, state, opts))
+    # p["par2"]: the data laid out by hand (data_shardings(par2=...)), fit
+    # taking the mesh from them; else fit(mesh=) lays them out
+    par2 = p.get("par2")
+    lay = data_shardings(spec, data, mesh, par2=par2 or "auto")[0]
     mesh.reset_stats()
-    st, o = tp.fit(spec, data, state, opts, mesh=mesh)
+    if par2 is None:
+        st, o = tp.fit(spec, data, state, opts, mesh=mesh)
+    else:
+        st, o = tp.fit(spec, device_put(data, lay), state, opts)
     out["mesh"] = summary(st, o, mesh)
-    out["layout"] = {q: getattr(s, "axis", None) for q, s in
-                     enumerate(data_shardings(spec, data, mesh)[0].objects)}
+    out["layout"] = {q: getattr(getattr(s, "slices", s), "axis", None)
+                     for q, s in enumerate(lay.objects)}
     out["impls"] = sorted(
         (k, f.__qualname__.split(".")[0]) for k, f in build_sharded_mttkrps(
             spec, data, mesh,
@@ -155,22 +163,26 @@ def task_multistart(mesh, p):
 
 
 def task_runtime(mesh, p):
-    """The runtime end to end: globalize, fetch, and a fit of globalized
-    data without mesh= (the layout carries the mesh), as the JAX package's
-    distributed worker runs it."""
+    """The runtime end to end: globalize, fetch (the data and the state,
+    a PARAFAC2 dataset's K-cut leaves too), and a fit of globalized data
+    and state without mesh= (the layout carries the mesh), as the JAX
+    package's distributed worker runs it."""
     spec, opts = p["spec"], p["options"]
-    data = data_from_numpy(p["objects"], p.get("coupl_trafo", ()),
-                           p.get("coupl_trafo2", ()), device=CPU, dtype=F64)
-    state = state_from_numpy(p["state"], device=CPU)
+    data, state = data_of(p), state_from_numpy(p["state"], device=CPU)
     data_sh, sharded_modes = data_shardings(spec, data, mesh)
+    state_sh = state_shardings(spec, state, mesh, sharded_modes)
     data_g = distributed.globalize_tree(data, data_sh)
-    state_g = distributed.globalize_tree(
-        state, state_shardings(spec, state, mesh, sharded_modes))
+    state_g = distributed.globalize_tree(state, state_sh)
     back = distributed.fetch_tree(data_g)
-    round_trip = all(
-        torch.equal(a.slices if hasattr(a, "slices") else a,
-                    b.slices if hasattr(b, "slices") else b)
-        for a, b in zip(back.objects, data.objects))
+    back_st = distributed.fetch_tree(state_g, state_sh)
+    leaves = lambda d: [t for X in d.objects for t in (
+        (X.slices, X.mask) if hasattr(X, "slices") else (X,))] + [
+        m for m in d.miss if m is not None]
+    round_trip = all(torch.equal(a, b) for a, b in zip(leaves(back),
+                                                       leaves(data)))
+    round_trip = round_trip and all(
+        torch.equal(a, b) for k in FIELDS for a, b in zip(
+            getattr(back_st, k), getattr(state, k)) if b is not None)
     arr = np.arange(4 * mesh.size * 3, dtype=np.float64).reshape(
         4 * mesh.size, 3)
     sh = Shard(mesh, 0)
@@ -181,6 +193,8 @@ def task_runtime(mesh, p):
     res = summary(st, o, mesh)
     res["round_trip"] = round_trip
     res["sharded"] = sorted(sharded_modes)
+    res["block_rows"] = {k: [None if t is None else t.shape[0]
+                             for t in getattr(state_g, k)] for k in FIELDS}
     return res
 
 

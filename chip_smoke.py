@@ -104,24 +104,39 @@ and exits non-zero:
      launches of A an iteration, one a prox call), then the first 3
      iterations on the card and on the CPU in float64 at K = PAR2_CPU_K,
      held to rtol 1e-8;
- 14. kernel D, the loss pass (csrc/loss_fg.cu: sum fh and gh of the KL,
-     IS and beta losses in one pass), against its plain version on the
-     card for KL, IS and beta at 0.5 and 1.5, at the KL workload's
-     128x256x256 and at an odd length, in float32 and float64 (gh within
-     1e-6 / 1e-12 of the sum of its two terms' magnitudes, sum fh within
-     1e-5 / 1e-12, the same bits on repeat), timed at the workload's data
-     and model beside its bound, the plain version and one whole L-BFGS-B
-     evaluation (torch.einsum's model, kernel D, mttkrp3);
+ 14. kernel D against its plain version on the card, for KL, IS and beta
+     at 0.5 and 1.5 in float32 and float64 (csrc/loss_fg.cu): the old
+     pass (sum fh and gh from a given model) at the KL workload's
+     128x256x256 and at an odd length (gh within 1e-6 / 1e-12 of the sum
+     of its two terms' magnitudes, sum fh within 1e-5 / 1e-12, the same
+     bits on repeat), and the fused evaluation (sum fh and the MTTKRP of
+     gh, the model formed in the kernel) in modes 0-2 and f alone at
+     128x256x256 R 8, 37x50x29 R 3, 8 and 40, 1x1x1 and 5x3x130 (G within
+     1e-5 / 1e-12 of the MTTKRP of |gh's terms| and |factors|, sum fh
+     within 1e-5 / 1e-12, the same bits on repeat; three starts in one
+     launch, X shared and one a start, each start the bits of its own
+     launch); both timed at the workload's data and init beside their
+     bounds, their plain versions, the three-call evaluation the fused
+     one replaces (torch.einsum's model, the old pass, mttkrp3) and its
+     parts; the fused call against the three-call evaluation at R 8, 40
+     and 64 in float32 and float64, modes 0-2, CUDA events and
+     torch.profiler device time (utils/time_fused.py, the ground of
+     losses.takes_fused's route), and at R 8 the fused beta-2 call (no
+     division, no log), the f-only pass and X.sum();
  15. the KL workload (bench_large.py:116-139, utils/kl_workload.py:
      128x256x256 Poisson counts, rank 8, non-negative, KL) through
      cmtf_aoadmm for 5 outer iterations in float32 (ms an iteration,
      median and p90, the device reads an iteration and their share of the
-     wall clock, launches of kernel D and mttkrp3, the L-BFGS-B
+     wall clock, the L-BFGS-B evaluations and the fused kernel's launches,
+     which must be one an evaluation and one an objective pass with no
+     old pass, no mttkrp3 and no model by torch.einsum, the L-BFGS-B
      iterations, peak memory, the device's busy share under
      torch.profiler) and in float64, then example script 07's configuration at its
      widths (a 50x30x40 tensor and a 50x70 matrix, both KL, coupled by
      type 0) for 3 iterations on the card and on the CPU in float64: the
-     streams at rtol 1e-8, the inner and L-BFGS-B iteration counts equal;
+     streams at rtol 1e-8, the inner and L-BFGS-B iteration counts equal,
+     the tensor's evaluations one fused launch each, the matrix's the old
+     pass;
  16. EM imputation (utils/em_workload.py): the flagship with 20 % of every
      dataset missing at random for 100 outer iterations and the PAR2 K=512
      workload with 20 % missing for 20, through cmtf_aoadmm in float32 (ms
@@ -158,18 +173,22 @@ and exits non-zero:
      option: (c) kernel D on the start axis, one launch for 20 starts at
      the KL workload's shape in float32 and float64, against its plain
      version and against 20 single-start launches (each start's f and Y
-     bit for bit), timed against them; (a) the KL workload with 20 starts
+     bit for bit), timed against them, and the same for the fused
+     evaluation (20 starts sharing X, rank 8, modes 0-2, f and G bit for
+     bit); (a) the KL workload with 20 starts
      for 5 iterations in float32 in turns with one start's fit (ms an
-     iteration, host reads, kernel D and mttkrp3 launches an iteration,
-     peak memory, the best start's L-BFGS-B iterations; 2 iterations of
-     each under torch.profiler); (b) the sparse workload: one sparse-kernel
+     iteration, host reads, the fused kernel's launches, one an
+     evaluation for every start, no old pass, mttkrp3 or model by
+     torch.einsum, peak memory, the best start's L-BFGS-B iterations; 2
+     iterations of each under torch.profiler); (b) the sparse workload: one sparse-kernel
      call of 20 starts' columns a mode against 20 single-start calls
      (float32 and float64, the partial sums' bytes beside the card's
      memory), then 20 starts for 10 iterations in turns with one start's
      fit (one launch a mode an iteration for all starts); (d) script 07's
      widths with 4 starts for 3 iterations in float64: the card's lanes
      against the CPU's and each against its own card fit within 1e-12,
-     inner and L-BFGS-B iterations equal; (e) the flagship with 4 starts
+     inner and L-BFGS-B iterations equal, the fused kernel and the old pass
+     launched; (e) the flagship with 4 starts
      for 10 iterations with cp_pairwise_perturbation: the finals of the
      run without it (the JAX function's exact MTTKRPs);
  21. the examples (matlab_code_tpu_torch/examples/): (a) the 13
@@ -184,7 +203,8 @@ and exits non-zero:
      iteration 100; script 15: 20 starts, 30): finite streams, Fit% and
      FMS, iterations, exit flag, median ms an iteration (script 09's
      constrained iterations apart), and the launches of mttkrp3 (every
-     script with a 3-way CP dataset) and of kernels D, A, B and C
+     script with a 3-way Frobenius CP dataset), of the fused kernel D
+     (a 3-way KL, IS or beta one: script 07) and of kernels D, A, B and C
      (scripts 07, 09, 10, 11), each counted from zero before its script,
      kernel A in every constrained iteration of script 09; the phase
      fails past 150 s;
@@ -226,12 +246,13 @@ and exits non-zero:
      utils/profiling.torch_trace of a 2-iteration plain PAR2 fit, written
      and read back; fails past 120 s.
 
-It then prints one JSON line describing the six kernels (mttkrp3's and
+It then prints one JSON line describing the seven kernels (mttkrp3's and
 the sparse kernel's launches on phases 16-17's paths beside them,
-mttkrp3's on phase 19's, kernel D's and the sparse kernel's on phase
-20's, kernel D's start-axis times, and every kernel's launches on phase
-21 (b), "examples_launches", and on phase 23's and 24's mesh runs,
-"mesh_launches"),
+mttkrp3's on phase 19's, kernel D's (both forms) and the sparse kernel's
+on phase 20's, kernel D's start-axis times, and every kernel's launches on
+phase 21 (b), "examples_launches", and on phase 23's and 24's mesh runs,
+"mesh_launches"; the fused kernel D's launches are phase 15's KL
+workload's, the old pass's script 07's, whose matrix takes it),
 the card's name
 and power limit, and as its last line {"ok": true, "device": {...}}.  It
 imports nothing of JAX, and it fails without a CUDA card or without the
@@ -308,6 +329,22 @@ LOSS_SHAPES = ((128, 256, 256), (1000003,))   # the workload's; an odd length
 # sum fh relative (summed in another order)
 LOSS_RTOL_GH = (1e-6, 1e-12)
 LOSS_RTOL_F = (1e-5, 1e-12)
+FUSED_SOURCE = "matlab_code_tpu_torch/csrc/loss_fg.cu"
+FUSED_REPLACES = ("matlab_code_tpu/models/lbfgs_bridge.py:41-49 and "
+                  "matlab_code_tpu/models/objective.py:84-87 (fused by XLA, "
+                  "no pallas_call)")
+# (shape, ranks) the fused kernel D is held to its plain version at: the KL
+# workload's and odd ones
+FUSED_SHAPES = (((128, 256, 256), (8,)), ((37, 50, 29), (3, 8, 40)),
+                ((1, 1, 1), (3,)), ((5, 3, 130), (8,)))
+# (float32, float64) tolerance of the fused kernel's G against its plain
+# version, of the MTTKRP of |gh's two terms| and |factors|: each entry sums
+# J K (or I K, I J) terms in another order than torch.einsum, of a gh whose
+# model is summed in another order too; its f is held to LOSS_RTOL_F
+FUSED_RTOL_G = (1e-5, 1e-12)
+# ranks the fused call is timed at against the three-call evaluation, in
+# float32 and float64, at the KL workload's shape (phase 14)
+FUSED_TIMED_RANKS = (8, 16, 32, 40, 64)
 KL_ITERS = 5
 S07_ITERS = 3
 S07_SEED = 2
@@ -1637,9 +1674,104 @@ def gh_scale(loss, X, M, eps_log, beta):
     return (M ** (beta - 1.0)).abs() + (X * M ** (beta - 2.0)).abs()
 
 
+class fused_counts:
+    """Counts, inside the block, on a KL path: the fused kernel's launches
+    with and without its MTTKRP (through wrappers of the entries
+    ops/losses.py calls), the L-BFGS-B evaluations (lbfgs_bridge's vag,
+    through a wrapper of the lbfgsb it calls) and the models torch.einsum
+    forms (ktensor_full called by lbfgs_bridge and by the objective)."""
+
+    def __enter__(self):
+        from matlab_code_tpu_torch.models import lbfgs_bridge, objective
+        from matlab_code_tpu_torch.ops import losses
+        self.n = {"grad": 0, "f_only": 0, "evals": 0, "bridge_models": 0,
+                  "objective_models": 0}
+        self.saved = []
+
+        def patch(mod, name, wrap):
+            real = getattr(mod, name)
+            self.saved.append((mod, name, real))
+            setattr(mod, name, wrap(real))
+
+        def count_launch(real):
+            def call(*args, **kwargs):
+                grad = kwargs.get("grad", args[6] if len(args) > 6 else True)
+                self.n["grad" if grad else "f_only"] += 1
+                return real(*args, **kwargs)
+            return call
+
+        def count_evals(real):
+            def run(vag, *args, **kwargs):
+                def counted(x):
+                    self.n["evals"] += 1
+                    return vag(x)
+                return real(counted, *args, **kwargs)
+            return run
+
+        def count_models(key):
+            def wrap(real):
+                def call(*args, **kwargs):
+                    self.n[key] += 1
+                    return real(*args, **kwargs)
+                return call
+            return wrap
+
+        patch(losses, "loss_fg_mttkrp_cuda", count_launch)
+        patch(losses, "loss_fg_mttkrp_cuda_starts", count_launch)
+        patch(lbfgs_bridge, "lbfgsb", count_evals)
+        patch(lbfgs_bridge, "ktensor_full", count_models("bridge_models"))
+        patch(objective, "ktensor_full", count_models("objective_models"))
+        return self.n
+
+    def __exit__(self, *exc):
+        for mod, name, real in reversed(self.saved):
+            setattr(mod, name, real)
+        return False
+
+
+def fused_problem(shape, R, dt, dev, seed):
+    """Factors U(0.1, 1.1) of rank R and Poisson counts of their model, on
+    the card in dt."""
+    import torch
+    from matlab_code_tpu_torch.ops.tensor import ktensor_full
+    rng = np.random.default_rng(seed)
+    facs = [torch.tensor(rng.uniform(0.1, 1.1, size=(n, R)), device=dev)
+            for n in shape]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    X = torch.poisson(ktensor_full(facs), generator=gen)
+    return X.to(dt), [F.to(dt) for F in facs]
+
+
+def check_fused(loss, beta, X, facs, mode, grad, eps):
+    """The fused kernel D against its plain version on the same card
+    tensors, and against itself called again: (f rel err, G err / scale,
+    max |G - plain|, same bits)."""
+    import torch
+    from matlab_code_tpu_torch.ops import losses
+    from matlab_code_tpu_torch.ops.loss_cuda import loss_fg_mttkrp_cuda
+    from matlab_code_tpu_torch.ops.tensor import ktensor_full, mttkrp_einsum
+    f, G = loss_fg_mttkrp_cuda(loss, X, facs, mode, eps, beta, grad)
+    f2, G2 = loss_fg_mttkrp_cuda(loss, X, facs, mode, eps, beta, grad)
+    torch.cuda.synchronize()
+    f_ref, G_ref = losses.loss_fg_mttkrp_reference(loss, X, facs, mode, eps,
+                                                   beta, grad)
+    err_f = abs(float(f) - float(f_ref)) / abs(float(f_ref))
+    same = bool(torch.equal(f, f2))
+    err_g = abs_g = 0.0
+    if grad:
+        scale = mttkrp_einsum(gh_scale(loss, X, ktensor_full(facs), eps, beta),
+                              [F.abs() for F in facs], mode)
+        err_g = float(((G - G_ref).abs() / scale).max())
+        abs_g = float((G - G_ref).abs().max())
+        same = same and bool(torch.equal(G, G2))
+    return err_f, err_g, abs_g, same
+
+
 def kl_phases(dev, power):
-    """Phases 14 and 15: kernel D and the KL workload.  Returns kernel D's
-    entry of the kernels line and mttkrp3's launches on the KL path."""
+    """Phases 14 and 15: kernel D (the fused evaluation and the old pass)
+    and the KL workload.  Returns the kernels line's entries of both
+    forms of kernel D and mttkrp3's launches on the KL path."""
     import warnings
     import torch
     from matlab_code_tpu_torch.convert import state_from_numpy, state_to_numpy
@@ -1647,13 +1779,15 @@ def kl_phases(dev, power):
     from matlab_code_tpu_torch.models.init import init_coupled
     from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit
     from matlab_code_tpu_torch.ops import losses
-    from matlab_code_tpu_torch.ops.loss_cuda import loss_fg_cuda
+    from matlab_code_tpu_torch.ops.loss_cuda import (
+        loss_fg_cuda, loss_fg_mttkrp_cuda, loss_fg_mttkrp_cuda_starts)
     from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
     from matlab_code_tpu_torch.ops.tensor import ktensor_full
     from matlab_code_tpu_torch.utils import kl_workload as klw
+    from matlab_code_tpu_torch.utils import time_fused
 
     # ---- 14. kernel D vs plain ------------------------------------------------
-    t0 = phase(14, "kernel D (the loss pass) vs plain")
+    t0 = phase(14, "kernel D vs plain: the fused evaluation and the old pass")
     eps = 1e-10
     gen = torch.Generator(device=dev)
     gen.manual_seed(14)
@@ -1678,8 +1812,8 @@ def kl_phases(dev, power):
                 same = bool(torch.equal(f2, f) and torch.equal(Y2, Y))
                 bits = float((Y == Y_ref).double().mean())
                 label = f"{loss}{'' if beta is None else f' {beta}'}"
-                print(f"{shape} {dt} {label}: gh max |kernel-plain| / scale "
-                      f"{err_y:.3e} (bound {rtol_y:.0e}; {bits:.2%} of "
+                print(f"old pass {shape} {dt} {label}: gh max |kernel-plain| / "
+                      f"scale {err_y:.3e} (bound {rtol_y:.0e}; {bits:.2%} of "
                       f"elements the same bits); sum fh rel diff {err_f:.3e} "
                       f"(bound {rtol_f:.0e}); same bits on repeat: {same}")
                 if not (err_y <= rtol_y and err_f <= rtol_f and same
@@ -1689,48 +1823,152 @@ def kl_phases(dev, power):
                 max_abs_err = max(max_abs_err,
                                   float((Y - Y_ref).abs().max()))
         del M64, X64, X, M, Y, Y_ref, Y2
+    # the fused evaluation: every loss, modes 0-2 and the f-only pass
+    fused_err = 0.0
+    for shape, ranks in FUSED_SHAPES:
+        for R in ranks:
+            for dt, rtol_g, rtol_f in zip((torch.float32, torch.float64),
+                                          FUSED_RTOL_G, LOSS_RTOL_F):
+                X, facs = fused_problem(shape, R, dt, dev, sum(shape) + R)
+                for loss, beta in LOSS_CASES:
+                    worst = [0.0, 0.0, True]
+                    for mode, grad in ((0, True), (1, True), (2, True),
+                                       (0, False)):
+                        before = loss_fg_mttkrp_cuda.launches
+                        e_f, e_g, a_g, same = check_fused(
+                            loss, beta, X, facs, mode, grad, eps)
+                        worst = [max(worst[0], e_f), max(worst[1], e_g),
+                                 worst[2] and same]
+                        fused_err = max(fused_err, a_g)
+                        if not (e_f <= rtol_f and e_g <= rtol_g and same and
+                                loss_fg_mttkrp_cuda.launches == before + 2):
+                            raise RuntimeError(
+                                f"fused kernel D disagrees: {shape} R {R} {dt} "
+                                f"{loss} {beta} mode {mode} grad {grad}: f "
+                                f"{e_f:.3e}, G {e_g:.3e}, same bits {same}")
+                    label = f"{loss}{'' if beta is None else f' {beta}'}"
+                    print(f"fused {shape} R {R} {dt} {label}, modes 0-2 and "
+                          f"f alone: sum fh rel diff {worst[0]:.3e} (bound "
+                          f"{rtol_f:.0e}); G max |kernel-plain| / scale "
+                          f"{worst[1]:.3e} (bound {rtol_g:.0e}); same bits on "
+                          f"repeat: {worst[2]}")
+                del X, facs
+    # each start's bits those of its own launch, X shared and one a start
+    S = 3
+    for dt in (torch.float32, torch.float64):
+        Xs, facs = zip(*[fused_problem((37, 50, 29), 8, dt, dev, 140 + s)
+                         for s in range(S)])
+        Fs = [torch.stack([f[d] for f in facs]) for d in range(3)]
+        for X in (Xs[0], torch.stack(Xs)):
+            for mode in range(3):
+                before = loss_fg_mttkrp_cuda.launches
+                f, G = loss_fg_mttkrp_cuda_starts("IS", X, Fs, mode, eps)
+                one = loss_fg_mttkrp_cuda.launches == before + 1
+                for s in range(S):
+                    f1, G1 = loss_fg_mttkrp_cuda(
+                        "IS", X if X.dim() == 3 else X[s],
+                        [F[s] for F in Fs], mode, eps)
+                    if not (one and torch.equal(f1, f[s])
+                            and torch.equal(G1, G[s])):
+                        raise RuntimeError(f"fused kernel D, start {s} of {S} "
+                                           f"({dt}, mode {mode}): not the bits "
+                                           f"of its own launch")
+    print(f"fused on the start axis: {S} starts in one launch, X shared and "
+          f"one a start, modes 0-2, float32 and float64: each start's f and G "
+          f"the bits of its own launch")
     # timed at the KL workload's data and the model of its init
     spec, data, state0, _ = klw.build_problem(dev, torch.float32)
     X = data.objects[0]
     facs = list(state0.fac)
     M = ktensor_full(facs).contiguous()
     n = X.numel()
+    R = spec.datasets[0].rank
     flush = l2_flush(dev)
     t_b, by = bound(12 * n, 6 * n)   # X, M read, Y written; ~6 ops (KL)
     t_k = time_ms(lambda: loss_fg_cuda("KL", X, M, eps), flush)
     t_p = time_ms(lambda: losses.loss_fg_reference("KL", X, M, eps), flush)
     _, Y = loss_fg_cuda("KL", X, M, eps)
 
-    def evaluation():
+    def evaluation(mode):
         Mx = ktensor_full(facs).contiguous()
         _, Yx = loss_fg_cuda("KL", X, Mx, eps)
-        return mttkrp3(Yx, facs, 0)
+        return mttkrp3(Yx, facs, mode)
 
-    t_e = time_ms(evaluation, flush)
+    t_e = [time_ms(lambda: evaluation(mode), flush) for mode in range(3)]
     t_m = time_ms(lambda: ktensor_full(facs).contiguous(), flush)
     t_g = [time_ms(lambda: mttkrp3(Y, facs, mode), flush) for mode in range(3)]
-    print(f"KL at {tuple(X.shape)} float32: kernel D {t_k * 1e3:.1f} us "
+    t_fm = [time_ms(lambda: loss_fg_mttkrp_cuda("KL", X, facs, mode, eps),
+                    flush) for mode in range(3)]
+    t_f0 = time_ms(lambda: loss_fg_mttkrp_cuda("KL", X, facs, 0, eps,
+                                               grad=False), flush)
+    t_pf = time_ms(lambda: losses.loss_fg_mttkrp_reference("KL", X, facs, 0,
+                                                           eps), flush)
+    # X once, the factors read and G written; the model 2R - 1, the MTTKRP
+    # 2R and ~6 operations of fh and gh an element (KL)
+    io = 4 * (n + sum(F.numel() for F in facs) + X.shape[0] * R)
+    t_fb, fby = bound(io, n * (4 * R + 5))
+    t_f0b, _ = bound(4 * (n + sum(F.numel() for F in facs)), n * (2 * R + 5))
+    print(f"KL at {tuple(X.shape)} float32: old pass {t_k * 1e3:.1f} us "
           f"({12 * n / 1e6 / t_k:.0f} GB/s, {t_b / t_k:.1%} of the bound) | "
           f"bound {t_b * 1e3:.1f} us ({by}) | plain {t_p * 1e3:.1f} us  "
           f"[{power}]")
-    print(f"  one evaluation (model by torch.einsum, kernel D, mttkrp3 mode 0) "
-          f"{t_e * 1e3:.1f} us; the model alone {t_m * 1e3:.1f} us; mttkrp3 "
-          f"of gh modes 0/1/2 {' / '.join(f'{t * 1e3:.1f}' for t in t_g)} us  "
+    print(f"  the three-call evaluation (model by torch.einsum, the old pass, "
+          f"mttkrp3) modes 0/1/2 {' / '.join(f'{t * 1e3:.1f}' for t in t_e)} "
+          f"us; the model alone {t_m * 1e3:.1f} us; mttkrp3 of gh modes 0/1/2 "
+          f"{' / '.join(f'{t * 1e3:.1f}' for t in t_g)} us  [{power}]")
+    print(f"  the fused evaluation (one launch) modes 0/1/2 "
+          f"{' / '.join(f'{t * 1e3:.1f}' for t in t_fm)} us, f alone "
+          f"{t_f0 * 1e3:.1f} us; bound {t_fb * 1e3:.1f} us ({fby}; f alone "
+          f"{t_f0b * 1e3:.1f}); {np.mean(t_e) / np.mean(t_fm):.2f}x the "
+          f"three-call evaluation; plain version (mode 0) {t_pf * 1e3:.1f} us  "
           f"[{power}]")
+    # the fused call against the three-call evaluation over ranks and
+    # dtypes (the route choice of losses.takes_fused), device time beside
+    # the events; at R 8 float32 the fused beta-2 call (no division, no
+    # log), the f-only pass and X.sum() (one read of X by a library call)
+    grid = time_fused.route_grid(dev, flush, FUSED_TIMED_RANKS,
+                                 (torch.float32, torch.float64))
+    for r in grid:
+        print(f"  {r['dtype']} R {r['R']} mode {r['mode']}: fused "
+              f"{r['fused_ms'] * 1e3:.1f} us ({r['fused_dev_us']:.1f} device), "
+              f"three-call {r['three_ms'] * 1e3:.1f} us "
+              f"({r['three_dev_us']:.1f} device), device time fused / "
+              f"three-call {r['fused_dev_us'] / r['three_dev_us']:.2f}x  "
+              f"[{power}]")
+    dev_ratio = {}
+    for dt, cap in losses.FUSED_MAX_RANK.items():
+        name = str(dt).replace("torch.", "")
+        for rank in FUSED_TIMED_RANKS:
+            rows = [r for r in grid if r["dtype"] == name and r["R"] == rank]
+            dev_ratio[name, rank] = (
+                np.mean([r["fused_dev_us"] for r in rows])
+                / np.mean([r["three_dev_us"] for r in rows]))
+        print(f"  route ({name}: fused up to R {cap}, losses.FUSED_MAX_RANK): "
+              f"device time fused / three-call, mean of modes 0-2: " + ", ".join(
+                  f"R {rank} {dev_ratio[name, rank]:.2f}x "
+                  f"({'fused' if rank <= cap else 'three calls'})"
+                  for rank in FUSED_TIMED_RANKS))
+    probe = time_fused.probes(dev, flush)
+    print("  R 8 float32 mode 0: " + ", ".join(
+        f"{k} {ms * 1e3:.1f} us ({us:.1f} device)"
+        for k, (ms, us) in probe.items()) + f"  [{power}]")
     del flush, M, Y
     done(14, t0)
 
     # ---- 15. the KL workload --------------------------------------------------
     t0 = phase(15, f"KL workload, {KL_ITERS} outer iterations, float32")
     print(f"X {tuple(X.shape)} Poisson counts ({n * 4 / 1e6:.1f} MB), rank "
-          f"{spec.datasets[0].rank}, max count {float(X.max()):.0f}")
+          f"{R}, max count {float(X.max()):.0f}")
     opts = klw.kl_options(KL_ITERS, AbsFuncTol=0.0, OuterRelTol=0.0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     loss_fg_cuda.launches = mttkrp3.launches = to_host.calls = 0
+    loss_fg_mttkrp_cuda.launches = 0
     to_host.seconds = 0.0
-    zhat, _, _, out = cmtf_aoadmm(spec, data, opts, init=state0)
-    n_d, n_m = loss_fg_cuda.launches, mttkrp3.launches
+    with fused_counts() as c:
+        zhat, _, _, out = cmtf_aoadmm(spec, data, opts, init=state0)
+    n_d, n_m, n_f = (loss_fg_cuda.launches, mttkrp3.launches,
+                     loss_fg_mttkrp_cuda.launches)
     syncs, sync_s = to_host.calls, to_host.seconds
     streams = np.stack([out.func_val_conv, out.func_coupl_conv,
                         out.func_constr_conv, out.func_PAR2_coupl])
@@ -1738,12 +1976,10 @@ def kl_phases(dev, power):
             or not out.func_val_conv[-1] < out.func_val_conv[0]:
         raise RuntimeError(f"KL workload: {out.OuterIterations} iterations, "
                            f"f_tensors {out.func_val_conv}")
-    R = spec.datasets[0].rank
     if [f.shape for f in zhat[0]["factors"]] != [(d, R) for d in X.shape] \
             or min(float(f.min()) for f in zhat[0]["factors"]) < 0:
         raise RuntimeError("KL workload: unexpected or negative factors")
-    if n_d == 0 or n_m == 0:
-        raise RuntimeError(f"KL workload: kernel D {n_d}, mttkrp3 {n_m} launches")
+    check_fused_path("KL workload", c, n_f, n_d, n_m, KL_ITERS)
     med, p90 = fit_times(out)
     lb = out.lbfgsb_iterations
     print(f"f_tensors {out.func_val_conv[0]:.6e} -> {out.f_tensors:.6e}; "
@@ -1752,13 +1988,15 @@ def kl_phases(dev, power):
           f"reads {syncs / KL_ITERS:.2f} an iteration ({syncs} in all, the "
           f"data check's one included), {sync_s * 1e3:.1f} ms waiting in "
           f"them = {sync_s / out.time_total:.1%} of the "
-          f"{out.time_total * 1e3:.1f} ms fit; launches an iteration: kernel "
-          f"D {n_d / KL_ITERS:.2f} (one an evaluation, one an objective), "
-          f"mttkrp3 {n_m / KL_ITERS:.2f}; L-BFGS-B iterations by iteration "
-          f"{lb.sum(axis=0)[1:].tolist()} (by mode {lb.sum(axis=1).tolist()}); "
-          f"inner iterations {out.innerIters.sum(axis=0)[1:].tolist()}; peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB  "
-          f"[{power}]")
+          f"{out.time_total * 1e3:.1f} ms fit; launches an iteration: fused "
+          f"kernel D {n_f / KL_ITERS:.2f} ({c['evals'] / KL_ITERS:.2f} "
+          f"L-BFGS-B evaluations, one launch each; {c['f_only']} objective "
+          f"passes), old pass {n_d}, mttkrp3 {n_m}, models by torch.einsum "
+          f"{c['bridge_models'] + c['objective_models']}; L-BFGS-B "
+          f"iterations by iteration {lb.sum(axis=0)[1:].tolist()} (by mode "
+          f"{lb.sum(axis=1).tolist()}); inner iterations "
+          f"{out.innerIters.sum(axis=0)[1:].tolist()}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB  [{power}]")
     profile_fit(spec, data, state0,
                 klw.kl_options(2, AbsFuncTol=0.0, OuterRelTol=0.0))
     del data, zhat
@@ -1766,16 +2004,21 @@ def kl_phases(dev, power):
     # lets L-BFGS-B run past its first iteration (float32's eps makes it a
     # relative change of 537: every run stops after one iteration)
     spec, data, state0, _ = klw.build_problem(dev, torch.float64)
-    loss_fg_cuda.launches = to_host.calls = 0
+    loss_fg_cuda.launches = mttkrp3.launches = to_host.calls = 0
+    loss_fg_mttkrp_cuda.launches = 0
     to_host.seconds = 0.0
-    _, _, _, out = cmtf_aoadmm(spec, data, opts, init=state0)
+    with fused_counts() as c:
+        _, _, _, out = cmtf_aoadmm(spec, data, opts, init=state0)
+    check_fused_path("KL workload, float64", c, loss_fg_mttkrp_cuda.launches,
+                     loss_fg_cuda.launches, mttkrp3.launches, KL_ITERS)
     med, p90 = fit_times(out)
     if not np.all(np.isfinite(out.func_val_conv)):
         raise RuntimeError("KL workload, float64: non-finite f_tensors")
     print(f"  float64: ms per outer iteration median {med:.3f}, p90 {p90:.3f}; "
           f"device reads {to_host.calls / KL_ITERS:.2f} an iteration, "
-          f"{to_host.seconds / out.time_total:.1%} of the wall clock; kernel D "
-          f"{loss_fg_cuda.launches / KL_ITERS:.2f} an iteration; L-BFGS-B "
+          f"{to_host.seconds / out.time_total:.1%} of the wall clock; fused "
+          f"kernel D {loss_fg_mttkrp_cuda.launches / KL_ITERS:.2f} an "
+          f"iteration ({c['evals']} evaluations); L-BFGS-B "
           f"iterations by iteration "
           f"{out.lbfgsb_iterations.sum(axis=0)[1:].tolist()}; f_tensors "
           f"{out.func_val_conv[0]:.6e} -> {out.f_tensors:.6e}  [{power}]")
@@ -1790,11 +2033,25 @@ def kl_phases(dev, power):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")     # the data are not counts
         _, out_cpu = fit(spec7, data_c, state_from_numpy(init_np, "cpu"), o3)
-        before = (loss_fg_cuda.launches, mttkrp3.launches)
-        _, out_gpu = fit(spec7, data_g, state_from_numpy(init_np, dev), o3)
-    if loss_fg_cuda.launches == before[0] or mttkrp3.launches == before[1]:
-        raise RuntimeError("script 07 on the card: kernel D or mttkrp3 not "
-                           "launched")
+        init_g = state_from_numpy(init_np, dev)
+        loss_fg_cuda.launches = mttkrp3.launches = 0
+        loss_fg_mttkrp_cuda.launches = 0
+        with fused_counts() as c:
+            _, out_gpu = fit(spec7, data_g, init_g, o3)
+    n_d7, n_m7, n_f7 = (loss_fg_cuda.launches, mttkrp3.launches,
+                        loss_fg_mttkrp_cuda.launches)
+    # the tensor's evaluations take the fused kernel, one launch each; the
+    # matrix's keep the model by torch.einsum and the old pass
+    print(f"  script 07 on the card: {c['evals']} L-BFGS-B evaluations, "
+          f"{c['grad']} of them fused (one launch each) and "
+          f"{c['bridge_models']} of the matrix (a model each); fused launches "
+          f"{n_f7} ({c['f_only']} objective passes), old pass {n_d7}, mttkrp3 "
+          f"{n_m7}")
+    if not (c["grad"] > 0 and n_f7 == c["grad"] + c["f_only"]
+            and c["grad"] + c["bridge_models"] == c["evals"]
+            and c["f_only"] > 0 and n_d7 > 0 and n_m7 == 0):
+        raise RuntimeError(f"script 07 on the card: fused {n_f7}, old pass "
+                           f"{n_d7}, mttkrp3 {n_m7}, counts {c}")
     same_inner = np.array_equal(out_gpu.innerIters, out_cpu.innerIters)
     same_lb = np.array_equal(out_gpu.lbfgsb_iterations,
                              out_cpu.lbfgsb_iterations)
@@ -1811,9 +2068,42 @@ def kl_phases(dev, power):
     return {"mttkrp3_launches": n_m,
             "D": {"name": "loss_fg_cuda", "route": "cuda",
                   "source": LOSS_SOURCE, "replaces": LOSS_REPLACES,
-                  "launches": n_d, "max_abs_err": max_abs_err, "ms": t_k,
+                  "launches": n_d7, "max_abs_err": max_abs_err, "ms": t_k,
                   "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
-                  "library_ms": None, "evaluation_ms": t_e}}
+                  "library_ms": None, "evaluation_ms": float(np.mean(t_e))},
+            "fused": {"name": "loss_fg_mttkrp_cuda", "route": "cuda",
+                      "source": FUSED_SOURCE, "replaces": FUSED_REPLACES,
+                      "launches": n_f, "max_abs_err": fused_err,
+                      "ms": float(np.mean(t_fm)),
+                      "mode_ms": t_fm, "f_only_ms": t_f0, "plain_ms": t_pf,
+                      "bound_ms": t_fb, "bound_by": fby, "library_ms": None,
+                      "three_call_ms": float(np.mean(t_e)),
+                      "device_ms": np.mean([
+                          r["fused_dev_us"] for r in grid
+                          if r["dtype"] == "float32" and r["R"] == R]) / 1e3,
+                      "three_call_device_ms": np.mean([
+                          r["three_dev_us"] for r in grid
+                          if r["dtype"] == "float32" and r["R"] == R]) / 1e3,
+                      "route_grid": grid, "probes": probe,
+                      "script07_launches": n_f7}}
+
+
+def check_fused_path(label, c, n_f, n_d, n_m, iters):
+    """A KL path of an uncut dense 3-way dataset on the card: every
+    L-BFGS-B evaluation one launch of the fused kernel D, every objective
+    pass one f-only launch, no old pass, no mttkrp3 and no model formed by
+    torch.einsum (c: fused_counts' counts of the run)."""
+    print(f"  {label}: {c['evals']} L-BFGS-B evaluations, fused launches "
+          f"{n_f} ({c['grad']} with G, {c['f_only']} f alone), old pass "
+          f"{n_d}, mttkrp3 {n_m}, models by torch.einsum "
+          f"{c['bridge_models'] + c['objective_models']}")
+    if not (c["evals"] > 0 and c["grad"] == c["evals"]
+            and c["f_only"] >= iters and n_f == c["grad"] + c["f_only"]
+            and n_d == 0 and n_m == 0
+            and c["bridge_models"] + c["objective_models"] == 0):
+        raise RuntimeError(f"{label}: not one fused launch an evaluation "
+                           f"(fused {n_f}, old pass {n_d}, mttkrp3 {n_m}, "
+                           f"counts {c})")
 
 
 def pp_counts():
@@ -2290,7 +2580,9 @@ def multistart_rest_phase(dev, power):
     from matlab_code_tpu_torch.models.solver import (
         attach_sparse_plans, cmtf_aoadmm, fit)
     from matlab_code_tpu_torch.ops import losses
-    from matlab_code_tpu_torch.ops.loss_cuda import loss_fg_cuda, loss_fg_cuda_starts
+    from matlab_code_tpu_torch.ops.loss_cuda import (
+        loss_fg_cuda, loss_fg_cuda_starts, loss_fg_mttkrp_cuda,
+        loss_fg_mttkrp_cuda_starts)
     from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
     from matlab_code_tpu_torch.ops.sparse_cuda import mttkrp_sparse_cuda
     from matlab_code_tpu_torch.ops.tensor import mttkrp_sparse
@@ -2351,7 +2643,59 @@ def multistart_rest_phase(dev, power):
         if dt == torch.float32:
             out["D"] = {"starts_ms": t_s, "singles_ms": t_1, "starts_bound_ms": t_b}
         del X, M, f, Y
-    del M64, X64, flush
+    del M64, X64
+    # the fused kernel D on the start axis: S starts sharing the KL
+    # workload's X (its shape, rank 8) in one launch, against S single
+    # launches (f and G bit for bit, modes 0-2) and against its plain version
+    R = 8
+    for dt, rtol_g, rtol_f in zip((torch.float32, torch.float64),
+                                  FUSED_RTOL_G, LOSS_RTOL_F):
+        X, _ = fused_problem(shape, R, dt, dev, 200)
+        rng = np.random.default_rng(201)
+        Fs = [torch.tensor(rng.uniform(0.1, 1.1, size=(S, d, R)), dtype=dt,
+                           device=dev) for d in shape]
+        item = X.element_size()
+        for mode in range(3):
+            before = loss_fg_mttkrp_cuda.launches
+            f, G = loss_fg_mttkrp_cuda_starts("KL", X, Fs, mode, eps)
+            n_l = loss_fg_mttkrp_cuda.launches - before
+            same = True
+            err_g = err_f = 0.0
+            for s in range(S):
+                facs = [F[s] for F in Fs]
+                f1, G1 = loss_fg_mttkrp_cuda("KL", X, facs, mode, eps)
+                same = same and bool(torch.equal(f1, f[s])
+                                     and torch.equal(G1, G[s]))
+                if s < 3:    # the plain version of three starts
+                    e_f, e_g, _, _ = check_fused("KL", None, X, facs, mode,
+                                                 True, eps)
+                    err_f, err_g = max(err_f, e_f), max(err_g, e_g)
+                del f1, G1
+            io = item * (n + S * sum(F.shape[1] for F in Fs) * R
+                         + S * shape[mode] * R)
+            t_b, by = bound(io, S * n * (4 * R + 5))
+            t_s = time_ms(lambda: loss_fg_mttkrp_cuda_starts("KL", X, Fs, mode,
+                                                             eps), flush)
+            t_1 = time_ms(lambda: [loss_fg_mttkrp_cuda("KL", X,
+                                                       [F[s] for F in Fs],
+                                                       mode, eps)
+                                   for s in range(S)], flush)
+            print(f"fused kernel D on the start axis, KL {shape} R {R} x {S} "
+                  f"starts {dt} mode {mode}: {n_l} launch; sum fh rel diff "
+                  f"{err_f:.3e} (bound {rtol_f:.0e}), G / scale {err_g:.3e} "
+                  f"(bound {rtol_g:.0e}) for 3 starts; against {S} single "
+                  f"launches: f and G bit for bit {same}; {t_s * 1e3:.1f} us "
+                  f"against {S} launches {t_1 * 1e3:.1f} us; bound "
+                  f"{t_b * 1e3:.1f} us ({by})  [{power}]")
+            if not (n_l == 1 and same and err_g <= rtol_g
+                    and err_f <= rtol_f):
+                raise RuntimeError(f"fused kernel D on the start axis "
+                                   f"disagrees ({dt}, mode {mode})")
+            if dt == torch.float32 and mode == 0:
+                out["fused"] = {"starts_ms": t_s, "singles_ms": t_1,
+                                "starts_bound_ms": t_b}
+        del X, Fs, f, G
+    del flush
 
     # (a) the KL workload: S starts against one start's fit, in turns
     spec, data, opts, init = mw.kl_problem(dev, torch.float32)
@@ -2360,29 +2704,35 @@ def multistart_rest_phase(dev, power):
 
     def kl_run(label):
         loss_fg_cuda.launches = mttkrp3.launches = to_host.calls = 0
-        if label == "fit":
-            _, _, _, o = cmtf_aoadmm(spec, data, opts, init_options=init, seed=0,
-                                     validate=False)
-            finals = [o.f_tensors]
-        else:
-            _, o, finals, _ = fit_multistart(spec, data, opts, init, S,
-                                             keys=range(S))
+        loss_fg_mttkrp_cuda.launches = 0
+        with fused_counts() as c:
+            if label == "fit":
+                _, _, _, o = cmtf_aoadmm(spec, data, opts, init_options=init,
+                                         seed=0, validate=False)
+                finals = [o.f_tensors]
+            else:
+                _, o, finals, _ = fit_multistart(spec, data, opts, init, S,
+                                                 keys=range(S))
         n_it = o.OuterIterations
         n_d, n_m, reads = loss_fg_cuda.launches, mttkrp3.launches, to_host.calls
+        n_f = loss_fg_mttkrp_cuda.launches
         lb = o.lbfgsb_iterations
         print(f"KL workload, {label}: {n_it} iterations, {o.time_total / n_it * 1e3:.3f} "
               f"ms an iteration; host reads {reads / n_it:.2f} an iteration; "
-              f"kernel D launches {n_d / n_it:.2f} an iteration, mttkrp3 "
-              f"{n_m / n_it:.2f}; peak {torch.cuda.max_memory_allocated() / 2**20:.0f} "
+              f"fused kernel D launches {n_f / n_it:.2f} an iteration "
+              f"({c['evals'] / n_it:.2f} L-BFGS-B evaluations), old pass "
+              f"{n_d}, mttkrp3 {n_m}; peak {torch.cuda.max_memory_allocated() / 2**20:.0f} "
               f"MiB; {'best start' if label != 'fit' else 'the fit'}: L-BFGS-B "
               f"iterations by iteration {lb.sum(axis=0)[1:].tolist()}, f_tensors "
               f"{np.nanmin(finals):.6e}  [{power}]")
-        if n_it != MS_KL_ITERS or not np.all(np.isfinite(finals)) or n_d == 0 \
-                or n_m == 0 or lb.sum() == 0:
+        if n_it != MS_KL_ITERS or not np.all(np.isfinite(finals)) \
+                or lb.sum() == 0:
             raise RuntimeError(f"KL workload {label}: {n_it} iterations, finals "
-                               f"{finals}, D {n_d}, mttkrp3 {n_m}")
+                               f"{finals}")
+        check_fused_path(f"KL workload, {label}", c, n_f, n_d, n_m, n_it)
         if label == "multistart":
             out["D_launches"] = n_d
+            out["fused_launches"] = n_f
         return o.time_total / n_it * 1e3
 
     in_turns(kl_run, power, "KL workload")
@@ -2478,9 +2828,9 @@ def multistart_rest_phase(dev, power):
                for k in mw.S07_KEYS]
     cpu = _fit_lanes(spec7, data_c, [state_from_numpy(s, "cpu") for s in init_np],
                      o7)
-    loss_fg_cuda.launches = 0
+    loss_fg_cuda.launches = loss_fg_mttkrp_cuda.launches = 0
     gpu = _fit_lanes(spec7, data_g, [state_from_numpy(s, dev) for s in init_np], o7)
-    n_d = loss_fg_cuda.launches
+    n_d, n_f = loss_fg_cuda.launches, loss_fg_mttkrp_cuda.launches
     worst = {"cpu": 0.0, "own fit": 0.0}
     for s in range(len(init_np)):
         with warnings.catch_warnings():
@@ -2501,10 +2851,12 @@ def multistart_rest_phase(dev, power):
           f"{MS_S07_ITERS} iterations, float64: the card's lanes against the "
           f"CPU's max rel diff {worst['cpu']:.3e}, against each start's own card "
           f"fit {worst['own fit']:.3e} (bound 1e-12); inner and L-BFGS-B "
-          f"iterations equal; kernel D launches {n_d}; L-BFGS-B iterations "
+          f"iterations equal; launches for all starts: old pass {n_d} (the "
+          f"matrix), fused kernel D {n_f} (the tensor); L-BFGS-B iterations "
           f"{[int(o.lbfgsb_iterations.sum()) for o in gpu.outs]}")
-    if n_d == 0 or not max(worst.values()) <= 1e-12:
-        raise RuntimeError(f"script 07 on the start axis: {worst}, D {n_d}")
+    if n_d == 0 or n_f == 0 or not max(worst.values()) <= 1e-12:
+        raise RuntimeError(f"script 07 on the start axis: {worst}, D {n_d}, "
+                           f"fused {n_f}")
 
     # (e) the flagship with cp_pairwise_perturbation: the exact MTTKRPs, as
     # the JAX function runs them, so the finals equal the run without it
@@ -2584,7 +2936,8 @@ def _example_run(name, dev):
     import torch
     from matlab_code_tpu_torch.examples import run_all
     from matlab_code_tpu_torch.models.init import init_coupled
-    from matlab_code_tpu_torch.ops.loss_cuda import loss_fg_cuda
+    from matlab_code_tpu_torch.ops.loss_cuda import (
+        loss_fg_cuda, loss_fg_mttkrp_cuda)
     from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
     from matlab_code_tpu_torch.ops.prox_cuda import (
         project_isotonic_cols, prox_tv_cols, t_smooth_cols)
@@ -2594,7 +2947,7 @@ def _example_run(name, dev):
     torch.set_num_threads(2)
     counters = {"mttkrp3": mttkrp3, "A": project_isotonic_cols,
                 "B": prox_tv_cols, "C": t_smooth_cols, "D": loss_fg_cuda,
-                "sparse": mttkrp_sparse_cuda}
+                "fused": loss_fg_mttkrp_cuda, "sparse": mttkrp_sparse_cuda}
     for fn in counters.values():
         fn.launches = 0
     tb = time.perf_counter()
@@ -2606,9 +2959,10 @@ def _example_run(name, dev):
     n = {k: fn.launches for k, fn in counters.items()}
     out = res["out"]
     cfg = run_all.module(name).build()
+    cp3 = [ds.loss for ds in cfg["spec"].datasets
+           if ds.model == "CP" and len(ds.modes) == 3]
     row = dict(
-        cp3=any(ds.model == "CP" and len(ds.modes) == 3
-                for ds in cfg["spec"].datasets),
+        cp3="Frobenius" in cp3, cp3_loss=any(x != "Frobenius" for x in cp3),
         iters=out.OuterIterations, exit=out.exit_flag,
         dts=np.diff(out.time_at_it) * 1e3, secs=secs, launches=n,
         report=res["report"], finite=bool(np.all(np.isfinite(np.stack(
@@ -2704,8 +3058,11 @@ def examples_phase(dev, power):
               f"{EXAMPLE_WORKERS} fits share the card]")
         if not r["finite"]:
             raise RuntimeError(f"{name}: non-finite objective stream")
+        # a 3-way CP dataset: mttkrp3 for a Frobenius one, the fused
+        # kernel D for a KL, IS or beta one
         need = ([expect[name[:8]]] if name[:8] in expect else []) + \
-            (["mttkrp3"] if r["cp3"] else [])
+            (["mttkrp3"] if r["cp3"] else []) + \
+            (["fused"] if r["cp3_loss"] else [])
         missing = [k for k in need if n[k] == 0]
         if missing:
             raise RuntimeError(f"{name}: no launch of {missing}: a path fell "
@@ -2854,7 +3211,8 @@ def _mesh_fit(job, dev, mesh=None, ulp=False, par2=None):
     from matlab_code_tpu_torch.models.init import init_coupled
     from matlab_code_tpu_torch.models.multistart import fit_multistart
     from matlab_code_tpu_torch.models.solver import cmtf_aoadmm, fit
-    from matlab_code_tpu_torch.ops.loss_cuda import loss_fg_cuda
+    from matlab_code_tpu_torch.ops.loss_cuda import (
+        loss_fg_cuda, loss_fg_mttkrp_cuda)
     from matlab_code_tpu_torch.ops.mttkrp_cuda import mttkrp3
     from matlab_code_tpu_torch.ops.prox_cuda import (
         project_isotonic_cols, prox_tv_cols, t_smooth_cols)
@@ -2882,8 +3240,9 @@ def _mesh_fit(job, dev, mesh=None, ulp=False, par2=None):
         data = sharding.device_put(data, sharding.data_shardings(
             spec, data, mesh, par2=par2)[0])
     counters = {"mttkrp3": mttkrp3, "sparse": mttkrp_sparse_cuda,
-                "D": loss_fg_cuda, "A": project_isotonic_cols,
-                "B": prox_tv_cols, "C": t_smooth_cols}
+                "D": loss_fg_cuda, "fused": loss_fg_mttkrp_cuda,
+                "A": project_isotonic_cols, "B": prox_tv_cols,
+                "C": t_smooth_cols}
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
@@ -3035,7 +3394,8 @@ def mesh_phase(dev, power):
     t0 = phase(23, f"mesh on the card: (a) one NCCL rank, (b) two gloo ranks "
                    f"sharing the card; {MESH_ITERS} iterations")
     spawn = multiprocessing.get_context("spawn")
-    total = {"mttkrp3": 0, "sparse": 0, "D": 0, "A": 0, "B": 0, "C": 0}
+    total = {"mttkrp3": 0, "sparse": 0, "D": 0, "fused": 0, "A": 0, "B": 0,
+             "C": 0}
 
     def count(row, need):
         for k, v in row["launches"].items():
@@ -3207,7 +3567,8 @@ def mesh_par2_phase(dev, power):
                    f"{MESH_ITERS} iterations; (b) two gloo ranks sharing the "
                    f"card, {MESH_PAR2_ITERS} iterations")
     spawn = multiprocessing.get_context("spawn")
-    total = {"mttkrp3": 0, "sparse": 0, "D": 0, "A": 0, "B": 0, "C": 0}
+    total = {"mttkrp3": 0, "sparse": 0, "D": 0, "fused": 0, "A": 0, "B": 0,
+             "C": 0}
 
     def check(job, row):
         if "+" not in job:
@@ -3613,6 +3974,8 @@ def main():
     mesh_par2 = mesh_par2_phase(dev, power)
     mesh = {k: v + mesh_par2[k] for k, v in mesh.items()}
     kl["D"].update(ms_rest["D"], multistart_launches=ms_rest["D_launches"])
+    kl["fused"].update(ms_rest["fused"],
+                       multistart_launches=ms_rest["fused_launches"])
     sparse["multistart_launches"] = ms_rest["sparse_launches"]
     for e in prox_entries:
         e.update(par2["batched"][
@@ -3622,10 +3985,12 @@ def main():
         e["examples_launches"] = ex[{"project_isotonic_cols": "A",
                                      "prox_tv_cols": "B"}.get(e["name"], "C")]
     kl["D"]["examples_launches"] = ex["D"]
+    kl["fused"]["examples_launches"] = ex["fused"]
     for e in prox_entries:
         e["mesh_launches"] = mesh[{"project_isotonic_cols": "A",
                                    "prox_tv_cols": "B"}.get(e["name"], "C")]
     kl["D"]["mesh_launches"] = mesh["D"]
+    kl["fused"]["mesh_launches"] = mesh["fused"]
 
     print(json.dumps({"kernels": [{
         "name": "mttkrp3", "route": "cuda", "source": KERNEL_SOURCE,
@@ -3639,7 +4004,7 @@ def main():
         "mesh_launches": mesh["mttkrp3"]},
         dict(sparse, pp_launches=em["pp sparse workload"],
              examples_launches=ex["sparse"], mesh_launches=mesh["sparse"])]
-        + prox_entries + [kl["D"]]}))
+        + prox_entries + [kl["D"], kl["fused"]]}))
     print(power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))

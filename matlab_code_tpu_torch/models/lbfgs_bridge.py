@@ -4,14 +4,18 @@ compute_gen_f_g + lbfgsb_update, cmtf_fun_AOADMM.m:1365-1418).
 
 value = w sum fh(X, M) plus the ADMM quadratic terms, gradient = w MTTKRP
 of the elementwise gradient tensor gh(X, M) plus theirs, derived by hand as
-the reference does.  Each evaluation builds the model M = ktensor_full
-(torch.einsum), makes the loss pass (ops/losses.loss_fg: kernel D on the
-card) and the MTTKRP of gh (ops/tensor.mttkrp: the mttkrp3 kernel for a
-3-way dataset on the card).  On a mesh (parallel/), a dataset cut into
-blocks makes the loss pass over this rank's block (the model of its rows),
-psums sum fh and takes the gh MTTKRP through the sharded MTTKRP
-(parallel/shard_mttkrp.block_mttkrp), so every rank's L-BFGS-B sees the
-same value and gradient.
+the reference does.  A dense 3-way dataset that is not cut over a mesh
+(losses.takes_fused) makes each evaluation's data pass in one call,
+losses.loss_fg_mttkrp: on the card one launch of the fused kernel D, which
+forms the model in registers and takes the gh MTTKRP in the same pass over
+X.  Every other dataset (2-way, order above 3, a rank past
+losses.FUSED_MAX_RANK: 16 in float32, 8 in float64) builds the model
+M = ktensor_full (torch.einsum), makes the loss pass (ops/losses.loss_fg:
+the old pass of kernel D on the card) and the MTTKRP of gh
+(ops/tensor.mttkrp).  On a mesh (parallel/), a dataset cut into blocks makes the loss pass over
+this rank's block (the model of its rows), psums sum fh and takes the gh
+MTTKRP through the sharded MTTKRP (parallel/shard_mttkrp.block_mttkrp), so
+every rank's L-BFGS-B sees the same value and gradient.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ def make_lbfgs_step(spec: ProblemSpec, p: int, m: int, options):
              active=None):
         X = data.objects[p]
         sh = dataset_shard(data, p)
+        fused = losses.takes_fused(X, state.fac[m].shape[-1], sh.cut)
         fshape = state.fac[m].shape
         fac0 = state.fac[m]
         if constrained:
@@ -58,13 +63,18 @@ def make_lbfgs_step(spec: ProblemSpec, p: int, m: int, options):
         def vag(xvec):
             x = xvec.reshape(fshape)
             facs = [state.fac[j] if j != m else x for j in ds.modes]
-            M = ktensor_full(sh.local_factors(facs)).contiguous()
-            fh_sum, Y = losses.loss_fg(ds.loss, X, M, options.eps_log,
-                                       ds.loss_param)
-            if not sh.cut:
-                mk = mttkrp(Y, facs, local)
+            if fused:
+                fh_sum, mk = losses.loss_fg_mttkrp(
+                    ds.loss, X, facs, local, options.eps_log, ds.loss_param)
             else:
-                fh_sum, mk = sh.psum(fh_sum), block_mttkrp(sh, Y, facs, local)
+                M = ktensor_full(sh.local_factors(facs)).contiguous()
+                fh_sum, Y = losses.loss_fg(ds.loss, X, M, options.eps_log,
+                                           ds.loss_param)
+                if not sh.cut:
+                    mk = mttkrp(Y, facs, local)
+                else:
+                    fh_sum, mk = (sh.psum(fh_sum),
+                                  block_mttkrp(sh, Y, facs, local))
             f = ds.weight * fh_sum
             g = ds.weight * mk.reshape(-1)
             if constrained:

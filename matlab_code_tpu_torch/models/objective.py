@@ -10,10 +10,14 @@ f_PAR2_couplings) as 0-d tensors.  A CP data term reads the cached MTTKRP
 of the last updated mode (no extra data pass), as does a PARAFAC2 one whose
 A mode was updated last; otherwise (iteration 0, or a PARAFAC2 dataset
 whose C mode came last) it is evaluated afresh.  A non-Frobenius data term
-is w (Znorm_const + sum fh(X, M)) with the model M materialized.  A
-Frobenius dataset with a missing-data mask (True = observed) is evaluated
-on its observed entries with the model materialized, before any cached
-branch (cmtf_fun_AOADMM.m:1224-1226).
+is w (Znorm_const + sum fh(X, M)): for a dense 3-way dataset that is not
+cut over a mesh, of rank 16 at most in float32 and 8 in float64
+(losses.takes_fused), one call of losses.loss_fg_mttkrp without its
+MTTKRP (on the card the fused kernel D, the model formed in registers),
+for any other with the model M materialized.  A Frobenius dataset with a
+missing-data mask (True = observed) is evaluated on its observed entries
+with the model materialized, before any cached branch
+(cmtf_fun_AOADMM.m:1224-1226).
 
 On a mesh (parallel/), a dataset cut into blocks evaluates the branches
 that read its data (masked, non-cached, sparse, non-Frobenius) on this
@@ -102,12 +106,17 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
             fps.append(ds.weight * fp)
             continue
         if ds.loss != "Frobenius":
-            # the model materialized, as the reference does; on the card
-            # the loss pass is kernel D
-            M = ktensor_full(local([state.fac[j] for j in ds.modes])
-                             ).contiguous()
-            fh_sum, _ = losses.loss_fg(ds.loss, X, M, options.eps_log,
-                                       ds.loss_param)
+            facs = [state.fac[j] for j in ds.modes]
+            if losses.takes_fused(X, facs[0].shape[-1], sh.cut):
+                fh_sum, _ = losses.loss_fg_mttkrp(
+                    ds.loss, X, facs, 0, options.eps_log, ds.loss_param,
+                    grad=False)
+            else:
+                # the model materialized, as the reference does; on the
+                # card the loss pass is kernel D's old pass
+                fh_sum, _ = losses.loss_fg(
+                    ds.loss, X, ktensor_full(local(facs)).contiguous(),
+                    options.eps_log, ds.loss_param)
             fps.append(ds.weight * (znorm_consts[p] + psum(fh_sum)))
             continue
         if msk is not None:

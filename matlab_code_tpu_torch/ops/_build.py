@@ -1,10 +1,11 @@
 """Build a CUDA source of this package into a shared library and load it.
 
 nvcc compiles the sources into a plain-C shared library (no PyTorch
-headers, so a build takes seconds), which is loaded with ctypes.  The
-library goes into matlab_code_tpu_torch/_build/ (git-ignored), named by a
-hash of the sources and the flags, so a stale library is never loaded.
-Nothing here runs at import time: the first CUDA call builds.
+headers, so a build takes seconds; kernel D's 72 instances ~85 s on 8
+cores), which is loaded with ctypes.  The library goes into
+matlab_code_tpu_torch/_build/ (git-ignored), named by a hash of the
+sources and the flags, so a stale library is never loaded.  Nothing here
+runs at import time: the first CUDA call builds.
 """
 from __future__ import annotations
 
@@ -18,8 +19,11 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
+# -split-compile=0: nvcc runs its optimizer on the device functions of a
+# source in parallel, one thread a core (kernel D's one source holds 72
+# kernel instances)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-split-compile=0")
 
 # compiler output (ptxas register / shared-memory report) of each library
 # built by this process, keyed by library path

@@ -52,10 +52,17 @@ def mttkrp(X: torch.Tensor, factors, mode: int) -> torch.Tensor:
         raise ValueError(f"mttkrp: {len(factors)} factors for a {n}-way tensor")
     if n == 3 and on_start_axis(X, *factors):
         return _mttkrp_starts(X, list(factors), mode)
-    operands = [X] + [factors[i] for i in range(n) if i != mode]
     if takes_kernel(X):
+        operands = [X] + [factors[i] for i in range(n) if i != mode]
         dt = functools.reduce(torch.promote_types, (o.dtype for o in operands))
         return mttkrp3(X, factors, mode).to(dt)
+    return mttkrp_einsum(X, factors, mode)
+
+
+def mttkrp_einsum(X: torch.Tensor, factors, mode: int) -> torch.Tensor:
+    """The plain MTTKRP: one torch.einsum on any device."""
+    n = X.dim()
+    operands = [X] + [factors[i] for i in range(n) if i != mode]
     tensor_sub = _LETTERS[:n]
     factor_subs = [f"{_LETTERS[i]}z" for i in range(n) if i != mode]
     eq = tensor_sub + "," + ",".join(factor_subs) + "->" + _LETTERS[mode] + "z"

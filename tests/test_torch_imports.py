@@ -38,6 +38,7 @@ PORT_MODULES = [
     "matlab_code_tpu_torch.utils.multistart_workload",
     "matlab_code_tpu_torch.utils.time_fit",
     "matlab_code_tpu_torch.utils.time_par2_mesh",
+    "matlab_code_tpu_torch.utils.time_kl", "matlab_code_tpu_torch.utils.time_fused",
     "matlab_code_tpu_torch.utils.score", "matlab_code_tpu_torch.utils.matlab_rng",
     "matlab_code_tpu_torch.utils.datagen", "matlab_code_tpu_torch.utils.plotting",
     "matlab_code_tpu_torch.examples", "matlab_code_tpu_torch.examples.common",
